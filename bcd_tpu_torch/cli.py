@@ -3,13 +3,14 @@ reference src/cli/main.cpp).
 
     python -m bcd_tpu_torch.cli -i in.exr -o out.exr [--device cuda|cpu]
 
-Flags ``-i -o -h -c -a -d -b -w -r -p --p-factor -m -s -e --tile`` keep the
-JAX CLI's meaning, including the ``<input>_hist.exr`` / ``<input>_cov.exr``
-inference when -h/-c are omitted (main.cpp:344-370) and its exit codes.
-``--device`` (default ``cuda``) picks where the denoise runs; with no CUDA
-device the run fails unless it says ``--device cpu``. What the port does
-not carry yet fails with exit code 1: ``-w`` other than 1,
-``--skip-stride`` and ``--stats``.
+Flags ``-i -o -h -c -a -d -b -w -r -p --p-factor -m -s -e --tile
+--skip-stride`` keep the JAX CLI's meaning, including the
+``<input>_hist.exr`` / ``<input>_cov.exr`` inference when -h/-c are omitted
+(main.cpp:344-370) and its exit codes. ``--device`` (default ``cuda``)
+picks where the denoise runs; with no CUDA device the run fails unless it
+says ``--device cpu``. What the port does not carry yet fails with exit
+code 1: ``--stats``, and on CUDA a patch radius of 3 or more (the solve
+kernel is built for radius 1 and 2).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def print_usage(prog: str) -> None:
     print("    -a <file>            The file path to the .bcd.json file containing arguments for the program")
     print(f"    -d <float>           Histogram patch distance threshold (default: {mono.histogram_distance_threshold})")
     print(f"    -b <int>             Radius of search windows (default: {mono.search_window_radius})")
-    print(f"    -w <int>             Radius of patches; this port carries 1 only (default: {mono.patch_radius})")
+    print(f"    -w <int>             Radius of patches; on CUDA 1 or 2 (default: {mono.patch_radius})")
     print(f"    -r <0/1>             1 for random pixel order; accepted for compatibility, the engine is deterministic (default: {int(mono.use_random_pixel_order)})")
     print(f"    -p <0/1>             1 for a spike removal prefiltering (default: {int(d.prefiltering.perform_spike_removal)})")
     print(f"    --p-factor <float>   Spike prefilter threshold = factor * stddev (default: {d.prefiltering.spike_removal_threshold_stdev_factor})")
@@ -49,6 +50,7 @@ def print_usage(prog: str) -> None:
     print(f"    -s <int>             Number of Scales for Multi-Scaling (default: {d.denoiser.nb_of_scales})")
     print(f"    -e <float>           Minimum eigen value for matrix inversion (default: {mono.min_eigen_value})")
     print("    --tile <int>         Processing tile size (default 32)")
+    print("    --skip-stride <int>  Solve only every Nth patch center (deterministic analog of the reference's skip-marking heuristic); 1 = exact, at most 2r+1 (default: 1)")
     print("    --device <name>      Torch device: cuda (default) or cpu")
 
 
@@ -60,6 +62,7 @@ class _Args:
         self.cov_path: Optional[str] = None
         self.pipeline = P.PipelineParameters()
         self.tile: Optional[int] = None
+        self.skip_stride = 1
         self.device = "cuda"
 
 
@@ -127,7 +130,9 @@ def parse_args(argv: List[str]) -> Optional[_Args]:
             args.tile = int(_expect_value(argv, i, flag, "tile size"))
         elif flag == "--device":
             args.device = _expect_value(argv, i, flag, "a torch device name")
-        elif flag in ("--skip-stride", "--stats"):
+        elif flag == "--skip-stride":
+            args.skip_stride = int(_expect_value(argv, i, flag, "stride"))
+        elif flag == "--stats":
             print(f"ERROR: {flag} is not ported yet (ROADMAP.md Queue 1, "
                   "engine options)")
             return None
@@ -135,6 +140,17 @@ def parse_args(argv: List[str]) -> Optional[_Args]:
             i += 1  # unknown tokens skipped, like the reference parser
             continue
         i += 2
+
+    # validated after the loop so it can't depend on -w argument order
+    if mono.patch_radius < 1:
+        print(f"ERROR in program arguments: patch radius {mono.patch_radius} "
+              "must be >= 1")
+        return None
+    if not 1 <= args.skip_stride <= 2 * mono.patch_radius + 1:
+        print("ERROR in program arguments: --skip-stride must be in "
+              f"[1, {2 * mono.patch_radius + 1}] (= patch diameter, so the "
+              "patch aggregation still covers every pixel)")
+        return None
 
     # infer _hist/_cov from the color path when omitted (main.cpp:344-370)
     if args.input_color_path:
@@ -153,10 +169,6 @@ def parse_args(argv: List[str]) -> Optional[_Args]:
         print("ERROR: Missing required program argument(s): " + " ".join(missing))
         print()
         print_usage("python -m bcd_tpu_torch.cli")
-        return None
-    if mono.patch_radius != 1:
-        print(f"ERROR: patch radius {mono.patch_radius} is not ported yet "
-              "(ROADMAP.md Queue 1, the non-fused engine); use -w 1")
         return None
     return args
 
@@ -181,6 +193,15 @@ def launch(argv: List[str]) -> int:
     device = _resolve_device(args.device)
     if device is None:
         return 1
+    if device.type == "cuda":
+        from bcd_tpu_torch.ops.solve_filter import check_kernel_dim
+
+        try:
+            check_kernel_dim(3 * (2 * args.pipeline.denoiser.monoscale
+                                  .patch_radius + 1) ** 2)
+        except NotImplementedError as e:
+            print(f"ERROR: {e}")
+            return 1
 
     try:
         color = image_io.load_exr(args.input_color_path)
@@ -205,7 +226,8 @@ def launch(argv: List[str]) -> int:
     from bcd_tpu_torch.core.pipeline import denoise_pipeline
 
     out = denoise_pipeline(color, nb, histo, cov, device, args.pipeline,
-                           tile=args.tile, progress_callback=progress)
+                           tile=args.tile, skip_stride=args.skip_stride,
+                           progress_callback=progress)
     print()
     image_io.write_exr(to_numpy(out), args.output_path)
     print(f"Written denoised output in file {args.output_path}")

@@ -3,9 +3,9 @@
 
 Only per-pixel moments and filter matrices pass between the kernels:
 
-  K1 masks_moments  -> similar-set masks + raw masked moments per center
-  K2 solve_matrices -> per-pixel filter (A2^T, b2) + main/fallback gates
-  K4 apply_scatter  -> apron-inclusive overlap-add contribution
+  K1 masks_moments     -> similar-set masks + raw masked moments per center
+  K2 solve_matrices_pm -> per-pixel filter (A2^T, b2) + main/fallback gates
+  K4 apply_scatter     -> apron-inclusive overlap-add contribution
 
 The glue here builds the validity maps in global coordinates, exactly as
 ``bcd_tpu/core/monoscale._distance_masks`` evaluates them.
@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from bcd_tpu_torch.core.monoscale import _stride_center_mask
 from bcd_tpu_torch.ops.fused import apply_scatter, masks_moments
-from bcd_tpu_torch.ops.solve_filter import solve_matrices
+from bcd_tpu_torch.ops.solve_filter import solve_matrices_pm
 
 
 def validity_maps(cfg, gy, gx, ly, lx, core_h: int, core_w: int,
@@ -25,8 +26,9 @@ def validity_maps(cfg, gy, gx, ly, lx, core_h: int, core_w: int,
     tiles whose core origins are (gy, gx) globally and (ly, lx) in the
     owned slab; padded coordinate i maps to global gy + i - h.
 
-    center_valid = interior & in_core & owned, so padded and apron centers
-    are never solved and sharded slabs never solve a neighbor's centers."""
+    center_valid = interior & in_core & owned (& on the stride grid), so
+    padded and apron centers are never solved and sharded slabs never solve
+    a neighbor's centers."""
     t, r, h = cfg.tile, cfg.patch_radius, cfg.halo
     tp = t + 2 * h
     i = torch.arange(tp, device=gy.device)
@@ -39,6 +41,10 @@ def validity_maps(cfg, gy, gx, ly, lx, core_h: int, core_w: int,
     row_ok = core & ((ly[:, None] + i - h) < core_h)
     col_ok = core & ((lx[:, None] + i - h) < core_w)
     center_valid = interior & row_ok[:, :, None] & col_ok[:, None, :]
+    stride = _stride_center_mask(cfg, rows_g[:, :, None], cols_g[:, None, :],
+                                 height, width)
+    if stride is not None:
+        center_valid = center_valid & stride
     return torch.stack([center_valid, interior], dim=-1).float()
 
 
@@ -54,9 +60,9 @@ def denoise_tiles_fused(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     valid = validity_maps(cfg, gy, gx, ly, lx, core_h, core_w, height, width)
     masks, m2, misc = masks_moments(histo, nb, color, pixcov, valid,
                                     threshold, t=t, h=h, b=b)
-    a2t, small = solve_matrices(m2.reshape(n_tiles * t * t, -1),
-                                misc.reshape(n_tiles * t * t, -1),
-                                min_eigen, sweeps=cfg.solve_sweeps)
+    a2t, small = solve_matrices_pm(m2.reshape(n_tiles * t * t, -1),
+                                   misc.reshape(n_tiles * t * t, -1),
+                                   min_eigen, sweeps=cfg.solve_sweeps)
     out = apply_scatter(masks, a2t.reshape(n_tiles, t * t, -1),
                         small.reshape(n_tiles, t * t, -1), color,
                         t=t, h=h, b=b)

@@ -2,14 +2,17 @@
 ``bcd_tpu/core/monoscale.py``; reference Denoiser.cpp + DenoisingUnit.cpp).
 
 The image is cut into t x t core tiles with a halo of h = b + r pixels. Each
-tile is denoised by the fused K1 -> K2 -> K4 pipeline (``core/fused.py``),
-which returns the apron-inclusive (out_sum, count) contribution of its
-centers; the contributions are overlap-added in one deterministic pass
+batch of tiles goes through one of two tile engines, which return the
+apron-inclusive (out_sum, count) contribution of their centers; the
+contributions are overlap-added in one deterministic pass
 (``torch.nn.functional.fold``, a gather) and normalized as sum / count.
-Tiles go through the kernels in batches: each kernel launches once per
-batch of ``tile_batch`` tiles, not once per tile.
 
-This slice carries the reference's default geometry only: patch radius 1.
+- Patch radius 1: the fused K1 -> K2 -> K4 pipeline (``core/fused.py``).
+- Any other radius: the candidate-stack engine below, the port of JAX's
+  non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
+  the ``solve_filter`` kernel, run only on the main-path centers.
+
+Each kernel launches once per batch of tiles, not once per tile.
 """
 
 from __future__ import annotations
@@ -18,12 +21,23 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from bcd_tpu_torch.params import DenoiserParameters
 from bcd_tpu_torch.convert import to_device
-from bcd_tpu_torch.core.fused import denoise_tiles_fused
+from bcd_tpu_torch.ops.solve_filter import solve_filter
+
+# Jacobi sweeps of solve_filter in the candidate-stack engine: JAX's
+# accelerator path calls solve_filter without ``sweeps``
+# (bcd_tpu/core/monoscale.py:412-415), so it runs the kernel's default 6
+# (ops/solve_filter_pallas.py:442), not MonoscaleConfig.solve_sweeps (K2's)
+SOLVE_FILTER_SWEEPS = 6
+FUSED_TILE_BATCH = 128
+# at r = 2, b = 6, t = 32 a batch of 16 tiles holds a (16384, 169, 75) fp32
+# candidate stack of 831 MB, and the filtered field as much again
+STACK_TILE_BATCH = 16
 
 
 @dataclass(frozen=True)
@@ -34,31 +48,268 @@ class MonoscaleConfig:
     search_radius: int = 6
     tile: int = 32  # core tile side, in pixels
     solve_sweeps: int = 4  # Jacobi sweeps of K2's eigenvalue clamp
-    # tiles per kernel launch; only the tile-grid test sets it, to split a
-    # small image's grid into several batches
-    tile_batch: int = 128
+    # tiles per kernel launch; None: FUSED_TILE_BATCH for the fused engine,
+    # STACK_TILE_BATCH for the candidate-stack engine
+    tile_batch: Optional[int] = None
+    # solve only every skip_stride-th center on both axes (the deterministic
+    # analog of the reference's skip marking, DenoisingUnit.cpp:163-173);
+    # at most 2r + 1, so the patch aggregation still covers every pixel
     skip_stride: int = 1
     collect_stats: bool = False
 
     def __post_init__(self):
-        if self.patch_radius != 1:
-            raise NotImplementedError(
-                f"patch radius {self.patch_radius}: the port carries r = 1 "
-                "only (ROADMAP.md Queue 1, the non-fused engine, -w 2)")
-        if self.skip_stride != 1:
-            raise NotImplementedError(
-                "skip_stride > 1 is not ported yet (ROADMAP.md Queue 1, "
-                "engine options)")
+        if self.patch_radius < 1:
+            raise ValueError(f"patch radius {self.patch_radius} must be >= 1")
+        if not 1 <= self.skip_stride <= self.k:
+            raise ValueError(f"skip_stride {self.skip_stride} must be in "
+                             f"[1, 2r + 1 = {self.k}]")
         if self.collect_stats:
             raise NotImplementedError(
                 "the DenoisingStatistics counters (--stats) are not ported "
                 "yet (ROADMAP.md Queue 1, engine options)")
-        if self.tile < 1 or self.tile_batch < 1:
+        if self.tile < 1 or (self.tile_batch is not None
+                             and self.tile_batch < 1):
             raise ValueError(f"bad tile {self.tile} / batch {self.tile_batch}")
+
+    @property
+    def fused(self) -> bool:  # the engine: fused K1 -> K2 -> K4 at r = 1
+        return self.patch_radius == 1
+
+    @property
+    def batch(self) -> int:
+        return self.tile_batch or (FUSED_TILE_BATCH if self.fused
+                                   else STACK_TILE_BATCH)
 
     @property
     def halo(self) -> int:
         return self.patch_radius + self.search_radius
+
+    @property
+    def k(self) -> int:  # patch side
+        return 2 * self.patch_radius + 1
+
+    @property
+    def npx(self) -> int:  # pixels per patch
+        return self.k * self.k
+
+    @property
+    def d(self) -> int:  # color patch dimension
+        return 3 * self.npx
+
+
+def _offsets(cfg: MonoscaleConfig) -> np.ndarray:
+    """(O, 2) window offsets (dy, dx), row-major over [-b, b]^2."""
+    b = cfg.search_radius
+    dy, dx = np.meshgrid(np.arange(-b, b + 1), np.arange(-b, b + 1),
+                         indexing="ij")
+    return np.stack([dy.ravel(), dx.ravel()], axis=1)
+
+
+def _stride_center_mask(cfg: MonoscaleConfig, rows_g, cols_g, height: int,
+                        width: int):
+    """Solved-center mask for ``skip_stride`` > 1 (broadcasts over the given
+    global row / column index tensors); None at stride 1.
+
+    Centers on a regular stride grid anchored so that the first and last
+    interior row and column are always centers (the deterministic
+    replacement for the reference's skip marking, Denoiser.cpp:161-162 +
+    DenoisingUnit.cpp:163-173, 690). With stride <= 2r+1 every interior
+    pixel lies within the patch radius of a solved center."""
+    s = cfg.skip_stride
+    if s <= 1:
+        return None
+    r = cfg.patch_radius
+
+    def on(v, size):
+        return ((v - r) % s == 0) | (v == size - 1 - r)
+
+    return on(rows_g, height) & on(cols_g, width)
+
+
+def _patchify(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H-2r, W-2r, (2r+1)^2 C): per-pixel patch vectors,
+    patch pixel row-major, channel innermost (the reference's color patch
+    layout, DenoisingUnit.cpp:483-498)."""
+    h, w = img.shape[1:3]
+    k = 2 * radius + 1
+    return torch.cat([img[:, dy : h - 2 * radius + dy, dx : w - 2 * radius + dx]
+                      for dy in range(k) for dx in range(k)], dim=-1)
+
+
+def _box_sum(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Valid-mode k x k box sum over the last two dims."""
+    for axis in (-2, -1):
+        n = x.shape[axis]
+        acc = x.narrow(axis, 0, n - k + 1)
+        for s in range(1, k):
+            acc = acc + x.narrow(axis, s, n - k + 1)
+        x = acc
+    return x
+
+
+def _distance_masks(cfg, histo, nb, gy, gx, ly, lx, core_h: int, core_w: int,
+                    height: int, width: int, threshold: float):
+    """Similar-patch masks for N tiles: (N, O, t, t) float32 masks and the
+    (N, t, t) bool center_valid.
+
+    Inputs are (N, tp, tp, nbins) histograms and (N, tp, tp) sample counts.
+    Distances follow DenoisingUnit.cpp histogramPatchDistance, as JAX's
+    plain path computes them: no guard against a zero denominator (the
+    fused K1 has one). Candidates outside the global interior are
+    rejected, the self offset is selected for every valid center, and
+    centers are restricted to the owned core and the stride grid.
+
+    The offsets go one window row (2b + 1 offsets) at a time: a launch per
+    offset would leave the card idle behind the host."""
+    t, r, b, h = cfg.tile, cfg.patch_radius, cfg.search_radius, cfg.halo
+    e, lo = t + 2 * r, h - r
+    hist_c = histo[:, None, lo : lo + e, lo : lo + e]
+    nb_c = nb[:, None, lo : lo + e, lo : lo + e, None]
+    span = torch.arange(t, device=histo.device)
+    rows = gy[:, None] + span  # (N, t) global center rows
+    cols = gx[:, None] + span
+    dxs = torch.arange(-b, b + 1, device=histo.device)
+
+    def inside(v, size):
+        return (v >= r) & (v <= size - 1 - r)
+
+    def window_row(img, dy):  # (N, 2b + 1, e, e, ...): offsets (dy, -b..b)
+        return torch.stack([img[:, lo + dy : lo + dy + e,
+                                lo + dx : lo + dx + e]
+                            for dx in range(-b, b + 1)], dim=1)
+
+    # columns of the candidates at each dx: (N, 2b + 1, 1, t)
+    cols_ok = inside(cols[:, None, :] + dxs[None, :, None], width)[:, :, None]
+    masks = []
+    for dy in range(-b, b + 1):
+        hist_n = window_row(histo, dy)
+        nb_n = window_row(nb, dy)[..., None]
+        hsum = hist_c + hist_n
+        keep = hsum > 1.0  # "TEMPORARY" bin gate, DenoisingUnit.cpp:379
+        diff = nb_n * hist_c - nb_c * hist_n
+        denom = torch.where(keep, nb_c * nb_n * hsum, 1.0)
+        num = _box_sum(torch.where(keep, diff * diff / denom, 0.0).sum(-1),
+                       cfg.k)
+        cnt = _box_sum(keep.sum(-1, dtype=torch.float32), cfg.k)
+        dist = torch.where(cnt > 0, num / cnt.clamp(min=1.0), torch.inf)
+        masks.append((dist <= threshold)
+                     & inside(rows + dy, height)[:, None, :, None] & cols_ok)
+    masks = torch.cat(masks, dim=1)
+
+    owned = (((ly[:, None] + span) < core_h)[:, :, None]
+             & ((lx[:, None] + span) < core_w)[:, None, :])
+    center_valid = (inside(rows, height)[:, :, None]
+                    & inside(cols, width)[:, None, :] & owned)
+    stride = _stride_center_mask(cfg, rows[:, :, None], cols[:, None, :],
+                                 height, width)
+    if stride is not None:
+        center_valid = center_valid & stride
+    masks[:, masks.shape[1] // 2] = center_valid
+    masks &= center_valid[:, None]
+    return masks.float(), center_valid
+
+
+def candidate_stacks(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
+                     core_h: int, core_w: int, height: int, width: int,
+                     threshold: float):
+    """The solve's per-center inputs for N tiles, pixel-major over the
+    P = N t t centers (tile, row, column): a dict of ``mask`` (P, O),
+    ``cand`` (P, O, d) candidate patches, ``m`` (P, d) masked mean patches,
+    ``noise`` (P, 6 npx) masked mean noise channels, ``n`` (P,) set sizes,
+    and the ``main`` / ``fb`` (P,) bool gates (JAX monoscale.py:349-410)."""
+    t, b = cfg.tile, cfg.search_radius
+    masks, center_valid = _distance_masks(
+        cfg, histo, nb[..., 0], gy, gx, ly, lx, core_h, core_w, height,
+        width, threshold)
+    offs = _offsets(cfg).tolist()
+    n_tiles, n_off = masks.shape[:2]
+    p_total = n_tiles * t * t
+
+    def at(img, dy, dx):  # the candidates at offset (dy, dx) of every center
+        return img[:, b + dy : b + dy + t, b + dx : b + dx + t]
+
+    # patchifying the whole slab gives the patches of the extended core
+    # [r, r + t + 2b): entry (i, j) is the patch centered at (r + i, r + j)
+    cp_ext = _patchify(color, cfg.patch_radius)
+    cv_ext = _patchify(pixcov, cfg.patch_radius)
+    cand = torch.stack([at(cp_ext, dy, dx) for dy, dx in offs],
+                       dim=3).reshape(p_total, n_off, cfg.d)
+    mask = masks.permute(0, 2, 3, 1).reshape(p_total, n_off)
+    n = mask.sum(1)
+    n_safe = n.clamp(min=1.0)
+    # the noise stack (1.66 GB a 16-tile batch at r = 2, b = 6) is
+    # accumulated one window row of offsets at a time, never materialized
+    k_b = 2 * b + 1
+    noise = torch.zeros((n_tiles, t, t, 6 * cfg.npx), device=color.device)
+    for row in range(k_b):
+        cv_row = torch.stack([at(cv_ext, dy, dx)
+                              for dy, dx in offs[row * k_b : (row + 1) * k_b]],
+                             dim=1)
+        noise += (masks[:, row * k_b : (row + 1) * k_b, :, :, None]
+                  * cv_row).sum(1)
+    cv = center_valid.reshape(p_total)
+    main = (n >= cfg.d + 1) & cv
+    return {
+        "mask": mask, "cand": cand, "n": n_safe,
+        "m": torch.einsum("po,pod->pd", mask, cand) / n_safe[:, None],
+        "noise": noise.reshape(p_total, -1) / n_safe[:, None],
+        "main": main, "fb": cv & ~main,
+    }
+
+
+def denoise_tiles(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
+                  core_h: int, core_w: int, height: int, width: int,
+                  threshold: float, min_eigen: float):
+    """Denoise N tiles with the candidate-stack engine. Inputs are
+    (N, tp, tp, C) halo-padded slabs and (N,) integer tile origins; returns
+    (out_sum (N, tp, tp, 3), count (N, tp, tp)), the apron-inclusive
+    contributions for the global overlap-add.
+
+    Only main-path centers go through ``solve_filter``: JAX runs the solve
+    on every center and multiplies the fallback and invalid ones by a zero
+    gate (monoscale.py:418), which this skips. Each center's solve is
+    independent, so the result is the same, and centers off the stride grid
+    cost nothing."""
+    t, r, b = cfg.tile, cfg.patch_radius, cfg.search_radius
+    tp = color.shape[1]
+    n_tiles = color.shape[0]
+    s = candidate_stacks(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
+                         core_h, core_w, height, width, threshold)
+    p_total, n_off, d = s["cand"].shape
+    self_o = n_off // 2
+    main = s["main"].float()
+
+    field = torch.zeros_like(s["cand"])
+    idx = s["main"].nonzero()[:, 0]
+    if idx.numel():
+        def lanes(x):  # the main-path centers, pixels last
+            return x[idx].movedim(0, -1).contiguous()
+
+        field_t = solve_filter(
+            lanes(s["cand"]), lanes(s["mask"]), lanes(s["noise"]),
+            s["n"][idx][None].contiguous(), lanes(s["m"]), min_eigen,
+            npx=cfg.npx, sweeps=SOLVE_FILTER_SWEEPS)
+        field[idx] = field_t.movedim(-1, 0)
+    field[:, self_o] += s["fb"].float()[:, None] * s["m"]
+    cnt = s["mask"] * main[:, None]
+    cnt[:, self_o] += s["fb"].float()
+
+    # segment sum at the candidate centers (DenoisingUnit.cpp:672-693): a
+    # fold with kernel 2b+1 puts offset o of center (y, x) at (y, x) + o in
+    # the candidate frame [r, r + t + 2b) of the slab
+    e, kb = t + 2 * b, 2 * b + 1
+    facc = F.fold(field.reshape(n_tiles, t * t, n_off, d).permute(0, 3, 2, 1)
+                  .reshape(n_tiles, d * n_off, t * t), (e, e), kb)
+    cacc = F.fold(cnt.reshape(n_tiles, t * t, n_off).transpose(1, 2),
+                  (e, e), kb)
+    # fan out: pixel y receives component group q of the candidate at
+    # y - q, a fold with kernel 2r+1 from the candidate frame to the slab
+    k, npx = cfg.k, cfg.npx
+    groups = facc.reshape(n_tiles, npx, 3, e * e).transpose(1, 2)
+    out = F.fold(groups.reshape(n_tiles, 3 * npx, e * e), (tp, tp), k)
+    count = F.fold(cacc.reshape(n_tiles, 1, e * e).expand(-1, npx, -1),
+                   (tp, tp), k)
+    return out.permute(0, 2, 3, 1), count[:, 0]
 
 
 def _pad_hw(img: torch.Tensor, top: int, bottom: int, left: int, right: int,
@@ -68,7 +319,7 @@ def _pad_hw(img: torch.Tensor, top: int, bottom: int, left: int, right: int,
 
 def tile_batches(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p):
     """Cut halo-padded (core_h + 2h, core_w + 2h, C) inputs into tile
-    slabs. Yields, per batch of up to ``cfg.tile_batch`` tiles,
+    slabs. Yields, per batch of up to ``cfg.batch`` tiles,
     (tile indices, (ly, lx) core origins in the slab, [color, nb, histo,
     pixcov] (N, tp, tp, C) slabs); tiles are numbered row-major over the
     (ceil(core_h / t), ceil(core_w / t)) grid."""
@@ -89,8 +340,8 @@ def tile_batches(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p):
     dev = color_p.device
     span = torch.arange(tp, device=dev)
     n_tiles = ny * nx
-    for k0 in range(0, n_tiles, cfg.tile_batch):
-        idx = torch.arange(k0, min(k0 + cfg.tile_batch, n_tiles), device=dev)
+    for k0 in range(0, n_tiles, cfg.batch):
+        idx = torch.arange(k0, min(k0 + cfg.batch, n_tiles), device=dev)
         ly, lx = (idx // nx) * t, (idx % nx) * t
         rows = (ly[:, None] + span)[:, :, None]
         cols = (lx[:, None] + span)[:, None, :]
@@ -110,6 +361,9 @@ def denoise_accumulate(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p,
     masks are evaluated globally. The accumulators (core_h + 2h,
     core_w + 2h[, 3]) hold, in the apron, contributions that belong to
     neighboring slabs."""
+    from bcd_tpu_torch.core.fused import denoise_tiles_fused
+
+    tiles = denoise_tiles_fused if cfg.fused else denoise_tiles
     t, h = cfg.tile, cfg.halo
     core_h, core_w = color_p.shape[0] - 2 * h, color_p.shape[1] - 2 * h
     g_h, g_w = global_shape if global_shape is not None else (core_h, core_w)
@@ -119,7 +373,7 @@ def denoise_accumulate(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p,
                           device=color_p.device)
     for idx, (ly, lx), slabs in tile_batches(cfg, color_p, nb_p, histo_p,
                                              cov_p):
-        out_sum, count = denoise_tiles_fused(
+        out_sum, count = tiles(
             cfg, *slabs, origin[0] + ly, origin[1] + lx, ly, lx,
             core_h, core_w, g_h, g_w, threshold, min_eigen)
         contrib[idx, 0:3] = out_sum.permute(0, 3, 1, 2)
@@ -152,21 +406,25 @@ def denoise_image(cfg: MonoscaleConfig, color, nb, histo, cov,
 
 
 def auto_engine_config(params: DenoiserParameters,
-                       tile: Optional[int] = None) -> MonoscaleConfig:
+                       tile: Optional[int] = None,
+                       skip_stride: int = 1) -> MonoscaleConfig:
     """The engine configuration for ``params``: the one place engine
-    selection happens."""
+    selection happens. Patch radius 1 takes the fused engine, any other the
+    candidate-stack engine (``MonoscaleConfig.fused``)."""
     return MonoscaleConfig(
         patch_radius=params.patch_radius,
         search_radius=params.search_window_radius,
         tile=tile or MonoscaleConfig.tile,
+        skip_stride=skip_stride,
     )
 
 
 def denoise_monoscale(color, nb, histo, cov, params: DenoiserParameters,
-                      device, tile: Optional[int] = None) -> torch.Tensor:
+                      device, tile: Optional[int] = None,
+                      skip_stride: int = 1) -> torch.Tensor:
     """Denoise one scale. Arrays are (H, W, C) (numpy or tensors), moved
     to ``device`` as float32; returns an (H, W, 3) tensor on ``device``."""
-    cfg = auto_engine_config(params, tile=tile)
+    cfg = auto_engine_config(params, tile=tile, skip_stride=skip_stride)
     return denoise_image(
         cfg, *to_device(color, nb, histo, cov, device),
         float(params.histogram_distance_threshold),

@@ -34,6 +34,7 @@ def _scale_progress_mapper(nb_of_scales: int, scale: int):
 def denoise_multiscale(color, nb, histo, cov, params: DenoiserParameters,
                        device, nb_of_scales: int = 3,
                        tile: Optional[int] = None,
+                       skip_stride: int = 1,
                        progress_callback: Optional[
                            Callable[[float], None]] = None):
     """Full multiscale denoise on ``device``; returns an (H, W, 3) tensor."""
@@ -52,7 +53,8 @@ def denoise_multiscale(color, nb, histo, cov, params: DenoiserParameters,
         mapper = _scale_progress_mapper(nb_of_scales, scale)
         if progress_callback is not None:
             progress_callback(mapper(0.0))
-        out = denoise_monoscale(*inputs[scale], params, device, tile=tile)
+        out = denoise_monoscale(*inputs[scale], params, device, tile=tile,
+                                skip_stride=skip_stride)
         if progress_callback is not None:
             progress_callback(mapper(1.0))
         merged = out if merged is None else resample.merge_outputs(out, merged)

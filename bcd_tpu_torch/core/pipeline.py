@@ -27,11 +27,13 @@ def denoise_pipeline(colors, nb_of_samples, histograms, sample_covariances,
                      device, pipeline_params: Optional[
                          PipelineParameters] = None,
                      tile: Optional[int] = None,
+                     skip_stride: int = 1,
                      progress_callback: Optional[
                          Callable[[float], None]] = None) -> torch.Tensor:
     """Full pipeline on in-memory (H, W, C) arrays (numpy or tensors),
     computed on ``device``; returns the sanitized (H, W, 3) float32 tensor
-    on ``device``."""
+    on ``device``. ``skip_stride`` > 1 solves only every skip_stride-th patch
+    center on both axes (``MonoscaleConfig.skip_stride``)."""
     p = pipeline_params or PipelineParameters()
     color, nb, histo, cov = to_device(colors, nb_of_samples, histograms,
                                       sample_covariances, device)
@@ -45,10 +47,10 @@ def denoise_pipeline(colors, nb_of_samples, histograms, sample_covariances,
         out = denoise_multiscale(
             color, nb, histo, cov, p.denoiser.monoscale, device,
             nb_of_scales=p.denoiser.nb_of_scales, tile=tile,
-            progress_callback=progress_callback)
+            skip_stride=skip_stride, progress_callback=progress_callback)
     else:
         out = denoise_monoscale(color, nb, histo, cov, p.denoiser.monoscale,
-                                device, tile=tile)
+                                device, tile=tile, skip_stride=skip_stride)
         if progress_callback is not None:
             progress_callback(1.0)
     return sanitize_output(out)

@@ -107,7 +107,7 @@ __device__ void chol_solve_bd(float* S, float* X, const float* nov, int lane) {
 }
 
 __global__ void __launch_bounds__(32 * WARPS)
-solve_matrices_kernel(const float* __restrict__ m2, const float* __restrict__ misc,
+solve_matrices_pm_kernel(const float* __restrict__ m2, const float* __restrict__ misc,
                       float eps, int n_pixels, int sweeps,
                       float* __restrict__ a2t, float* __restrict__ small) {
   __shared__ float smem[WARPS * PER_WARP];
@@ -258,12 +258,12 @@ solve_matrices_kernel(const float* __restrict__ m2, const float* __restrict__ mi
 
 }  // namespace
 
-extern "C" int bcd_solve_matrices(const float* m2, const float* misc, float eps,
-                                  int n_pixels, int sweeps, float* a2t,
-                                  float* small, void* stream) {
+extern "C" int bcd_solve_matrices_pm(const float* m2, const float* misc,
+                                     float eps, int n_pixels, int sweeps,
+                                     float* a2t, float* small, void* stream) {
   if (n_pixels > 0) {
     const int blocks = (n_pixels + WARPS - 1) / WARPS;
-    solve_matrices_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+    solve_matrices_pm_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
         m2, misc, eps, n_pixels, sweeps, a2t, small);
   }
   return (int)cudaGetLastError();

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels (``bcd_tpu_torch/csrc/*.cu``).
 
-Every ``.cu`` file is compiled by ``nvcc`` into ONE shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds) under
-``build/kernels/`` in the checkout, on first use, and loaded with
-``ctypes``. The library's file name carries a hash of the sources and flags,
+Every ``.cu`` file is compiled by its own ``nvcc``, all started together,
+and the objects are linked into ONE shared library with a plain C interface
+(no PyTorch headers, so the build takes seconds) under ``build/kernels/``
+in the checkout, on first use, and loaded with ``ctypes``. The library's file name carries a hash of the sources and flags,
 so an edited kernel is rebuilt. Each C entry launches on the stream it is
 given, allocates nothing and returns ``cudaGetLastError()``; ``check``
 raises when that is not 0.
@@ -11,7 +11,7 @@ raises when that is not 0.
 Nothing here runs at import time: this module is imported on hosts with no
 ``nvcc`` and no card (the CPU tests), where the wrappers never reach it.
 
-``LAUNCHES`` counts kernel launches per wrapper (K1, K2, K4). A wrapper adds
+``LAUNCHES`` counts kernel launches per wrapper. A wrapper adds
 one where it calls its C entry, and nowhere else, so a run can show that
 the main path went through the hand-written kernels.
 """
@@ -34,9 +34,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 # --use_fast_math's approximate division and rsqrt are the class of error
 # that cost the TPU solve kernel 5.5e-4 rms (ops/solve_filter_pallas.py:65-77)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"masks_moments": 0, "solve_matrices": 0, "apply_scatter": 0}
+LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
+            "solve_filter": 0, "solve_matrices": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,9 +48,14 @@ _SIGNATURES = {
     "bcd_masks_moments": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P],
     # m2, misc, eps, n_pixels, sweeps, a2t, small, stream
-    "bcd_solve_matrices": [_P, _P, _F, _I, _I, _P, _P, _P],
+    "bcd_solve_matrices_pm": [_P, _P, _F, _I, _I, _P, _P, _P],
     # masks, a2t, small, color, n_tiles, t, h, b, f_scratch, out, stream
     "bcd_apply_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # cand, mask, noise, n, m, eps, n_pixels, n_offsets, d, sweeps, field,
+    # stream
+    "bcd_solve_filter": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P],
+    # m2, msum, nov, n, eps, n_pixels, d, sweeps, a2t, b2, stream
+    "bcd_solve_matrices": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -88,15 +94,29 @@ def library() -> ctypes.CDLL:
     log_path = path.with_suffix(".log")
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
+        objs = [f"{tmp}.{src.stem}.o" for src in sources]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{out}")
+        link = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.so", *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
+            raise RuntimeError(f"nvcc link failed (rc {proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        log_path.write_text(log)
+        os.replace(f"{tmp}.so", path)
+        for obj in objs:
+            os.remove(obj)
     _log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

@@ -8,12 +8,14 @@ the final line:
 
 1. The card (name, count, power limit) and the kernel build: nvcc's
    register, shared-memory and spill report for every kernel.
-2. Each kernel (K1 masks_moments, K2 solve_matrices, K4 apply_scatter)
-   against its plain PyTorch twin at the main path's shapes (b=6, r=1,
-   60 bins, tile 32): one tile batch of the golden scene and one of the
-   full-size scene. K2 is also held to its twin through K4, on every
-   pixel the batch's filters reach. Kernel and twin are timed with CUDA
-   events.
+2. Each kernel against its plain PyTorch twin, timed with CUDA events:
+   K1 masks_moments, K2 solve_matrices_pm and K4 apply_scatter at the
+   -w 1 path's shapes (b=6, r=1, 60 bins, tile 32) on one tile batch of
+   the golden scene and one of the full-size scene, K2 also through K4 on
+   every pixel the batch's filters reach; solve_filter and the lane-form
+   solve_matrices on synthetic stacks at d = 27 and 75, and on one real
+   16-tile batch of the full-size scene at r=2, b=6 (the stacks the
+   -w 2 engine builds), finite on every center.
 3. The golden scene (tests/golden) through the port: monoscale and 2-scale
    outputs within rmse 1e-4 of the committed goldens, and the main-path
    fraction (gate sum over managed pixels).
@@ -23,7 +25,11 @@ the final line:
    each have launched. Wall time, MPix/s, peak memory; the same pipeline
    with K2's float64 twin in K2's place, within the goldens' rmse bound;
    device time by kernel from one traced run.
-5. One JSON line of kernel results, the card line, and the final line
+5. The -w 2 run through the CLI's entry point on the same scene: it must
+   launch solve_filter and beat the noisy input. Wall time, MPix/s and
+   peak memory of the r=2 pipeline (bitwise repeatable); the card against
+   the port's CPU pipeline on a 64x64 crop; device time by kernel.
+6. One JSON line of kernel results, the card line, and the final line
    ``{"ok": true, "device": {...}}``.
 
 Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
@@ -49,6 +55,24 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 K2_CANDIDATE_REL_RMS = 2e-4
 # the whole pipeline with K2 against it with the twin: the goldens' rmse bound
 E2E_K2_RMSE = 1e-4
+# solve_filter's Jacobi sweeps on the -w 2 path (core/monoscale.py)
+SOLVE_SWEEPS = 6
+# synthetic solves against their float64 twins: JAX's own kernel-vs-
+# reference bound (tests/test_solve_filter_pallas.py:34)
+SYNTH_RMS = 2e-4
+# real r = 2 batch: the filtered field against the float64 twin's, relative
+# rms, the bound K2's filtered self-candidate is held to
+BATCH_REL_RMS = 1e-3
+# the -w 2 pipeline on the card against the port's CPU pipeline: the
+# goldens' bound
+R2_CPU_RMSE = 1e-4
+# the kernels each path launches (ops/_build.LAUNCHES keys)
+R1_KERNELS = ("masks_moments", "solve_matrices_pm", "apply_scatter")
+R2_KERNELS = ("solve_filter",)
+# centers of the real r = 2 batch on which the lane solve_matrices, on no
+# engine path, is held to its float64 twin (whose call takes about 3 ms a
+# center on the card)
+LANE_CENTERS = 2048
 
 
 def fail(msg: str) -> None:
@@ -64,6 +88,19 @@ def need(cond, msg: str) -> None:
 def rmse(a, b) -> float:
     return float(np.sqrt(np.mean(
         (np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)))
+
+
+def timed_once(fn):
+    """(fn(), ms) for one call timed with CUDA events, no warm-up: for the
+    float64 twins, whose one call takes seconds."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -186,16 +223,16 @@ def main_path_fraction(cfg, color, nb, histo, cov, params, device) -> float:
     """Main-path solves over managed (main + fallback) pixels: the sum of
     K2's gates over every tile of the image."""
     from bcd_tpu_torch.ops.fused import masks_moments
-    from bcd_tpu_torch.ops.solve_filter import D, solve_matrices
+    from bcd_tpu_torch.ops.solve_filter import D, solve_matrices_pm
 
     t, h, b = cfg.tile, cfg.halo, cfg.search_radius
     main = fb = 0.0
     for inputs in k1_batches(cfg, color, nb, histo, cov, device):
         _, m2, misc = masks_moments(
             *inputs, params.histogram_distance_threshold, t=t, h=h, b=b)
-        _, small = solve_matrices(m2.reshape(-1, m2.shape[-1]),
-                                  misc.reshape(-1, misc.shape[-1]),
-                                  params.min_eigen_value, cfg.solve_sweeps)
+        _, small = solve_matrices_pm(m2.reshape(-1, m2.shape[-1]),
+                                     misc.reshape(-1, misc.shape[-1]),
+                                     params.min_eigen_value, cfg.solve_sweeps)
         main += float(small[:, D].sum())
         fb += float(small[:, 2 * D + 1].sum())
     need(main + fb > 0, "no managed pixels")
@@ -273,9 +310,10 @@ def compare_kernels(label, inputs, params, cfg, reps):
 
     # K2 on the real moments (the engine's 4 sweeps) vs the float64 twin
     m2f, miscf = m2.reshape(-1, ts.DTRI), misc.reshape(-1, ts.MISC_CH)
-    k2 = lambda: ts.solve_matrices(  # noqa: E731
+    k2 = lambda: ts.solve_matrices_pm(  # noqa: E731
         m2f, miscf, eps, sweeps=cfg.solve_sweeps)
-    k2_plain = lambda: ts.solve_matrices_plain(m2f, miscf, eps)  # noqa: E731
+    k2_plain = lambda: ts.solve_matrices_pm_plain(  # noqa: E731
+        m2f, miscf, eps)
     a2t, small = k2()
     a2t_p, small_p = k2_plain()
     need(torch.equal(small[:, D], small_p[:, D])
@@ -304,10 +342,10 @@ def compare_kernels(label, inputs, params, cfg, reps):
     f_p = filtered(a2t_p, small_p)
     rel = rms(filtered(a2t, small) - f_p) / rms(f_p)
     err = float((filtered(a2t, small) - f_p).abs().max())
-    k2_6 = ts.solve_matrices(m2f, miscf, eps, sweeps=6)
+    k2_6 = ts.solve_matrices_pm(m2f, miscf, eps, sweeps=6)
     rel6 = rms(filtered(*k2_6) - f_p) / rms(f_p)
     res["K2"] = (err, cuda_ms(k2, reps), cuda_ms(k2_plain, 1))
-    print(f"[2] {label} K2 solve_matrices ({m2f.shape[0]} pixels, "
+    print(f"[2] {label} K2 solve_matrices_pm ({m2f.shape[0]} pixels, "
           f"{int(main.sum())} on the main path, real K1 moments) vs float64 "
           f"twin: filtered self-candidate rel rms {rel:.3e} at "
           f"sweeps={cfg.solve_sweeps} ({rel6:.3e} at sweeps=6), max abs "
@@ -359,6 +397,223 @@ def compare_kernels(label, inputs, params, cfg, reps):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 2, continued: solve_filter and the lane-form solve_matrices
+# ---------------------------------------------------------------------------
+
+
+def stack_inputs(rng, O, d, P, device):
+    """Random candidate stacks in JAX's lane layout (the synthetic inputs
+    of tests/test_solve_filter_pallas.py::make_inputs) and their raw
+    moments: dict of C (O, d, P), mask (O, P), noise (6 npx, P), n (1, P),
+    m (d, P), m2 (d, d, P), msum (d, P), nov (6 npx, P)."""
+    import torch
+
+    npx = d // 3
+    C = rng.standard_normal((O, d, P))
+    mask = (rng.random((O, P)) < 0.7).astype(np.float64)
+    mask[O // 2] = 1.0
+    n = mask.sum(axis=0, keepdims=True)
+    m = (C * mask[:, None, :]).sum(axis=0) / n
+    noise = np.zeros((npx, 6, P))
+    noise[:, 0:3] = 0.05 + 0.1 * rng.random((npx, 3, P))
+    noise[:, 3:6] = 0.01 * rng.standard_normal((npx, 3, P))
+    noise = noise.reshape(6 * npx, P)
+    mk = mask[:, None, :]
+    x = dict(C=C, mask=mask, noise=noise, n=n, m=m,
+             m2=np.einsum("okp,olp->klp", mk * C, C), msum=(mk * C).sum(0),
+             nov=noise * n)
+    return {k: torch.tensor(np.ascontiguousarray(v, np.float32),
+                            device=device) for k, v in x.items()}
+
+
+def lane_moments(x):
+    """The lane solve_matrices' inputs (m2, msum, nov, n) from a stack."""
+    import torch
+
+    mk = x["mask"][:, None, :]
+    return (torch.einsum("okp,olp->klp", mk * x["C"], x["C"]).contiguous(),
+            (mk * x["C"]).sum(0), (x["noise"] * x["n"]).contiguous(), x["n"])
+
+
+def r2_batch(stats, dev, thr, batch=8):
+    """The candidate-stack engine's solve inputs for tile batch ``batch``
+    (16 tiles of 32x32) of a whole image at r = 2, b = 6, built as the
+    engine builds them. Returns (lanes of every center, main-path mask)."""
+    from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
+                                              candidate_stacks, tile_batches)
+
+    cfg = MonoscaleConfig(patch_radius=2, search_radius=6)
+    height, width = stats[0].shape[:2]
+    batches = tile_batches(cfg, *padded(cfg, *stats, dev))
+    for _ in range(batch):
+        next(batches)
+    _, (ly, lx), slabs = next(batches)
+    s = candidate_stacks(cfg, *slabs, ly, lx, ly, lx, height, width, height,
+                         width, thr)
+    lanes = {k: s[k].movedim(0, -1).contiguous()
+             for k in ("cand", "mask", "noise", "m")}
+    return {"C": lanes["cand"], "mask": lanes["mask"],
+            "noise": lanes["noise"], "n": s["n"][None].contiguous(),
+            "m": lanes["m"]}, s["main"]
+
+
+def r2_main_fraction(stats, dev, thr) -> float:
+    """Main-path centers over managed centers of the r = 2, b = 6 engine on
+    a whole image: n >= d + 1 similar patches (distance masks only)."""
+    from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
+                                              _distance_masks, tile_batches)
+
+    cfg = MonoscaleConfig(patch_radius=2, search_radius=6)
+    height, width = stats[0].shape[:2]
+    main = managed = 0
+    for _, (ly, lx), slabs in tile_batches(cfg, *padded(cfg, *stats, dev)):
+        masks, cv = _distance_masks(cfg, slabs[2], slabs[1][..., 0], ly, lx,
+                                    ly, lx, height, width, height, width, thr)
+        main += int(((masks.sum(1) >= cfg.d + 1) & cv).sum())
+        managed += int(cv.sum())
+    need(managed > 0, "no managed pixels at r = 2")
+    return main / managed
+
+
+def rel_rms(got, ref) -> float:
+    import torch
+
+    return float(torch.sqrt(torch.mean((got.double() - ref.double()) ** 2))
+                 / torch.sqrt(torch.mean(ref.double() ** 2)))
+
+
+def compare_solve_synthetic(dev):
+    """solve_filter at d = 75 and the lane solve_matrices at d = 27 and 75
+    against their twins (and against solve_filter) on synthetic stacks,
+    within JAX's own kernel-vs-reference bound. Returns the max abs err."""
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    err = 0.0
+    for O, d in ((49, 27), (169, 75)):
+        x = stack_inputs(np.random.default_rng(d), O, d, 1024, dev)
+        npx = d // 3
+        args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
+        field = ts.solve_filter(*args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+        ref = ts.solve_filter_plain(*args, 1e-8, npx=npx)
+        e_f = rmse(field.cpu(), ref.cpu())
+        lane = ts.solve_matrices(*lane_moments(x), 1e-8, npx=npx,
+                                 sweeps=SOLVE_SWEEPS)
+        lane_p = ts.solve_matrices_plain(*lane_moments(x), 1e-8, npx=npx)
+        e_l = max(rmse(g.cpu(), r.cpu()) for g, r in zip(lane, lane_p))
+        e_c = rmse(field.cpu(), lane_field(lane, x).cpu())
+        print(f"[2] synthetic d={d} (O={O}, 1024 pixels, sweeps "
+              f"{SOLVE_SWEEPS}): solve_filter vs twin rms {e_f:.3e}; lane "
+              f"solve_matrices vs twin rms {e_l:.3e}; lane filter vs "
+              f"solve_filter rms {e_c:.3e} (limit {SYNTH_RMS:g})",
+              flush=True)
+        need(max(e_f, e_l, e_c) < SYNTH_RMS, f"synthetic d={d} solve rms")
+        err = max(err, float((field - ref).abs().max()),
+                  max(float((g - r).abs().max())
+                      for g, r in zip(lane, lane_p)))
+    return err
+
+
+def lane_field(lane, x):
+    """field = mask (A2 c + b2) from the lane solve_matrices' (a2t, b2)."""
+    import torch
+
+    a2t, b2 = lane
+    return x["mask"][:, None, :] * (
+        torch.einsum("kjp,okp->ojp", a2t, x["C"]) + b2)
+
+
+def compare_solve_batch(label, x, main, reps):
+    """solve_filter and the lane solve_matrices on one real r = 2 batch:
+    the kernel must be finite on every center (main path, fallback,
+    invalid); on the main-path centers, which the engine solves, both are
+    held to their float64 twins through the filtered field. Returns
+    {name: (max_abs_err, ms, plain_ms)}."""
+    import torch
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    npx = x["C"].shape[1] // 3
+    args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
+    every = ts.solve_filter(*args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+    need(bool(torch.isfinite(every).all()),
+         f"{label} solve_filter: non-finite output")
+    idx = main.nonzero()[:, 0]
+    need(idx.numel() > 0, f"{label}: no main-path center")
+    xm = {k: v[..., idx].contiguous() for k, v in x.items()}
+    args = [xm[k] for k in ("C", "mask", "noise", "n", "m")]
+    sf = lambda: ts.solve_filter(  # noqa: E731
+        *args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+    sf_plain = lambda: ts.solve_filter_plain(  # noqa: E731
+        *args, 1e-8, npx=npx)
+    field = sf()
+    ref, plain_ms = timed_once(sf_plain)
+    rel = rel_rms(field, ref)
+    res = {"solve_filter": (float((field - ref).abs().max()),
+                            cuda_ms(sf, reps), plain_ms)}
+    print(f"[2] {label} solve_filter: {idx.numel()} main-path centers of "
+          f"{main.numel()} (O={x['C'].shape[0]}, d={x['C'].shape[1]}), "
+          f"finite on all; field vs float64 twin rel rms {rel:.3e} (limit "
+          f"{BATCH_REL_RMS:g}), max abs err {res['solve_filter'][0]:.3e}; "
+          f"kernel {res['solve_filter'][1]:.3f} ms, twin "
+          f"{res['solve_filter'][2]:.3f} ms", flush=True)
+    need(rel < BATCH_REL_RMS, f"{label} solve_filter vs twin")
+
+    # the lane form on the first LANE_CENTERS of those centers
+    xm = {k: v[..., :LANE_CENTERS].contiguous() for k, v in xm.items()}
+    field = field[..., :LANE_CENTERS]
+    moments = lane_moments(xm)
+    sm = lambda: ts.solve_matrices(  # noqa: E731
+        *moments, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+    sm_plain = lambda: ts.solve_matrices_plain(  # noqa: E731
+        *moments, 1e-8, npx=npx)
+    lane = sm()
+    lane_p, plain_ms = timed_once(sm_plain)
+    want = lane_field(lane_p, xm)
+    got = lane_field(lane, xm)
+    rel_l = rel_rms(got, want)
+    rel_c = rel_rms(got, field)
+    res["solve_matrices"] = (float((got - want).abs().max()),
+                             cuda_ms(sm, reps), plain_ms)
+    print(f"[2] {label} lane solve_matrices on the moments of the first "
+          f"{xm['n'].shape[1]} of those centers: "
+          f"filtered field vs float64 twin rel rms {rel_l:.3e}, vs "
+          f"solve_filter's kernel {rel_c:.3e} (limit {BATCH_REL_RMS:g}); "
+          f"raw a2t rms {rmse(lane[0].cpu(), lane_p[0].cpu()):.3e}; kernel "
+          f"{res['solve_matrices'][1]:.3f} ms, twin "
+          f"{res['solve_matrices'][2]:.3f} ms", flush=True)
+    need(max(rel_l, rel_c) < BATCH_REL_RMS, f"{label} solve_matrices")
+    return res
+
+
+def device_time_table(label, run) -> None:
+    """One traced ``run()``: wall, device busy and idle share, and the top
+    device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(ev):
+        return (getattr(ev, "self_device_time_total", None)
+                or getattr(ev, "self_cuda_time_total", 0) or 0)
+
+    rows = sorted(((device_us(ev), ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"{label} traced run: wall {wall:.4f} s, device busy {busy:.4f} s "
+          f"(idle share {max(0.0, 1 - busy / wall):.3f}); top device time "
+          "by kernel:", flush=True)
+    for us, calls, key in rows[:12]:
+        print(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {key[:90]}",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -375,8 +630,9 @@ def main() -> int:
     from bcd_tpu_torch.core.multiscale import denoise_multiscale
     from bcd_tpu_torch.core.pipeline import denoise_pipeline
     from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops.spike_removal import spike_removal
     from bcd_tpu_torch.ops.solve_filter import (
-        D, solve_matrices, solve_matrices_plain)
+        D, solve_matrices_pm, solve_matrices_pm_plain)
 
     # --- 1. the card and the build --------------------------------------
     dev = torch.device("cuda", 0)
@@ -403,8 +659,8 @@ def main() -> int:
     # --- 2. kernels vs twins ---------------------------------------------
     rng = np.random.default_rng(99)
     m2, misc = (x.to(dev) for x in synthetic_moments(rng))
-    a2t, small = solve_matrices(m2, misc, 1e-8, sweeps=6)
-    a2t_p, small_p = solve_matrices_plain(m2, misc, 1e-8)
+    a2t, small = solve_matrices_pm(m2, misc, 1e-8, sweeps=6)
+    a2t_p, small_p = solve_matrices_pm_plain(m2, misc, 1e-8)
     e = max(rmse(a2t.cpu(), a2t_p.cpu()),
             rmse(small[:, :D].cpu(), small_p[:, :D].cpu()))
     print(f"[2] K2 sweeps=6 on synthetic moments vs float64 twin: rms "
@@ -424,6 +680,26 @@ def main() -> int:
         params, cfg, reps=5)
     for k in ("K1", "K2", "K4"):
         kernels[k] = (max(res_g[k][0], res_f[k][0]),) + res_f[k][1:]
+
+    # solve_filter and the lane solve_matrices: synthetic, then one real
+    # 16-tile batch of the -w 2 run's finest scale (after the prefilter)
+    e_syn = compare_solve_synthetic(dev)
+    thr = params.histogram_distance_threshold
+    pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
+                        PipelineParameters().prefiltering
+                        .spike_removal_threshold_stdev_factor)
+    frac2 = r2_main_fraction(pre, dev, thr)
+    print(f"[2] 1088x1920 finest scale at r=2, b=6, threshold {thr:g}: "
+          f"main-path fraction {frac2:.4f}", flush=True)
+    res_s = compare_solve_batch("full-size r=2 batch 8", *r2_batch(
+        pre, dev, thr), reps=3)
+    if frac2 < 0.1:  # too few main-path centers: also where there are more
+        res_hi = compare_solve_batch("full-size r=2 batch 8 at threshold 4",
+                                     *r2_batch(pre, dev, 4.0), reps=3)
+        res_s = {k: (max(res_s[k][0], res_hi[k][0]),) + res_s[k][1:]
+                 for k in res_s}
+    for k in res_s:
+        kernels[k] = (max(res_s[k][0], e_syn),) + res_s[k][1:]
 
     # --- 3. goldens on the card ------------------------------------------
     for tile in (16, 32):
@@ -464,8 +740,9 @@ def main() -> int:
     need(rc == 0, "CLI run")
     print(f"[4] python -m bcd_tpu_torch.cli {' '.join(argv)}: rc {rc}, "
           f"{cli_s:.3f} s wall with EXR I/O; launches {launches}", flush=True)
-    for name, n in launches.items():
-        need(n > 0, f"kernel {name} was not launched by the main path")
+    for name in R1_KERNELS:
+        need(launches[name] > 0,
+             f"kernel {name} was not launched by the -w 1 path")
     out = image_io.load_exr(paths["_out"])
     need(out.shape == clean.shape and np.isfinite(out).all(),
          "CLI output shape / finiteness")
@@ -499,12 +776,12 @@ def main() -> int:
     from bcd_tpu_torch.core import fused as core_fused
 
     out_k2 = denoise_pipeline(*dev_stats, dev, pipeline)
-    core_fused.solve_matrices = (
-        lambda m2, misc, eps, sweeps: solve_matrices_plain(m2, misc, eps))
+    core_fused.solve_matrices_pm = (
+        lambda m2, misc, eps, sweeps: solve_matrices_pm_plain(m2, misc, eps))
     try:
         out_twin = denoise_pipeline(*dev_stats, dev, pipeline)
     finally:
-        core_fused.solve_matrices = solve_matrices
+        core_fused.solve_matrices_pm = solve_matrices_pm
     gap = rmse(out_k2.cpu(), out_twin.cpu())
     print(f"[4] denoise_pipeline 1088x1920 with K2 vs with its float64 twin: "
           f"rmse {gap:.3e} (limit {E2E_K2_RMSE:g}), max abs "
@@ -513,47 +790,91 @@ def main() -> int:
           f"{rmse(out_twin.cpu(), clean):.6f} (twin)", flush=True)
     need(gap < E2E_K2_RMSE, "K2 against its twin end to end")
 
-    # where the device time goes: one traced run, device time by kernel
-    from torch.profiler import ProfilerActivity, profile
+    device_time_table("[4]", lambda: denoise_pipeline(*dev_stats, dev,
+                                                      pipeline))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # --- 5. the -w 2 path ---------------------------------------------------
+    argv2 = argv[:2] + [paths["_out"].replace("_out", "_out_w2"), "-w", "2"]
+    argv2[2:2] = ["-o"]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv2)
+    cli2_s = time.perf_counter() - t0
+    launches2 = dict(_build.LAUNCHES)
+    need(rc == 0, "-w 2 CLI run")
+    print(f"[5] python -m bcd_tpu_torch.cli {' '.join(argv2)}: rc {rc}, "
+          f"{cli2_s:.3f} s wall with EXR I/O; launches {launches2}",
+          flush=True)
+    for name in R2_KERNELS:
+        need(launches2[name] > 0,
+             f"kernel {name} was not launched by the -w 2 path")
+    out2 = image_io.load_exr(argv2[3])
+    need(out2.shape == clean.shape and np.isfinite(out2).all(),
+         "-w 2 CLI output shape / finiteness")
+    e_out2 = rmse(out2, clean)
+    print(f"[5] rmse vs clean: -w 2 output {e_out2:.5f}, -w 1 output "
+          f"{e_out:.5f}, noisy input {e_in:.5f}; finest-scale main-path "
+          f"fraction {frac2:.4f}", flush=True)
+    need(e_out2 < e_in, "the -w 2 output is not closer to the clean image")
+
+    p2 = PipelineParameters()
+    p2.denoiser.monoscale.patch_radius = 2
+    crop = [x[:64, :64].contiguous() for x in dev_stats]
+    denoise_pipeline(*crop, dev, p2)  # warm-up on a small crop
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = [], []
+    for _ in range(2):
         t0 = time.perf_counter()
-        denoise_pipeline(*dev_stats, dev, pipeline)
+        outs.append(denoise_pipeline(*dev_stats, dev, p2))
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        times.append(time.perf_counter() - t0)
+    peak2 = torch.cuda.max_memory_allocated()
+    need(torch.equal(outs[0], outs[1]), "-w 2 pipeline not bitwise repeatable")
+    print(f"[5] denoise_pipeline 1088x1920 -p 1 -s 3 b=6 r=2 on {card}: "
+          f"times {['%.4f' % x for x in times]} s, "
+          f"{mpix / min(times):.4f} MPix/s at the faster; peak memory "
+          f"{peak2 / 2**20:.1f} MiB; bitwise repeatable", flush=True)
 
-    def device_us(ev):
-        return (getattr(ev, "self_device_time_total", None)
-                or getattr(ev, "self_cuda_time_total", 0) or 0)
+    got = denoise_pipeline(*crop, dev, p2)
+    need(torch.equal(got, denoise_pipeline(*crop, dev, p2)),
+         "-w 2 crop not bitwise repeatable")
+    t0 = time.perf_counter()
+    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p2)
+    cpu_s = time.perf_counter() - t0
+    gap = rmse(got.cpu(), ref)
+    print(f"[5] -w 2 pipeline on a 64x64 crop (b=6): card vs the port's CPU "
+          f"pipeline (float64 twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit "
+          f"{R2_CPU_RMSE:g}), max abs "
+          f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
+          "on the card", flush=True)
+    need(gap < R2_CPU_RMSE, "-w 2 on the card against the CPU pipeline")
+    device_time_table("[5]", lambda: denoise_pipeline(*dev_stats, dev, p2))
 
-    from torch.autograd import DeviceType
-
-    rows = sorted(((device_us(ev), ev.count, ev.key)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    print(f"[4] traced run: wall {wall:.4f} s, device busy {busy:.4f} s "
-          f"(idle share {max(0.0, 1 - busy / wall):.3f}); top device time "
-          "by kernel:", flush=True)
-    for us, calls, key in rows[:12]:
-        print(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {key[:90]}",
-              flush=True)
-
-    # --- 5. results --------------------------------------------------------
+    # --- 6. results --------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
                "bcd_tpu/ops/fused_pallas.py:429"),
-        "K2": ("solve_matrices", "bcd_tpu_torch/csrc/solve_matrices.cu",
+        "K2": ("solve_matrices_pm", "bcd_tpu_torch/csrc/solve_matrices_pm.cu",
                "bcd_tpu/ops/solve_filter_pallas.py:751"),
         "K4": ("apply_scatter", "bcd_tpu_torch/csrc/apply_scatter.cu",
                "bcd_tpu/ops/fused_pallas.py:694"),
+        "solve_filter": ("solve_filter", "bcd_tpu_torch/csrc/solve_filter.cu",
+                         "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        # the lane form is on no path of the engine (JAX's neither); its
+        # launch count is that of the -w 2 run, 0
+        "solve_matrices": ("solve_matrices",
+                           "bcd_tpu_torch/csrc/solve_filter.cu",
+                           "bcd_tpu/ops/solve_filter_pallas.py:594"),
     }
+    runs = {**launches, "solve_filter": launches2["solve_filter"],
+            "solve_matrices": launches2["solve_matrices"]}
     print(json.dumps({"kernels": [
-        {"name": f"{k} {meta[k][0]}", "route": "cuda", "source": meta[k][1],
-         "replaces": meta[k][2], "launches": launches[meta[k][0]],
-         "max_abs_err": kernels[k][0], "ms": kernels[k][1],
-         "plain_ms": kernels[k][2]} for k in ("K1", "K2", "K4")]}),
+        {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
+         "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
+         "launches": runs[meta[k][0]], "max_abs_err": kernels[k][0],
+         "ms": kernels[k][1], "plain_ms": kernels[k][2]} for k in meta]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

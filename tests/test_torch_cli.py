@@ -50,16 +50,59 @@ def test_cli_cpu_matches_jax_pipeline(scene):
     assert np.sqrt(np.mean((got - ref) ** 2)) < 2e-4
 
 
+def test_cli_radius2_matches_engine(tmp_path):
+    """``-w 2 --device cpu`` (the default -p 1 -s 3 pipeline at b = 5) on
+    the r = 2 scene, against the port's pipeline on the same arrays."""
+    from bcd_tpu_torch import params as tparams
+    from bcd_tpu_torch.core.pipeline import denoise_pipeline
+    from tests.test_torch_stack import R2_THRESHOLD, scene20
+
+    color, nb, histo, cov = scene20()
+    image_io.write_exr(color, str(tmp_path / "in.exr"))
+    image_io.write_multi_channels_exr(
+        image_io.merge_histogram_and_nb_of_samples(histo, nb),
+        str(tmp_path / "in_hist.exr"))
+    image_io.write_multi_channels_exr(cov, str(tmp_path / "in_cov.exr"))
+    out_path = str(tmp_path / "out.exr")
+    assert cli.main(["-i", str(tmp_path / "in.exr"), "-o", out_path, "-w",
+                     "2", "-b", "5", "-d", str(R2_THRESHOLD),
+                     "--device", "cpu"]) == 0
+    p = tparams.PipelineParameters()
+    mono = p.denoiser.monoscale
+    mono.patch_radius, mono.search_window_radius = 2, 5
+    mono.histogram_distance_threshold = R2_THRESHOLD
+    ref = denoise_pipeline(color, nb, histo, cov, torch.device("cpu"), p)
+    ref = ref.numpy().astype(np.float16).astype(np.float32)
+    got = image_io.load_exr(out_path)
+    assert got.shape == ref.shape == (20, 20, 3)
+    assert np.sqrt(np.mean((got - ref) ** 2)) < 1e-5
+
+
 @pytest.mark.parametrize("args", [
     (),                                   # no arguments: usage
     ("-i", "x.exr", "-o", "y.exr", "-r", "2"),  # bad 0/1 value
     ("-i", "/nonexistent/x.exr", "-o", "y.exr", "--device", "cpu"),
-    ("-i", "x.exr", "-o", "y.exr", "-w", "2", "--device", "cpu"),
+    # --skip-stride out of [1, 2r + 1], whatever the flags' order
+    ("-i", "x.exr", "-o", "y.exr", "-w", "2", "--skip-stride", "6",
+     "--device", "cpu"),
     ("-i", "x.exr", "-o", "y.exr", "--stats", "--device", "cpu"),
 ])
 def test_cli_error_paths(args):
     # main() returns what `python -m bcd_tpu_torch.cli` exits with
     assert cli.main(list(args)) == 1
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (("--skip-stride", "4"), "--skip-stride must be in [1, 3]"),
+    (("--skip-stride", "0"), "--skip-stride must be in [1, 3]"),
+    (("--skip-stride", "6", "-w", "2"), "--skip-stride must be in [1, 5]"),
+    (("-w", "0"), "patch radius 0 must be >= 1"),
+])
+def test_cli_refuses_out_of_range_options(flags, msg, capsys):
+    """Refused while the arguments are parsed, before any file is read."""
+    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", *flags,
+                     "--device", "cpu"]) == 1
+    assert msg in capsys.readouterr().out
 
 
 def test_cli_default_device_needs_a_card(scene, capsys):

@@ -115,11 +115,18 @@ def test_pipeline_with_prefilter_matches_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmono.MonoscaleConfig(patch_radius=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmono.MonoscaleConfig(skip_stride=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmono.MonoscaleConfig(collect_stats=True)
+    # carried since the candidate-stack engine: other radii, skip_stride
+    assert not tmono.MonoscaleConfig(patch_radius=2, skip_stride=5).fused
+    assert tmono.MonoscaleConfig(skip_stride=3).fused
+
+
+@pytest.mark.parametrize("radius,stride", [(1, 0), (1, 4), (2, 6), (0, 1)])
+def test_out_of_range_options_raise(radius, stride):
+    """skip_stride must lie in [1, 2r + 1] (bcd_tpu/core/monoscale.py:200),
+    and the patch radius be at least 1."""
+    with pytest.raises(ValueError):
+        tmono.MonoscaleConfig(patch_radius=radius, skip_stride=stride)
 
 
 # ---------------------------------------------------------------------------

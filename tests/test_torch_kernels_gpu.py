@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1, K2 and K4 against their plain twins, on the
-card. Run on a machine with an NVIDIA Hopper card:
+"""The port's CUDA kernels (K1, K2, K4, solve_filter and the lane-form
+solve_matrices) against their plain twins, on the card. Run on a machine
+with an NVIDIA Hopper card:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
@@ -12,7 +13,8 @@ import torch
 
 from bcd_tpu_torch.ops import fused as tfused
 from bcd_tpu_torch.ops.solve_filter import (
-    D, MISC_CH, SMALL_CH, solve_matrices, solve_matrices_plain)
+    D, MISC_CH, SMALL_CH, solve_filter, solve_filter_plain, solve_matrices,
+    solve_matrices_pm, solve_matrices_pm_plain, solve_matrices_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -90,8 +92,8 @@ def _moments(rng, P, n_off=169):
 
 def test_k2_kernel_matches_twin(cuda):
     m2, misc = _moments(np.random.default_rng(99), 512)
-    a2t_r, small_r = solve_matrices_plain(m2, misc, 1e-8)
-    a2t, small = (x.cpu() for x in solve_matrices(
+    a2t_r, small_r = solve_matrices_pm_plain(m2, misc, 1e-8)
+    a2t, small = (x.cpu() for x in solve_matrices_pm(
         m2.to(cuda), misc.to(cuda), 1e-8, sweeps=6))
     rms = float(torch.sqrt(torch.mean((a2t - a2t_r) ** 2)))
     assert rms < 2e-4, rms
@@ -107,7 +109,7 @@ def test_k2_kernel_degenerate_pixels_finite(cuda):
     misc[:32, : D + 54] = 0.0
     misc[:16, D + 54] = 1.0
     misc[16:32, D + 54] = 0.0
-    a2t, small = solve_matrices(m2.to(cuda), misc.to(cuda), 1e-8,
+    a2t, small = solve_matrices_pm(m2.to(cuda), misc.to(cuda), 1e-8,
                                sweeps=4)
     assert bool(torch.isfinite(a2t).all() and torch.isfinite(small).all())
 
@@ -140,3 +142,99 @@ def test_k4_kernel_matches_twin(cuda):
     again = tfused.apply_scatter(masks.to(cuda), a2t.to(cuda), small.to(cuda),
                                  args[2].to(cuda), t=t, h=h, b=b).cpu()
     assert torch.equal(got, again)  # gather form: bitwise deterministic
+
+
+# ---------------------------------------------------------------------------
+# solve_filter and the lane-form solve_matrices (csrc/solve_filter.cu)
+# ---------------------------------------------------------------------------
+
+
+def _stack_inputs(rng, O, d, P):
+    """Random candidate stacks in JAX's lane layout (the inputs of
+    tests/test_solve_filter_pallas.py::make_inputs), with the raw moments
+    the lane solve_matrices takes."""
+    npx = d // 3
+    C = rng.standard_normal((O, d, P))
+    mask = (rng.random((O, P)) < 0.7).astype(np.float64)
+    mask[O // 2] = 1.0
+    n = mask.sum(axis=0, keepdims=True)
+    m = (C * mask[:, None, :]).sum(axis=0) / n
+    noise = np.zeros((npx, 6, P))
+    noise[:, 0:3] = 0.05 + 0.1 * rng.random((npx, 3, P))
+    noise[:, 3:6] = 0.01 * rng.standard_normal((npx, 3, P))
+    noise = noise.reshape(6 * npx, P)
+    mk = mask[:, None, :]
+    m2 = np.einsum("okp,olp->klp", mk * C, C)
+    msum = (mk * C).sum(axis=0)
+    return {k: torch.tensor(np.ascontiguousarray(v, np.float32)) for k, v in
+            dict(C=C, mask=mask, noise=noise, n=n, m=m, m2=m2, msum=msum,
+                 nov=noise * n).items()}
+
+
+def _degenerate(x):
+    """Pixels 0-15: n = 1 with zero moments (pad lanes); 16-31: n = 0, an
+    empty set; 32-47: every candidate masked out."""
+    for k in ("C", "noise", "m", "m2", "msum", "nov"):
+        x[k][..., :32] = 0.0
+    x["n"][:, :16] = 1.0
+    x["n"][:, 16:32] = 0.0
+    x["mask"][:, 16:48] = 0.0
+    return x
+
+
+def _rms(a, b):
+    return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
+
+
+@pytest.mark.parametrize("O,d", [(49, 27), (169, 75)])
+def test_solve_filter_kernel_matches_twin(cuda, O, d):
+    x = _degenerate(_stack_inputs(np.random.default_rng(d), O, d, 256))
+    args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
+    ref = solve_filter_plain(*args, 1e-8, npx=d // 3)
+    got = solve_filter(*(a.to(cuda) for a in args), 1e-8, npx=d // 3,
+                       sweeps=6).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, :, 16:48] == 0).all())
+    assert _rms(got, ref) < 2e-4
+
+
+@pytest.mark.parametrize("O,d", [(49, 27), (169, 75)])
+def test_solve_matrices_kernel_matches_twin(cuda, O, d):
+    """The lane form against its twin, and against solve_filter's kernel:
+    field = mask (A2 c + b2)."""
+    x = _degenerate(_stack_inputs(np.random.default_rng(d + 1), O, d, 256))
+    npx = d // 3
+    args = [x[k] for k in ("m2", "msum", "nov", "n")]
+    ref = solve_matrices_plain(*args, 1e-8, npx=npx)
+    got = [t.cpu() for t in solve_matrices(*(a.to(cuda) for a in args), 1e-8,
+                                           npx=npx, sweeps=6)]
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rms(g, r) < 2e-4
+    field = solve_filter(*(x[k].to(cuda) for k in ("C", "mask", "noise", "n",
+                                                   "m")),
+                         1e-8, npx=npx, sweeps=6).cpu()
+    a2 = got[0].permute(2, 1, 0)  # (P, j, k)
+    want = x["mask"][:, None, :] * (
+        torch.einsum("pjk,okp->ojp", a2, x["C"]) + got[1][0][None])
+    assert _rms(field[..., 48:], want[..., 48:]) < 2e-4
+
+
+def test_solve_filter_kernel_refuses_large_patches(cuda):
+    d = 147  # patch radius 3
+    x = {k: v.to(cuda) for k, v in
+         _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve_filter(*(x[k] for k in ("C", "mask", "noise", "n", "m")), 1e-8,
+                     npx=d // 3, sweeps=6)
+
+
+def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
+    """No kernel instantiation for d = 147: the CLI refuses before reading
+    its inputs and never runs the twin."""
+    from bcd_tpu_torch import cli
+
+    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
+                     "3"]) == 1
+    assert "ROADMAP" in capsys.readouterr().out
