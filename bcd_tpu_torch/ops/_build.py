@@ -44,7 +44,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # histo, nb, color, pixcov, valid, thr, n_tiles, t, h, b, nbins,
-    # chi_scratch, masks, m2, misc, stream
+    # mask bits, masks, m2, misc, stream
     "bcd_masks_moments": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P],
     # m2, misc, eps, n_pixels, sweeps, a2t, small, stream

@@ -142,6 +142,122 @@ def solve_matrices_pm_plain(m2: torch.Tensor, misc: torch.Tensor,
     return a2t.float().contiguous(), small.float().contiguous()
 
 
+# K2's Jacobi (csrc/solve_matrices_pm.cu) pads d = 27 to an even DP rows
+# and rotates the row pairs (i, i + HALF) of each round
+DP = D + 1
+HALF = DP // 2
+
+
+def reseat_order() -> list[int]:
+    """The Brent-Luk re-seating after a round (solve_filter_pallas.py:173-
+    187), as the old row each new row takes: [U0, D0, U1..U(h-2),
+    D1..D(h-1), U(h-1)], where U_i is rotated row i and D_i row i + h."""
+    return ([0, HALF] + list(range(1, HALF - 1))
+            + list(range(HALF + 1, DP)) + [HALF - 1])
+
+
+def _chol_solve_fp32(s: torch.Tensor, rhs: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """X = (S + eps I)^-1 rhs in float32 as K2 computes it: a Cholesky
+    whose pivots take eps as they are reached and are floored at 1e-30,
+    each column scaled by r_j = 1 / L[j][j], the forward substitution taken
+    with it, and the back substitution multiplying by r_i."""
+    s, y = s.clone(), rhs.clone()
+    d = s.shape[-1]
+    low = torch.zeros_like(s)
+    r = torch.empty(s.shape[:-1], dtype=s.dtype, device=s.device)
+    for j in range(d):
+        rj = 1.0 / torch.sqrt((s[:, j, j] + eps).clamp(min=1e-30))
+        r[:, j] = rj
+        col = s[:, j + 1 :, j] * rj[:, None]  # L[i][j] below the diagonal
+        low[:, j + 1 :, j] = col
+        y[:, j] = y[:, j] * rj[:, None]
+        s[:, j + 1 :, j + 1 :] -= col[:, :, None] * col[:, None, :]
+        y[:, j + 1 :] -= col[:, :, None] * y[:, j : j + 1]
+    for i in reversed(range(d)):
+        acc = y[:, i] - (low[:, i + 1 :, i, None] * y[:, i + 1 :]).sum(1)
+        y[:, i] = acc * r[:, i, None]
+    return y
+
+
+def solve_matrices_pm_schedule(m2: torch.Tensor, misc: torch.Tensor,
+                               min_eigen: float, sweeps: int,
+                               jax_clamp: bool = False):
+    """K2's own schedule in plain float32, batched over pixels: the model
+    the kernel is held to on the card.
+
+    The TPU kernel's Jacobi (``_jacobi_clamp_psd``): one-sided
+    accumulation of Q (rows are eigenvector estimates) and W = Q A with
+    row-only fast-Givens rotations of the pairs (i, i + HALF), the
+    Brent-Luk re-seating after each round, rows renormalized at each
+    sweep's end, exact final eigenvalues <W[k], Q[k]>. Then K2's clamp
+    (Cemp plus the negative eigen-directions) and its two Cholesky solves.
+    ``jax_clamp`` takes the TPU kernel's clamp instead, Q^T max(lam, 0) Q +
+    BD, which keeps the unconverged off-diagonal residue: the tests hold
+    the schedule to JAX's kernel with it. Returns float32 (a2t, small) in
+    K2's layouts."""
+    from bcd_tpu_torch.ops.fused import tri_geometry
+
+    f32 = torch.float32
+    p_total = m2.shape[0]
+    _, expand, _ = tri_geometry(D)
+    idx = torch.as_tensor(expand, device=m2.device, dtype=torch.long)
+    m2f = m2.to(f32)[:, idx].reshape(p_total, D, D)
+    misc = misc.to(f32)
+    n = misc[:, D + 6 * NPX]
+    cv = misc[:, D + 6 * NPX + 1]
+    nsafe = n.clamp(min=1.0)
+    m = misc[:, 0:D] / nsafe[:, None]
+    bd = _noise_bd(misc[:, D : D + 6 * NPX] / nsafe[:, None], NPX)
+    cemp = _cemp(m2f, m, n)
+    eye = torch.eye(D, dtype=f32, device=m2.device)
+
+    w = torch.nn.functional.pad(cemp - bd, (0, DP - D, 0, DP - D))
+    q = torch.eye(DP, dtype=f32, device=m2.device).repeat(p_total, 1, 1)
+    dall = torch.diagonal(w, dim1=1, dim2=2).clone()
+    order = torch.as_tensor(reseat_order(), device=m2.device)
+    for _ in range(sweeps):
+        f = torch.ones((p_total, DP), dtype=f32, device=m2.device)
+        for _ in range(DP - 1):
+            fp, fq = f[:, :HALF], f[:, HALF:]
+            apq = (w[:, :HALF] * q[:, HALF:]).sum(-1) * (fp * fq)
+            app, aqq = dall[:, :HALF], dall[:, HALF:]
+            small = apq.abs() < 1e-30
+            tau = (aqq - app) / torch.where(small, 1.0, 2.0 * apq)
+            t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(small, 0.0, torch.where(tau == 0.0, 1.0, t))
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            inv_cf = 1.0 / (c * fp * fq)
+            an = torch.where(small, 0.0, -s * fq * fq * inv_cf)[..., None]
+            bn = torch.where(small, 0.0, s * fp * fp * inv_cf)[..., None]
+            w = torch.cat([w[:, :HALF] + an * w[:, HALF:],
+                           bn * w[:, :HALF] + w[:, HALF:]], 1)[:, order]
+            q = torch.cat([q[:, :HALF] + an * q[:, HALF:],
+                           bn * q[:, :HALF] + q[:, HALF:]], 1)[:, order]
+            dall = torch.cat([app - t * apq, aqq + t * apq], 1)[:, order]
+            f = torch.cat([c * fp, c * fq], 1)[:, order]
+        w = w * f[..., None]
+        q = q * f[..., None]
+    lam = (w * q).sum(-1)  # (P, DP)
+    qd = q[:, :, :D]
+    if jax_clamp:
+        s1 = torch.einsum("pk,pki,pkj->pij", lam.clamp(min=0.0), qd, qd) + bd
+    else:
+        s1 = cemp + torch.einsum("pk,pki,pkj->pij", (-lam).clamp(min=0.0),
+                                 qd, qd)
+    a1t = eye - _chol_solve_fp32(s1, bd, min_eigen)
+    cov2 = a1t.mT @ (cemp @ a1t)
+    x2 = _chol_solve_fp32(cov2 + bd, bd, min_eigen)
+    b2 = torch.einsum("pkj,pk->pj", x2, m)
+
+    gate = ((n >= D + 1) & (cv > 0.0)).to(f32)
+    fb = cv * (1.0 - gate)
+    a2t = (eye - x2).reshape(p_total, D * D)
+    small = torch.cat([b2, gate[:, None], fb[:, None] * m, fb[:, None]], 1)
+    return a2t.contiguous(), small.contiguous()
+
+
 def solve_matrices_pm(m2: torch.Tensor, misc: torch.Tensor, min_eigen: float,
                       sweeps: int):
     """K2: per-pixel filter (A2^T, b2) and gates from K1's moments.

@@ -7,9 +7,12 @@ Phases, each printed on its own lines; any failure exits non-zero before
 the final line:
 
 1. The card (name, count, power limit) and the kernel build: nvcc's
-   register, shared-memory and spill report for every kernel.
-2. Each kernel against its plain PyTorch twin, timed with CUDA events:
-   K1 masks_moments, K2 solve_matrices_pm and K4 apply_scatter at the
+   register, shared-memory and spill report for every kernel; K2's must
+   show no spill (its Jacobi lives in registers).
+2. Each kernel against its plain PyTorch twin, timed with CUDA events,
+   beside its bound (``bcd_tpu_torch/ops/bounds.py``, from this run's
+   shapes and mask counts); K2 also against the plain fp32 model of its own
+   schedule. K1 masks_moments, K2 solve_matrices_pm and K4 apply_scatter at the
    -w 1 path's shapes (b=6, r=1, 60 bins, tile 32) on one tile batch of
    the golden scene and one of the full-size scene, K2 also through K4 on
    every pixel the batch's filters reach; solve_filter and the lane-form
@@ -49,6 +52,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "chip_smoke")
 GOLDEN = os.path.join(HERE, "tests", "golden")
 
+# K2 against the plain fp32 model of its own schedule on synthetic moments
+# (the same arithmetic; about 1e-7 on an H100)
+K2_MODEL_RMS = 1e-5
+# ... and on a tile batch's real moments, where rank-deficient similar sets
+# amplify the rounding: relative rms of the filtered self-candidate, about
+# 3x the largest reading on an H100 (6.3e-5, 1088x1920)
+K2_MODEL_BATCH_REL_RMS = 2e-4
 # K2 (4 sweeps) against its float64 twin, through K4 on every covered pixel
 # of a tile batch (relative rms of the tile estimates): K2's rms bound in
 # the tests, about 4x the largest reading on an H100 (5.2e-5, 1088x1920)
@@ -271,8 +281,9 @@ def synthetic_moments(rng, P=256, n_off=49):
 
 def compare_kernels(label, inputs, params, cfg, reps):
     """K1, K2 and K4 against their twins on one tile batch. Returns a dict
-    kernel -> (max_abs_err, ms, plain_ms)."""
+    kernel -> (max_abs_err, ms, plain_ms, (bound_ms, bound_by))."""
     import torch
+    from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import fused as tf
     from bcd_tpu_torch.ops import solve_filter as ts
 
@@ -302,11 +313,14 @@ def compare_kernels(label, inputs, params, cfg, reps):
         err = max(err, float((g - r).abs().max()))
     need(torch.equal(misc[same][:, D + 54 :], misc_p[same][:, D + 54 :]),
          f"{label} K1: n / center_valid not exact")
-    res["K1"] = (err, cuda_ms(k1, reps), cuda_ms(k1_plain, 1))
-    print(f"[2] {label} K1 masks_moments ({n_tiles} tiles): "
-          f"{int(diff.sum())} mask mismatches of {diff.numel()} (all at the "
-          f"threshold), moments max abs err {err:.3e}; kernel "
-          f"{res['K1'][1]:.3f} ms, twin {res['K1'][2]:.3f} ms", flush=True)
+    n_sel = int(masks.sum())
+    res["K1"] = (err, cuda_ms(k1, reps), cuda_ms(k1_plain, 1), bounds.k1(
+        n_tiles, t, h, b, inputs[0].shape[-1], n_sel))
+    print(f"[2] {label} K1 masks_moments ({n_tiles} tiles, {n_sel} selected "
+          f"candidates): {int(diff.sum())} mask mismatches of {diff.numel()} "
+          f"(all at the threshold), moments max abs err {err:.3e}, n exact; "
+          f"kernel {res['K1'][1]:.3f} ms, twin {res['K1'][2]:.3f} ms, bound "
+          f"{res['K1'][3][0]:.3f} ms ({res['K1'][3][1]})", flush=True)
 
     # K2 on the real moments (the engine's 4 sweeps) vs the float64 twin
     m2f, miscf = m2.reshape(-1, ts.DTRI), misc.reshape(-1, ts.MISC_CH)
@@ -344,15 +358,26 @@ def compare_kernels(label, inputs, params, cfg, reps):
     err = float((filtered(a2t, small) - f_p).abs().max())
     k2_6 = ts.solve_matrices_pm(m2f, miscf, eps, sweeps=6)
     rel6 = rms(filtered(*k2_6) - f_p) / rms(f_p)
-    res["K2"] = (err, cuda_ms(k2, reps), cuda_ms(k2_plain, 1))
+    res["K2"] = (err, cuda_ms(k2, reps), cuda_ms(k2_plain, 1),
+                 bounds.k2(m2f.shape[0], cfg.solve_sweeps))
+    a2t_m, small_m = ts.solve_matrices_pm_schedule(m2f, miscf, eps,
+                                                   cfg.solve_sweeps)
+    f_m = filtered(a2t_m, small_m)
+    rel_m = rms(filtered(a2t, small) - f_m) / rms(f_m)
     print(f"[2] {label} K2 solve_matrices_pm ({m2f.shape[0]} pixels, "
           f"{int(main.sum())} on the main path, real K1 moments) vs float64 "
           f"twin: filtered self-candidate rel rms {rel:.3e} at "
           f"sweeps={cfg.solve_sweeps} ({rel6:.3e} at sweeps=6), max abs "
           f"err {err:.3e}; raw a2t rms {rms(a2t - a2t_p):.3e}; gates exact; "
-          f"kernel {res['K2'][1]:.3f} ms, twin {res['K2'][2]:.3f} ms",
-          flush=True)
+          f"vs its fp32 schedule model rel rms {rel_m:.3e} (limit "
+          f"{K2_MODEL_BATCH_REL_RMS:g}), gates exact; kernel "
+          f"{res['K2'][1]:.3f} ms, twin {res['K2'][2]:.3f} ms, bound "
+          f"{res['K2'][3][0]:.3f} ms ({res['K2'][3][1]})", flush=True)
     need(rel < 1e-3, f"{label} K2: filtered candidates beyond rel rms 1e-3")
+    need(rel_m < K2_MODEL_BATCH_REL_RMS
+         and torch.equal(small[:, D], small_m[:, D])
+         and torch.equal(small[:, 2 * D + 1], small_m[:, 2 * D + 1]),
+         f"{label} K2 against its schedule model on real moments")
 
     # K2 on every candidate its filters touch: K4's tile estimates (sum /
     # count, every center and apron pixel some mask reaches) from the
@@ -390,10 +415,14 @@ def compare_kernels(label, inputs, params, cfg, reps):
          f"{label} K4: sums beyond rtol/atol 3e-5")
     need(torch.equal(out, k4()), f"{label} K4: not deterministic")
     err = float((g - r).abs().max())
-    res["K4"] = (err, cuda_ms(k4, reps), cuda_ms(k4_plain, 1))
-    print(f"[2] {label} K4 apply_scatter ({n_tiles} tiles): max abs err "
-          f"{err:.3e}, counts exact, bitwise repeatable; kernel "
-          f"{res['K4'][1]:.3f} ms, twin {res['K4'][2]:.3f} ms", flush=True)
+    n_applied = int((masks.sum(-1).float() * small_p[..., D]).sum())
+    res["K4"] = (err, cuda_ms(k4, reps), cuda_ms(k4_plain, 1),
+                 bounds.k4(n_tiles, t, h, b, n_applied))
+    print(f"[2] {label} K4 apply_scatter ({n_tiles} tiles, {n_applied} "
+          f"filtered candidates): max abs err {err:.3e}, counts exact, "
+          f"bitwise repeatable; kernel {res['K4'][1]:.3f} ms, twin "
+          f"{res['K4'][2]:.3f} ms, bound {res['K4'][3][0]:.3f} ms "
+          f"({res['K4'][3][1]})", flush=True)
     return res
 
 
@@ -530,6 +559,7 @@ def compare_solve_batch(label, x, main, reps):
     held to their float64 twins through the filtered field. Returns
     {name: (max_abs_err, ms, plain_ms)}."""
     import torch
+    from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
 
     npx = x["C"].shape[1] // 3
@@ -548,14 +578,17 @@ def compare_solve_batch(label, x, main, reps):
     field = sf()
     ref, plain_ms = timed_once(sf_plain)
     rel = rel_rms(field, ref)
+    n_off, d = x["C"].shape[:2]
     res = {"solve_filter": (float((field - ref).abs().max()),
-                            cuda_ms(sf, reps), plain_ms)}
+                            cuda_ms(sf, reps), plain_ms, bounds.solve_filter(
+                                idx.numel(), n_off, d, SOLVE_SWEEPS))}
     print(f"[2] {label} solve_filter: {idx.numel()} main-path centers of "
           f"{main.numel()} (O={x['C'].shape[0]}, d={x['C'].shape[1]}), "
           f"finite on all; field vs float64 twin rel rms {rel:.3e} (limit "
           f"{BATCH_REL_RMS:g}), max abs err {res['solve_filter'][0]:.3e}; "
           f"kernel {res['solve_filter'][1]:.3f} ms, twin "
-          f"{res['solve_filter'][2]:.3f} ms", flush=True)
+          f"{res['solve_filter'][2]:.3f} ms, bound "
+          f"{res['solve_filter'][3][0]:.3f} ms", flush=True)
     need(rel < BATCH_REL_RMS, f"{label} solve_filter vs twin")
 
     # the lane form on the first LANE_CENTERS of those centers
@@ -573,14 +606,16 @@ def compare_solve_batch(label, x, main, reps):
     rel_l = rel_rms(got, want)
     rel_c = rel_rms(got, field)
     res["solve_matrices"] = (float((got - want).abs().max()),
-                             cuda_ms(sm, reps), plain_ms)
+                             cuda_ms(sm, reps), plain_ms, bounds.solve_matrices(
+                                 xm["n"].shape[1], d, SOLVE_SWEEPS))
     print(f"[2] {label} lane solve_matrices on the moments of the first "
           f"{xm['n'].shape[1]} of those centers: "
           f"filtered field vs float64 twin rel rms {rel_l:.3e}, vs "
           f"solve_filter's kernel {rel_c:.3e} (limit {BATCH_REL_RMS:g}); "
           f"raw a2t rms {rmse(lane[0].cpu(), lane_p[0].cpu()):.3e}; kernel "
           f"{res['solve_matrices'][1]:.3f} ms, twin "
-          f"{res['solve_matrices'][2]:.3f} ms", flush=True)
+          f"{res['solve_matrices'][2]:.3f} ms, bound "
+          f"{res['solve_matrices'][3][0]:.3f} ms", flush=True)
     need(max(rel_l, rel_c) < BATCH_REL_RMS, f"{label} solve_matrices")
     return res
 
@@ -632,7 +667,11 @@ def main() -> int:
     from bcd_tpu_torch.ops import _build
     from bcd_tpu_torch.ops.spike_removal import spike_removal
     from bcd_tpu_torch.ops.solve_filter import (
-        D, solve_matrices_pm, solve_matrices_pm_plain)
+        D, solve_matrices_pm, solve_matrices_pm_plain,
+        solve_matrices_pm_schedule)
+
+    params = DenoiserParameters(search_window_radius=6)
+    cfg = MonoscaleConfig()
 
     # --- 1. the card and the build --------------------------------------
     dev = torch.device("cuda", 0)
@@ -648,12 +687,20 @@ def main() -> int:
     log = _build.build_log()
     print(f"[1] kernels built for sm_90a in {time.perf_counter() - t0:.1f} s "
           "(nvcc -Xptxas -v):", flush=True)
+    entry, k2_spill = "", None
     for line in log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("    " + line.strip(), flush=True)
+        if "Compiling entry" in line:
+            entry = line
+        elif "spill stores" in line and "solve_matrices_pm_kernel" in entry:
+            k2_spill = [int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()]
+    need(k2_spill is not None, "no -Xptxas -v report for K2's kernel")
+    print(f"[1] K2 solve_matrices_pm_kernel: stack frame, spill stores, "
+          f"spill loads = {k2_spill} bytes", flush=True)
+    need(k2_spill[1:] == [0, 0], "K2's kernel spills registers")
 
-    params = DenoiserParameters(search_window_radius=6)
-    cfg = MonoscaleConfig()
     kernels = {}
 
     # --- 2. kernels vs twins ---------------------------------------------
@@ -666,6 +713,15 @@ def main() -> int:
     print(f"[2] K2 sweeps=6 on synthetic moments vs float64 twin: rms "
           f"{e:.3e} (limit 2e-4)", flush=True)
     need(e < 2e-4, "K2 synthetic rms")
+    a2t, small = solve_matrices_pm(m2, misc, 1e-8, sweeps=cfg.solve_sweeps)
+    a2t_m, small_m = solve_matrices_pm_schedule(m2, misc, 1e-8,
+                                                cfg.solve_sweeps)
+    e = max(rmse(a2t.cpu(), a2t_m.cpu()), rmse(small.cpu(), small_m.cpu()))
+    print(f"[2] K2 sweeps={cfg.solve_sweeps} on synthetic moments vs the fp32 "
+          f"model of its schedule: rms {e:.3e} (limit {K2_MODEL_RMS:g})",
+          flush=True)
+    need(e < K2_MODEL_RMS and torch.equal(small[:, D], small_m[:, D]),
+         "K2 against its schedule model")
 
     color, nb, histo, cov, gold_mono, gold_multi = load_golden()
     res_g = compare_kernels(
@@ -700,6 +756,7 @@ def main() -> int:
                  for k in res_s}
     for k in res_s:
         kernels[k] = (max(res_s[k][0], e_syn),) + res_s[k][1:]
+    del pre  # 585 MB of r = 2 inputs: not part of the -w 1 peak below
 
     # --- 3. goldens on the card ------------------------------------------
     for tile in (16, 32):
@@ -874,7 +931,10 @@ def main() -> int:
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
          "launches": runs[meta[k][0]], "max_abs_err": kernels[k][0],
-         "ms": kernels[k][1], "plain_ms": kernels[k][2]} for k in meta]}),
+         "ms": kernels[k][1], "plain_ms": kernels[k][2],
+         "bound_ms": kernels[k][3][0], "bound_by": kernels[k][3][1],
+         # no single PyTorch call computes any of these functions (PERF.md)
+         "library_ms": None} for k in meta]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

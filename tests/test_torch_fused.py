@@ -110,3 +110,116 @@ def test_tri_geometry_matches_jax():
     packed = full.reshape(-1)[tfused._tri_pack(D)]
     _, expand, _ = tfused.tri_geometry(D)
     np.testing.assert_array_equal(packed[expand], full.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# K1's chi^2 geometry on the card (csrc/masks_moments.cu::chi2_masks_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _slabs(s):
+    return (torch.from_numpy(s["histo"][None].copy()),
+            torch.from_numpy(s["nb"][None].copy()))
+
+
+def test_chi2_mirror_identity_bitwise(k1):
+    """term_-o(z) = term_o(z - o): the per-pixel chi^2 term of a pixel pair
+    does not depend on which pixel is the center, bit for bit, so K1's
+    kernel evaluates each pair once and uses it for o and -o."""
+    histo, nb = _slabs(k1)
+    num, cnt = tfused.chi2_pixels_plain(histo, nb, T, H, B)
+    n_off, e1 = ND * ND, T + 2
+    for o in range(n_off // 2 + 1, n_off):
+        dy, dx = o // ND - B, o % ND - B
+        neg = n_off - 1 - o
+        # term_-o at ext pixel (y, x) against term_o at (y - dy, x - dx)
+        ys, xs = slice(dy, e1), slice(max(dx, 0), e1 + min(dx, 0))
+        ym, xm = slice(0, e1 - dy), slice(max(-dx, 0), e1 - max(dx, 0))
+        for a in (num, cnt):
+            assert torch.equal(a[:, neg, ys, xs], a[:, o, ym, xm]), (o, dy, dx)
+
+
+def _banded_distances(histo, nb, t, h, b, bh, bw):
+    """The kernel's chi^2 geometry in numpy: per band of bh x bw centers,
+    the staged region with a (b+1) halo, the terms of each offset after the
+    self offset over the bounding box of the band's patch pixels and their
+    images under -o, and box sums into the distances of o and -o."""
+    nd = 2 * b + 1
+    n_off = nd * nd
+    dist = np.full((t, t, n_off), np.nan, np.float64)
+    for y0 in range(0, t, bh):
+        for x0 in range(0, t, bw):
+            nh, nwd = min(bh, t - y0), min(bw, t - x0)
+            rows, cols = nh + 2, nwd + 2
+            gy0, gx0 = h + y0 - 1 - b, h + x0 - 1 - b
+            hs = histo[gy0 : gy0 + rows + 2 * b, gx0 : gx0 + cols + 2 * b]
+            ns = nb[gy0 : gy0 + rows + 2 * b, gx0 : gx0 + cols + 2 * b, 0]
+            for o in range(n_off // 2 + 1, n_off):
+                dy, dx = o // nd - b, o % nd - b
+                br0, bc0 = b - dy, b - max(dx, 0)
+                b_r, b_c = rows + dy, cols + abs(dx)
+                hc = hs[br0 : br0 + b_r, bc0 : bc0 + b_c]
+                hn = hs[br0 + dy : br0 + dy + b_r, bc0 + dx : bc0 + dx + b_c]
+                nc = ns[br0 : br0 + b_r, bc0 : bc0 + b_c, None]
+                nn = ns[br0 + dy : br0 + dy + b_r, bc0 + dx : bc0 + dx + b_c,
+                        None]
+                hsum = hc + hn
+                keep = hsum > 1.0
+                den = np.where(keep, nc * nn * hsum, 1.0)
+                den = np.where(den == 0.0, 1.0, den)
+                term = np.where(keep, (nn * hc - nc * hn) ** 2 / den, 0.0)
+                num, cnt = term.sum(-1), keep.sum(-1).astype(np.float64)
+                for oo, r0, c0 in ((o, dy, max(dx, 0)),
+                                   (n_off - 1 - o, 0, max(-dx, 0))):
+                    bn = sum(num[r0 + qy : r0 + qy + nh, c0 + qx : c0 + qx + nwd]
+                             for qy in range(3) for qx in range(3))
+                    bc = sum(cnt[r0 + qy : r0 + qy + nh, c0 + qx : c0 + qx + nwd]
+                             for qy in range(3) for qx in range(3))
+                    dist[y0 : y0 + nh, x0 : x0 + nwd, oo] = np.where(
+                        bc > 0, bn / np.maximum(bc, 1.0), np.inf)
+    return dist
+
+
+@pytest.mark.parametrize("band", [None, (5, 7)])
+def test_banded_mirror_geometry_matches_distances(k1, band):
+    """The bands (None: the whole tile, the kernel's band at T = 16, B = 2,
+    30 bins; and 5 x 7, which divides neither side), the staging offsets,
+    the bounding boxes and the mirror map every center and non-self offset
+    onto the distance distances_plain computes."""
+    histo, nb = _slabs(k1)
+    want = tfused.distances_plain(histo, nb, T, H, B)[0].numpy()
+    bh, bw = band or (T, T)
+    got = _banded_distances(k1["histo"].astype(np.float64),
+                            k1["nb"].astype(np.float64), T, H, B, bh, bw)
+    self_o = ND * ND // 2
+    got, want = np.delete(got, self_o, -1), np.delete(want, self_o, -1)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_bounds_reckoning():
+    """ops/bounds.py at the engine's 128-tile batch: K1 (every offset
+    selected) and K2 are bound by fp32 operations, at the least times the
+    kernels are reported against. Every solve counts the one-sided
+    fast-Givens Jacobi, 10 dp flops a row pair a round: at the -w 2 batch
+    (16,384 centers, 169 candidates, d = 75, 6 sweeps) solve_filter's bound
+    is about 4.8 ms, the lane solve_matrices' on 2,048 centers 0.51 ms."""
+    from bcd_tpu_torch.ops import bounds
+
+    n_sel = 128 * 32 * 32 * 169
+    ms, by = bounds.k1(128, 32, 7, 6, 60, n_sel)
+    assert by == "operations" and 0.3 < ms < 0.5
+    ms, by = bounds.k2(128 * 32 * 32, 4)
+    assert by == "operations" and 1.0 < ms < 1.4
+    assert bounds.k2(1000, 6)[0] > bounds.k2(1000, 4)[0]
+    for ms, by in bounds.probes().values():
+        assert ms > 0 and by in ("operations", "bytes")
+    dp = 76
+    assert bounds._jacobi(75, 6) == 6 * (dp - 1) * (dp // 2) * 10 * dp \
+        + 2 * dp * dp
+    ms, by = bounds.solve_filter(16384, 169, 75, 6)
+    assert by == "operations" and 4.7 < ms < 4.9
+    ms, by = bounds.solve_matrices(2048, 75, 6)
+    assert by == "operations" and 0.50 < ms < 0.52
+

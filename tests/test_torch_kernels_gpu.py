@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter and the lane-form
-solve_matrices) against their plain twins, on the card. Run on a machine
+solve_matrices) against their plain twins, and K2 against the plain model
+of its own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
@@ -14,7 +15,8 @@ import torch
 from bcd_tpu_torch.ops import fused as tfused
 from bcd_tpu_torch.ops.solve_filter import (
     D, MISC_CH, SMALL_CH, solve_filter, solve_filter_plain, solve_matrices,
-    solve_matrices_pm, solve_matrices_pm_plain, solve_matrices_plain)
+    solve_matrices_pm, solve_matrices_pm_plain, solve_matrices_pm_schedule,
+    solve_matrices_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -47,7 +49,7 @@ def _scene(rng, n, t, h, nbins):
 def check_k1(cpu_args, thr, t, h, b, dev):
     """K1 kernel vs twin: masks may differ only where the distance lies
     within 1e-5 (relative) of the threshold; moments within rtol 2e-5 at
-    centers whose masks all agree. Returns the mismatch count."""
+    centers whose masks all agree, n exact. Returns the mismatch count."""
     ref = tfused.masks_moments(*cpu_args, thr, t=t, h=h, b=b)
     got = [x.cpu() for x in tfused.masks_moments(
         *(a.to(dev) for a in cpu_args), thr, t=t, h=h, b=b)]
@@ -60,6 +62,7 @@ def check_k1(cpu_args, thr, t, h, b, dev):
                                rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(got[2][same].numpy(), ref[2][same].numpy(),
                                rtol=2e-5, atol=1e-5)
+    assert torch.equal(got[2][same][:, D + 54 :], ref[2][same][:, D + 54 :])
     return int(diff.sum())
 
 
@@ -68,6 +71,22 @@ def test_k1_kernel_matches_twin(cuda, t, b, nbins):
     h = b + 1
     args = _scene(np.random.default_rng(t + b), 2, t, h, nbins)
     check_k1(args, 0.25 if b == 2 else 1.0, t, h, b, cuda)
+
+
+@pytest.mark.parametrize("t,b,zero_counts", [
+    (64, 3, False), (40, 6, False), (32, 7, False), (16, 3, True),
+    (32, 6, True)])
+def test_k1_kernel_bands_and_zero_counts(cuda, t, b, zero_counts):
+    """Tiles whose chi^2 band (the largest square one that fits shared
+    memory, chi_band in csrc/masks_moments.cu) does not divide the tile, so
+    the last bands are ragged: 22 x 22 of 64 at b = 3, 14 x 14 of 40 at
+    b = 6, 11 x 11 of 32 at b = 7; and all-zero sample counts (every chi^2
+    denominator is 0 and counts as 1)."""
+    h = b + 1
+    args = _scene(np.random.default_rng(7 * t + b), 2, t, h, 60)
+    if zero_counts:
+        args[1].zero_()
+    check_k1(args, 1.0, t, h, b, cuda)
 
 
 def _moments(rng, P, n_off=169):
@@ -101,6 +120,49 @@ def test_k2_kernel_matches_twin(cuda):
     assert rms < 2e-4, rms
     assert torch.equal(small[:, D], small_r[:, D])
     assert torch.equal(small[:, 2 * D + 1], small_r[:, 2 * D + 1])
+
+
+def test_k2_kernel_matches_schedule(cuda):
+    """K2 against the plain fp32 model of its own schedule (the same
+    rotations, re-seating, clamp and Cholesky arithmetic): rms 1e-5 at the
+    engine's 4 sweeps (about 1e-7 on an H100), gates exact. A sharper probe
+    of the lane and register-slot maps than the float64 twin's 2e-4."""
+    m2, misc = _moments(np.random.default_rng(98), 512)
+    a2t_m, small_m = solve_matrices_pm_schedule(m2, misc, 1e-8, 4)
+    a2t, small = (x.cpu() for x in solve_matrices_pm(
+        m2.to(cuda), misc.to(cuda), 1e-8, sweeps=4))
+    assert float(torch.sqrt(torch.mean((a2t - a2t_m) ** 2))) < 1e-5
+    assert float(torch.sqrt(torch.mean((small - small_m) ** 2))) < 1e-5
+    assert torch.equal(small[:, D], small_m[:, D])
+    assert torch.equal(small[:, 2 * D + 1], small_m[:, 2 * D + 1])
+
+
+def test_k2_kernel_degenerate_gates(cuda):
+    """Empty sets (n = 0), single samples (n = 1, zero moments) and
+    rank-deficient moments (one candidate repeated, or 5 distinct ones, with
+    n >= 28 on the main path): finite filters and the twin's exact gates."""
+    rng = np.random.default_rng(6)
+    m2, misc = _moments(rng, 128)
+    m2[:32] = 0.0
+    misc[:32, : D + 54] = 0.0
+    misc[:16, D + 54] = 1.0
+    misc[16:32, D + 54] = 0.0
+    for lo, k, n in ((32, 1, 40), (48, 5, 30)):
+        for p in range(lo, lo + 16):
+            c = rng.standard_normal((k, D))
+            reps = np.full(k, n // k)
+            full = np.einsum("o,ok,ol->kl", reps, c, c)
+            m2[p] = torch.tensor(full.reshape(-1)[tfused._tri_pack(D)])
+            misc[p, :D] = torch.tensor(reps @ c)
+            misc[p, D + 54] = n
+            misc[p, D + 55] = 1.0
+    _, small_r = solve_matrices_pm_plain(m2, misc, 1e-8)
+    a2t, small = (x.cpu() for x in solve_matrices_pm(
+        m2.to(cuda), misc.to(cuda), 1e-8, sweeps=4))
+    assert bool(torch.isfinite(a2t).all() and torch.isfinite(small).all())
+    assert torch.equal(small[:, D], small_r[:, D])
+    assert torch.equal(small[:, 2 * D + 1], small_r[:, 2 * D + 1])
+    assert bool((small[32:64, D] == 1).all())
 
 
 def test_k2_kernel_degenerate_pixels_finite(cuda):

@@ -185,3 +185,114 @@ def test_kernel_dims(d):
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.check_kernel_dim(d)
+
+
+# ---------------------------------------------------------------------------
+# K2's schedule model (the register Jacobi of csrc/solve_matrices_pm.cu)
+# ---------------------------------------------------------------------------
+
+
+def _schedule(m2_pm, misc, sweeps, **kw):
+    a2t, small = ts.solve_matrices_pm_schedule(
+        torch.from_numpy(m2_pm), torch.from_numpy(misc[:, :ts.MISC_CH].copy()),
+        1e-8, sweeps, **kw)
+    return a2t.numpy(), small.numpy()
+
+
+def test_schedule_matches_jax_kernel_interpret():
+    """The model runs the TPU kernel's own Jacobi (one-sided, fast Givens,
+    Brent-Luk re-seating) at the engine's 4 sweeps: with the TPU kernel's
+    clamp it agrees with JAX's kernel to rounding (rms 1.7e-7 here), so the
+    bound is tight, 1e-5. With K2's clamp (Cemp plus the negative
+    eigen-directions) the two differ by the unconverged off-diagonal
+    residue that K2's clamp leaves out."""
+    import jax.numpy as jnp
+    from bcd_tpu.ops.solve_filter_pallas import solve_matrices_pm
+
+    m2_pm, misc = _pm_inputs(np.random.default_rng(4321), P=128)
+    a2t_k, small_k = (np.asarray(x) for x in solve_matrices_pm(
+        jnp.asarray(m2_pm), jnp.asarray(misc), 1e-8, interpret=True,
+        sweeps=4))
+    a2t, small = _schedule(m2_pm, misc, 4, jax_clamp=True)
+    assert _rms(a2t, a2t_k) < 1e-5
+    assert _rms(small, small_k[:, :ts.SMALL_CH]) < 1e-5
+    np.testing.assert_array_equal(small[:, D], small_k[:, D])
+    np.testing.assert_array_equal(small[:, 2 * D + 1], small_k[:, 2 * D + 1])
+
+
+def test_schedule_matches_twin():
+    """K2's clamp through the model against the float64 twin, within the
+    kernels' 2e-4 at 6 sweeps (the bound the card's K2 is held to on
+    synthetic moments; at 4 the raw A2 carries the unconverged part)."""
+    m2_pm, misc = _pm_inputs(np.random.default_rng(77), P=128)
+    a2t, small = _schedule(m2_pm, misc, 6)
+    a2t_p, small_p = _torch_solve_plain(m2_pm, misc)
+    assert _rms(a2t, a2t_p) < 2e-4
+    assert _rms(small, small_p) < 2e-4
+    np.testing.assert_array_equal(small[:, D], small_p[:, D])
+    np.testing.assert_array_equal(small[:, 2 * D + 1], small_p[:, 2 * D + 1])
+
+
+def _torch_solve_plain(m2_pm, misc):
+    a2t, small = ts.solve_matrices_pm_plain(
+        torch.from_numpy(m2_pm), torch.from_numpy(misc[:, :ts.MISC_CH].copy()),
+        1e-8)
+    return a2t.numpy(), small.numpy()
+
+
+def degenerate_pm_inputs(rng, P=128):
+    """K2 inputs with degenerate pixels: 0-15 n = 1 and zero moments (pad
+    lanes), 16-31 n = 0 (empty sets), 32-47 the moments of a single
+    candidate repeated n = 40 times (rank 1), 48-63 those of 5 candidates
+    (rank 5, n = 30, on the main path)."""
+    from bcd_tpu_torch.ops.fused import _tri_pack
+
+    m2_pm, misc = _pm_inputs(rng, P=P)
+    m2_pm[:32] = 0.0
+    misc[:32, : D + 54] = 0.0
+    misc[:16, D + 54] = 1.0
+    misc[16:32, D + 54] = 0.0
+    for lo, k, n in ((32, 1, 40), (48, 5, 30)):
+        for p in range(lo, lo + 16):
+            c = rng.standard_normal((k, D))
+            reps = np.full(k, n // k)
+            m2 = np.einsum("o,ok,ol->kl", reps, c, c)
+            m2_pm[p] = m2.reshape(-1)[_tri_pack(D)]
+            misc[p, :D] = reps @ c
+            misc[p, D + 54] = n
+            misc[p, D + 55] = 1.0
+    return m2_pm, misc
+
+
+def test_schedule_degenerate_pixels():
+    """Empty, single-sample and rank-deficient similar sets: finite filters
+    and gates equal to the twin's (rank-deficient sets of n >= 28 stay on
+    the main path)."""
+    m2_pm, misc = degenerate_pm_inputs(np.random.default_rng(8))
+    a2t, small = _schedule(m2_pm, misc, 4)
+    _, small_p = _torch_solve_plain(m2_pm, misc)
+    assert np.isfinite(a2t).all() and np.isfinite(small).all()
+    np.testing.assert_array_equal(small[:, D], small_p[:, D])
+    np.testing.assert_array_equal(small[:, 2 * D + 1], small_p[:, 2 * D + 1])
+    assert (small[:32, D] == 0).all() and (small[32:64, D] == 1).all()
+
+
+def test_reseat_order_is_one_sweep_cycle():
+    """reseat_order is the TPU kernel's re-seating (the concatenation of
+    solve_filter_pallas.py:184-187, written out on row labels): a
+    permutation that keeps row 0 and moves the other rows along one cycle
+    of length DP - 1, the round-robin order of a Brent-Luk sweep."""
+    order = ts.reseat_order()
+    half = ts.HALF
+    u, dn = np.arange(half), np.arange(half, ts.DP)
+    tpu = np.concatenate([u[0:1], dn[0:1], u[1 : half - 1], dn[1:half],
+                          u[half - 1 : half]])
+    assert order == tpu.tolist()
+    assert order[0] == 0
+    row, length = 1, 0
+    while True:
+        row = order.index(row)  # the new position of the old row
+        length += 1
+        if row == 1:
+            break
+    assert length == ts.DP - 1
