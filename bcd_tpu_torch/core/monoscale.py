@@ -27,9 +27,9 @@ import torch.nn.functional as F
 
 from bcd_tpu_torch.params import DenoiserParameters
 from bcd_tpu_torch.convert import to_device
-from bcd_tpu_torch.ops.solve_filter import solve_filter
+from bcd_tpu_torch.ops.solve_filter import solve_filter_pm
 
-# Jacobi sweeps of solve_filter in the candidate-stack engine: JAX's
+# Jacobi sweeps of solve_filter_pm in the candidate-stack engine: JAX's
 # accelerator path calls solve_filter without ``sweeps``
 # (bcd_tpu/core/monoscale.py:412-415), so it runs the kernel's default 6
 # (ops/solve_filter_pallas.py:442), not MonoscaleConfig.solve_sweeps (K2's)
@@ -234,7 +234,8 @@ def candidate_stacks(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     cv_ext = _patchify(pixcov, cfg.patch_radius)
     cand = torch.stack([at(cp_ext, dy, dx) for dy, dx in offs],
                        dim=3).reshape(p_total, n_off, cfg.d)
-    mask = masks.permute(0, 2, 3, 1).reshape(p_total, n_off)
+    # contiguous even for one tile, where the reshape is a strided view
+    mask = masks.permute(0, 2, 3, 1).reshape(p_total, n_off).contiguous()
     n = mask.sum(1)
     n_safe = n.clamp(min=1.0)
     # the noise stack (1.66 GB a 16-tile batch at r = 2, b = 6) is
@@ -265,11 +266,12 @@ def denoise_tiles(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     (out_sum (N, tp, tp, 3), count (N, tp, tp)), the apron-inclusive
     contributions for the global overlap-add.
 
-    Only main-path centers go through ``solve_filter``: JAX runs the solve
-    on every center and multiplies the fallback and invalid ones by a zero
-    gate (monoscale.py:418), which this skips. Each center's solve is
-    independent, so the result is the same, and centers off the stride grid
-    cost nothing."""
+    Only main-path centers go through ``solve_filter_pm``, which reads them
+    from the pixel-major stacks in place (its ``rows``) and leaves the other
+    rows of the field 0: JAX runs the solve on every center and multiplies
+    the fallback and invalid ones by a zero gate (monoscale.py:418), which
+    this skips. Each center's solve is independent, so the result is the
+    same, and centers off the stride grid cost nothing."""
     t, r, b = cfg.tile, cfg.patch_radius, cfg.search_radius
     tp = color.shape[1]
     n_tiles = color.shape[0]
@@ -279,17 +281,10 @@ def denoise_tiles(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     self_o = n_off // 2
     main = s["main"].float()
 
-    field = torch.zeros_like(s["cand"])
-    idx = s["main"].nonzero()[:, 0]
-    if idx.numel():
-        def lanes(x):  # the main-path centers, pixels last
-            return x[idx].movedim(0, -1).contiguous()
-
-        field_t = solve_filter(
-            lanes(s["cand"]), lanes(s["mask"]), lanes(s["noise"]),
-            s["n"][idx][None].contiguous(), lanes(s["m"]), min_eigen,
-            npx=cfg.npx, sweeps=SOLVE_FILTER_SWEEPS)
-        field[idx] = field_t.movedim(-1, 0)
+    field = solve_filter_pm(s["cand"], s["mask"], s["noise"], s["n"], s["m"],
+                            min_eigen, npx=cfg.npx,
+                            sweeps=SOLVE_FILTER_SWEEPS,
+                            rows=s["main"].nonzero()[:, 0])
     field[:, self_o] += s["fb"].float()[:, None] * s["m"]
     cnt = s["mask"] * main[:, None]
     cnt[:, self_o] += s["fb"].float()

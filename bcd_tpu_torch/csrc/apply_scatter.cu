@@ -2,7 +2,7 @@
 //
 // Replaces bcd_tpu/ops/fused_pallas.py::apply_scatter2 (TPU kernel body
 // _apply_scatter2_kernel). For a batch of tiles, every candidate position z
-// of the band [h-b, h+t+b)^2 GATHERS the filtered patches that the core
+// of the band [h-b, h+t+b)^2 gathers the filtered patches that the core
 // centers c = z - o of its similar sets deposit there:
 //   F[z] = sum_o w[c, o] (A2[c] cpatch[z] + b2[c]) + fb[z] m[z],
 //   cnt[z] = sum_o w[c, o] + fb[z],     w = mask * main-path gate,
@@ -10,16 +10,41 @@
 // 3 x 3 patch offsets q: out (N, tp, tp, 4) = [color sums, estimate counts],
 // apron included, for the overlap-add.
 //
-// What bounds it on an H100: the gather, up to 169 sources x 27 x 27
-// multiply-adds per candidate, with each source's 27 x 27 filter (2.9 KB)
-// read from L2 by every candidate that selects it.
-// The design: filter_candidates takes one candidate row per block, stages
-// the row's candidate color patches in shared memory and gives each thread
-// one (candidate, component) output, looping over the offsets in a fixed
-// order; consecutive threads read consecutive components of a source's
-// filter. fan_out then sums the 3 x 3 patch groups per pixel. Both are
-// gathers with a fixed summation order: no atomics, so the output is
-// bitwise deterministic from run to run.
+// What bounds it on an H100. The function needs 757 multiply-adds a
+// selected (candidate, source) pair: about 16 G a 128-tile batch of the
+// engine's t = 32, b = 6, 0.49 ms at the fp32 rate. The first port gave
+// each (candidate, component) a thread that walked every selecting
+// source's 27 x 27 filter from global memory: each filter (2.9 KB) was
+// read once per candidate that selects it, up to 169 times, about 65 GB of
+// L2 requests a batch, and the kernel ran at the L2's rate (12 ms).
+//
+// The design is the TPU kernel's WA-accumulation:
+//   WA[z] = sum_o w[z-o, o] S[z-o],   S[c] = [A2^T[c] (729) | b2[c] (27) | 1],
+// then F[z] = WA[z]'s 27 x 27 block times cpatch[z] plus its b2 and count
+// channels. The sum over a source's filter is taken once per pair (one
+// multiply-add per channel), the mat-vec once per candidate.
+//   - wa_filter_kernel: a block owns R = 2 candidate rows of one tile and
+//     walks the source columns left to right. Thread g holds channels g
+//     and g + 384 of S; for each source column it reads the R + 2b source
+//     rows within reach once (coalesced across the block's threads), and
+//     each value feeds R x (2b + 1) accumulators in registers: the
+//     candidates of its two rows within the window. The accumulators form
+//     a sliding window over the candidate columns: after source column cx,
+//     candidate cx has all its sources, leaves the window and the window
+//     shifts. A source filter is read about (R + 2b) / R = 7 times a tile
+//     instead of up to 169, about 3.8 GB a batch.
+//   - The 0/1 weights mask * gate of the sources in reach are staged in
+//     shared memory as floats, 4 source columns at a time (read as
+//     16-byte broadcasts); a source off the main path, or outside the
+//     tile, is skipped by the whole block.
+//   - Every 4 candidate columns the finished WA rows go through shared
+//     memory, and one thread per (candidate, output channel) forms
+//     F = WA cpatch + wb (+ the fallback mean patch) in a fixed order.
+//   - fan_out_kernel sums the 3 x 3 patch groups per pixel.
+// No atomics: every sum has a fixed order, so the output is bitwise
+// deterministic from run to run, and the counts are sums of 0/1 weights,
+// exact. The summation order differs from the twin's (the filters are
+// summed before they are applied), so the sums agree to rounding.
 //
 // Layouts (bcd_tpu_torch/ops/fused.py): masks (N, t*t, O) uint8; a2t
 // (N, t*t, 729) with a2t[k * 27 + j] = A2[j][k]; small (N, t*t, 56) =
@@ -34,57 +59,145 @@ namespace {
 constexpr int D = 27;
 constexpr int SMALL_CH = 56;
 constexpr int FCH = D + 1;
+constexpr int NCH = D * D + D + 1;  // [A2^T | b2 | 1]
+constexpr int THREADS = 384;        // channels g and g + 384 a thread
+constexpr int NCH_PAD = 2 * THREADS;
+constexpr int R = 2;                // candidate rows a block
+constexpr int PERIOD = 4;           // source columns staged at once
+constexpr int MAX_B = 8;
 
-__global__ void filter_candidates_kernel(const uint8_t* __restrict__ masks,
-                                         const float* __restrict__ a2t,
-                                         const float* __restrict__ small,
-                                         const float* __restrict__ color,
-                                         int tp, int t, int h, int b,
-                                         float* __restrict__ F) {
-  extern __shared__ float cp[];  // E * 27 color patches of this candidate row
-  const int nd = 2 * b + 1, n_off = nd * nd;
-  const int E = t + 2 * b;
-  const int zy = blockIdx.x, n = blockIdx.y;
-  const int sy = h - b + zy;  // slab row of the candidates
-  const float* col = color + (size_t)n * tp * tp * 3;
-  for (int i = threadIdx.x; i < E * D; i += blockDim.x) {
-    const int zx = i / D, k = i % D, qi = k / 3;
-    const int yy = sy + qi / 3 - 1, xx = h - b + zx + qi % 3 - 1;
-    cp[i] = col[((size_t)yy * tp + xx) * 3 + k % 3];
-  }
-  __syncthreads();
+template <int ND>
+__global__ void __launch_bounds__(THREADS, 2)
+wa_filter_kernel(const uint8_t* __restrict__ masks, const float* __restrict__ a2t,
+                 const float* __restrict__ small, const float* __restrict__ color,
+                 int tp, int t, int h, float* __restrict__ F) {
+  constexpr int B = ND / 2;
+  constexpr int NU = R + ND - 1;  // source rows within reach of the block
+  constexpr int WSTRIDE = 4 * ((ND + 3) / 4);
+  __shared__ __align__(16) float wsh[NU][R][PERIOD][WSTRIDE];
+  __shared__ int live[NU][PERIOD];
+  __shared__ __align__(16) float ring[PERIOD][R][NCH_PAD];
+  const int E = t + 2 * B;
+  const int zy0 = blockIdx.x * R, n = blockIdx.y;
+  const int g = threadIdx.x;
   const size_t tile0 = (size_t)n * t * t;
-  for (int i = threadIdx.x; i < E * FCH; i += blockDim.x) {
-    const int zx = i / FCH, j = i % FCH;
-    const float* cz = cp + zx * D;
-    float acc = 0.f;
-    for (int dyi = 0; dyi < nd; ++dyi) {
-      const int cy = zy - dyi;  // core row of the center z - o
-      if (cy < 0 || cy >= t) continue;
-      for (int dxi = 0; dxi < nd; ++dxi) {
-        const int cx = zx - dxi;
-        if (cx < 0 || cx >= t) continue;
+
+  // channel g is an A2^T entry; channel g + 384 an A2^T entry, a b2 entry,
+  // the count (a constant 1) or padding (0)
+  const int ch1 = g + THREADS;
+  const float* src1 = nullptr;
+  int stride1 = 0;
+  float const1 = 0.f;
+  if (ch1 < D * D) {
+    src1 = a2t + ch1;
+    stride1 = D * D;
+  } else if (ch1 < D * D + D) {
+    src1 = small + (ch1 - D * D);
+    stride1 = SMALL_CH;
+  } else {
+    const1 = ch1 == D * D + D ? 1.f : 0.f;
+  }
+
+  float acc[R][ND][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[r][i][0] = acc[r][i][1] = 0.f;
+
+  for (int c0 = 0; c0 < E; c0 += PERIOD) {
+    // weights of source columns [c0, c0 + PERIOD): wsh[u][r][col][dx] is
+    // w of source (zy0 - 2b + u, c0 + col) toward candidate row zy0 + r,
+    // column c0 + col + dx
+    for (int i = g; i < NU * R * PERIOD * WSTRIDE; i += THREADS) {
+      const int dx = i % WSTRIDE, col = (i / WSTRIDE) % PERIOD;
+      const int r = (i / (WSTRIDE * PERIOD)) % R, u = i / (WSTRIDE * PERIOD * R);
+      const int cy = zy0 - 2 * B + u, cx = c0 + col, dy = 2 * B - u + r;
+      float w = 0.f;
+      if (dx < ND && cy >= 0 && cy < t && cx < t && dy >= 0 && dy < ND) {
         const size_t pc = tile0 + (size_t)cy * t + cx;
-        if (!masks[pc * n_off + dyi * nd + dxi]) continue;
-        const float* sm = small + pc * SMALL_CH;
-        if (sm[D] == 0.f) continue;  // main-path gate
-        if (j < D) {
-          const float* at = a2t + pc * D * D + j;
-          float f = sm[j];
-          for (int k = 0; k < D; ++k) f += at[k * D] * cz[k];
-          acc += f;
-        } else {
-          acc += 1.f;
+        if (small[pc * SMALL_CH + D] != 0.f && masks[pc * ND * ND + dy * ND + dx]) w = 1.f;
+      }
+      (&wsh[0][0][0][0])[i] = w;
+    }
+    for (int i = g; i < NU * PERIOD; i += THREADS) {
+      const int u = i / PERIOD, col = i % PERIOD;
+      const int cy = zy0 - 2 * B + u, cx = c0 + col;
+      live[u][col] = cy >= 0 && cy < t && cx < t &&
+                     small[(tile0 + (size_t)cy * t + cx) * SMALL_CH + D] != 0.f;
+    }
+    __syncthreads();
+
+    for (int col = 0; col < PERIOD; ++col) {
+      const int cx = c0 + col;
+      if (cx >= E) break;
+      for (int u = 0; u < NU; ++u) {
+        if (!live[u][col]) continue;
+        const size_t pc = tile0 + (size_t)(zy0 - 2 * B + u) * t + cx;
+        const float s0 = __ldg(a2t + pc * (D * D) + g);
+        const float s1 = src1 ? __ldg(src1 + pc * stride1) : const1;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int dy = 2 * B - u + r;
+          if (dy < 0 || dy >= ND) continue;
+          const float4* w4 = reinterpret_cast<const float4*>(wsh[u][r][col]);
+#pragma unroll
+          for (int k = 0; k < WSTRIDE / 4; ++k) {
+            const float4 w = w4[k];
+            const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (4 * k + e < ND) {
+                acc[r][4 * k + e][0] = fmaf(wv[e], s0, acc[r][4 * k + e][0]);
+                acc[r][4 * k + e][1] = fmaf(wv[e], s1, acc[r][4 * k + e][1]);
+              }
+            }
+          }
         }
       }
+      // candidate column cx has all its sources: out of the window
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ring[col][r][g] = acc[r][0][0];
+        ring[col][r][ch1] = acc[r][0][1];
+#pragma unroll
+        for (int i = 0; i + 1 < ND; ++i) {
+          acc[r][i][0] = acc[r][i + 1][0];
+          acc[r][i][1] = acc[r][i + 1][1];
+        }
+        acc[r][ND - 1][0] = acc[r][ND - 1][1] = 0.f;
+      }
     }
-    // a fallback center deposits its mean patch at its own position only
-    const int cy = zy - b, cx = zx - b;
-    if (cy >= 0 && cy < t && cx >= 0 && cx < t) {
-      const float* sm = small + (tile0 + (size_t)cy * t + cx) * SMALL_CH;
-      acc += (j < D) ? sm[D + 1 + j] : sm[2 * D + 1];
+    __syncthreads();
+
+    // F = WA cpatch + wb (+ the fallback mean patch), count = WA's count
+    // channel (+ fb), one thread per (candidate, output channel)
+    for (int i = g; i < PERIOD * R * FCH; i += THREADS) {
+      const int j = i % FCH, col = (i / FCH) % PERIOD, r = i / (FCH * PERIOD);
+      const int zy = zy0 + r, zx = c0 + col;
+      if (zy >= E || zx >= E) continue;
+      const float* wa = ring[col][r];
+      float f;
+      if (j < D) {
+        const int sy = h - B + zy, sx = h - B + zx;
+        f = 0.f;
+#pragma unroll 9
+        for (int k = 0; k < D; ++k) {
+          const int qi = k / 3;
+          const int yy = sy + qi / 3 - 1, xx = sx + qi % 3 - 1;
+          f = fmaf(color[(((size_t)n * tp + yy) * tp + xx) * 3 + k % 3], wa[k * D + j], f);
+        }
+        f += wa[D * D + j];
+      } else {
+        f = wa[D * D + D];
+      }
+      // a fallback center deposits its mean patch at its own position only
+      const int cy = zy - B, cx = zx - B;
+      if (cy >= 0 && cy < t && cx >= 0 && cx < t) {
+        const float* sm = small + (tile0 + (size_t)cy * t + cx) * SMALL_CH;
+        f += (j < D) ? sm[D + 1 + j] : sm[2 * D + 1];
+      }
+      F[((size_t)n * E * E + (size_t)zy * E + zx) * FCH + j] = f;
     }
-    F[((size_t)n * E * E + (size_t)zy * E + zx) * FCH + j] = acc;
   }
 }
 
@@ -113,6 +226,15 @@ __global__ void fan_out_kernel(const float* __restrict__ F, int n_tiles, int tp,
   o[3] = cnt;
 }
 
+template <int ND>
+void launch_wa(const uint8_t* masks, const float* a2t, const float* small,
+               const float* color, int n_tiles, int tp, int t, int h, float* F,
+               cudaStream_t s) {
+  const int E = t + ND - 1;
+  wa_filter_kernel<ND><<<dim3((E + R - 1) / R, n_tiles), THREADS, 0, s>>>(
+      masks, a2t, small, color, tp, t, h, F);
+}
+
 }  // namespace
 
 extern "C" int bcd_apply_scatter(const unsigned char* masks, const float* a2t,
@@ -121,10 +243,18 @@ extern "C" int bcd_apply_scatter(const unsigned char* masks, const float* a2t,
                                  float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int tp = t + 2 * h, E = t + 2 * b;
+  if (b < 1 || b > MAX_B) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
-    const size_t smem = (size_t)E * D * sizeof(float);
-    filter_candidates_kernel<<<dim3(E, n_tiles), 256, smem, s>>>(
-        masks, a2t, small, color, tp, t, h, b, F);
+    switch (b) {
+      case 1: launch_wa<3>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      case 2: launch_wa<5>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      case 3: launch_wa<7>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      case 4: launch_wa<9>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      case 5: launch_wa<11>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      case 6: launch_wa<13>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      case 7: launch_wa<15>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+      default: launch_wa<17>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+    }
     const size_t total = (size_t)n_tiles * tp * tp;
     fan_out_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
         F, n_tiles, tp, t, h, b, out);

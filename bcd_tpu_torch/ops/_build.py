@@ -51,15 +51,15 @@ _SIGNATURES = {
     "bcd_solve_matrices_pm": [_P, _P, _F, _I, _I, _P, _P, _P],
     # masks, a2t, small, color, n_tiles, t, h, b, f_scratch, out, stream
     "bcd_apply_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # cand, mask, noise, n, m, eps, n_pixels, n_offsets, d, sweeps, field,
-    # stream
-    "bcd_solve_filter": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P],
+    # cand, mask, noise, n, m, rows, eps, n_rows, n_offsets, d, sweeps,
+    # field, stream
+    "bcd_solve_filter": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P],
     # m2, msum, nov, n, eps, n_pixels, d, sweeps, a2t, b2, stream
     "bcd_solve_matrices": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P],
 }
 
-_lib = None
-_log = ""
+_libs: dict = {}
+_logs: dict = {}
 
 
 def reset_launches() -> None:
@@ -76,27 +76,29 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _library_path():
+def _library_path(flags: list[str]):
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return sources, BUILD_DIR / f"libbcd_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
-    global _lib, _log
-    if _lib is not None:
-        return _lib
-    sources, path = _library_path()
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed.
+    ``defines`` (macro names) build a separate variant, e.g.
+    ``("BCD_PHASE_CLOCKS",)`` for the solve kernels' per-phase clocks."""
+    if defines in _libs:
+        return _libs[defines]
+    flags = NVCC_FLAGS + [f"-D{name}" for name in defines]
+    sources, path = _library_path(flags)
     log_path = path.with_suffix(".log")
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
         objs = [f"{tmp}.{src.stem}.o" for src in sources]
-        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        cmds = [[_nvcc(), *flags, "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -117,13 +119,13 @@ def library() -> ctypes.CDLL:
         os.replace(f"{tmp}.so", path)
         for obj in objs:
             os.remove(obj)
-    _log = log_path.read_text() if log_path.exists() else ""
+    _logs[defines] = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
+    _libs[defines] = lib
     return lib
 
 
@@ -131,7 +133,7 @@ def build_log() -> str:
     """nvcc's output for the loaded library (``-Xptxas -v``: registers,
     shared memory and spills of every kernel)."""
     library()
-    return _log
+    return _logs[()]
 
 
 def check(rc: int, name: str) -> None:

@@ -7,10 +7,12 @@ K4 applies), the caller passes this run's counts.
 
 Operations count a multiply-add as two and a division or square root as
 one; the counts are those of the cheapest known algorithm for each
-function (for the eigen-decomposition, the one-sided Jacobi K2 runs;
-csrc/solve_filter.cu's two-sided one does about 1.8x its operations),
-leaving out terms of lower order (rotation angles and K2's rank-k clamp
-update, which depends on how many eigenvalues are negative)."""
+function (for the eigen-decomposition, the one-sided fast-Givens Jacobi
+that every solve kernel runs), whatever a kernel actually computes (K4
+sums each source's filter before applying it, the solve_filter kernel
+computes the full M2), leaving out terms of lower order (rotation angles
+and the rank-k clamp update, which depends on how many eigenvalues are
+negative)."""
 
 from __future__ import annotations
 

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (bcd_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase-clocks   # only solve_filter's phase clocks
 
 Phases, each printed on its own lines; any failure exits non-zero before
 the final line:
@@ -18,7 +19,9 @@ the final line:
    every pixel the batch's filters reach; solve_filter and the lane-form
    solve_matrices on synthetic stacks at d = 27 and 75, and on one real
    16-tile batch of the full-size scene at r=2, b=6 (the stacks the
-   -w 2 engine builds), finite on every center.
+   -w 2 engine builds), finite on every center; both also against the
+   plain fp32 model of their schedule, and solve_filter's in-place entry
+   (the engine's) against its compact one, bit for bit.
 3. The golden scene (tests/golden) through the port: monoscale and 2-scale
    outputs within rmse 1e-4 of the committed goldens, and the main-path
    fraction (gate sum over managed pixels).
@@ -70,6 +73,14 @@ SOLVE_SWEEPS = 6
 # synthetic solves against their float64 twins: JAX's own kernel-vs-
 # reference bound (tests/test_solve_filter_pallas.py:34)
 SYNTH_RMS = 2e-4
+# solve_filter and the lane solve_matrices against the plain fp32 model of
+# their schedule (ops/solve_filter.solve_schedule_core): synthetic stacks
+# (about 2e-6 at d = 75 on an H100), and the filtered field of the real
+# r = 2 batch, relative rms, about 3x the reading on an H100 (6.9e-6)
+SOLVE_MODEL_RMS = 1e-5
+SOLVE_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 2 batch the fp32 model runs on
+MODEL_CENTERS = 4096
 # real r = 2 batch: the filtered field against the float64 twin's, relative
 # rms, the bound K2's filtered self-candidate is held to
 BATCH_REL_RMS = 1e-3
@@ -83,6 +94,15 @@ R2_KERNELS = ("solve_filter",)
 # engine path, is held to its float64 twin (whose call takes about 3 ms a
 # center on the card)
 LANE_CENTERS = 2048
+# solve_filter_pm's stack arguments, in order
+PM_KEYS = ("cand", "mask", "noise", "n", "m")
+# solve_filter's kernel phases between its clock64() stamps (a build with
+# -DBCD_PHASE_CLOCKS; `python3 chip_smoke.py --phase-clocks`)
+PHASE_NAMES = ("moments", "Jacobi", "clamp", "Cholesky and solves 1",
+               "step 2", "Cholesky and solves 2, b2", "filter")
+# ... and the Jacobi's rounds by part, summed over its rounds
+ROUND_PART_NAMES = ("pivot partial sums", "barrier wait",
+                    "rotation angles", "rotations and re-seating")
 
 
 def fail(msg: str) -> None:
@@ -468,7 +488,8 @@ def lane_moments(x):
 def r2_batch(stats, dev, thr, batch=8):
     """The candidate-stack engine's solve inputs for tile batch ``batch``
     (16 tiles of 32x32) of a whole image at r = 2, b = 6, built as the
-    engine builds them. Returns (lanes of every center, main-path mask)."""
+    engine builds them. Returns (pixel-major stacks cand, mask, noise, n, m
+    of every center, main-path mask)."""
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               candidate_stacks, tile_batches)
 
@@ -480,11 +501,23 @@ def r2_batch(stats, dev, thr, batch=8):
     _, (ly, lx), slabs = next(batches)
     s = candidate_stacks(cfg, *slabs, ly, lx, ly, lx, height, width, height,
                          width, thr)
-    lanes = {k: s[k].movedim(0, -1).contiguous()
-             for k in ("cand", "mask", "noise", "m")}
-    return {"C": lanes["cand"], "mask": lanes["mask"],
-            "noise": lanes["noise"], "n": s["n"][None].contiguous(),
-            "m": lanes["m"]}, s["main"]
+    return {k: s[k] for k in PM_KEYS}, s["main"]
+
+
+def pm_of(x):
+    """solve_filter_pm's arguments (cand, mask, noise, n, m) from stacks in
+    JAX's lane layout."""
+    return (x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+            x["noise"].T.contiguous(), x["n"][0].contiguous(),
+            x["m"].T.contiguous())
+
+
+def lanes_of(x):
+    """JAX's lane layout (pixels last) of pixel-major stacks: dict of C
+    (O, d, P), mask (O, P), noise (6 npx, P), n (1, P), m (d, P)."""
+    return {"C": x["cand"].permute(1, 2, 0).contiguous(),
+            "mask": x["mask"].T.contiguous(), "noise": x["noise"].T.contiguous(),
+            "n": x["n"][None].contiguous(), "m": x["m"].T.contiguous()}
 
 
 def r2_main_fraction(stats, dev, thr) -> float:
@@ -531,12 +564,20 @@ def compare_solve_synthetic(dev):
         lane_p = ts.solve_matrices_plain(*lane_moments(x), 1e-8, npx=npx)
         e_l = max(rmse(g.cpu(), r.cpu()) for g, r in zip(lane, lane_p))
         e_c = rmse(field.cpu(), lane_field(lane, x).cpu())
+        model = ts.solve_filter_pm_schedule(
+            *(v for v in pm_of(x)), 1e-8, npx, SOLVE_SWEEPS).permute(1, 2, 0)
+        lane_m = ts.solve_matrices_schedule(*lane_moments(x), 1e-8, npx,
+                                            SOLVE_SWEEPS)
+        e_m = max(rmse(field.cpu(), model.cpu()),
+                  max(rmse(g.cpu(), r.cpu()) for g, r in zip(lane, lane_m)))
         print(f"[2] synthetic d={d} (O={O}, 1024 pixels, sweeps "
               f"{SOLVE_SWEEPS}): solve_filter vs twin rms {e_f:.3e}; lane "
               f"solve_matrices vs twin rms {e_l:.3e}; lane filter vs "
-              f"solve_filter rms {e_c:.3e} (limit {SYNTH_RMS:g})",
-              flush=True)
+              f"solve_filter rms {e_c:.3e} (limit {SYNTH_RMS:g}); both vs "
+              f"their fp32 schedule model rms {e_m:.3e} (limit "
+              f"{SOLVE_MODEL_RMS:g})", flush=True)
         need(max(e_f, e_l, e_c) < SYNTH_RMS, f"synthetic d={d} solve rms")
+        need(e_m < SOLVE_MODEL_RMS, f"synthetic d={d} solves vs their model")
         err = max(err, float((field - ref).abs().max()),
                   max(float((g - r).abs().max())
                       for g, r in zip(lane, lane_p)))
@@ -553,63 +594,81 @@ def lane_field(lane, x):
 
 
 def compare_solve_batch(label, x, main, reps):
-    """solve_filter and the lane solve_matrices on one real r = 2 batch:
-    the kernel must be finite on every center (main path, fallback,
-    invalid); on the main-path centers, which the engine solves, both are
-    held to their float64 twins through the filtered field. Returns
-    {name: (max_abs_err, ms, plain_ms)}."""
+    """solve_filter and the lane solve_matrices on one real r = 2 batch of
+    pixel-major stacks: the kernel must be finite on every center (main
+    path, fallback, invalid); on the main-path centers, which the engine
+    solves, both are held to their float64 twins through the filtered
+    field, and the engine's entry (``rows``, in place) must give the same
+    bits as the compact stack. Returns {name: (max_abs_err, ms, plain_ms,
+    bound)}."""
     import torch
     from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
 
-    npx = x["C"].shape[1] // 3
-    args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
-    every = ts.solve_filter(*args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+    p_all, n_off, d = x["cand"].shape
+    npx = d // 3
+    args = [x[k] for k in PM_KEYS]
+    every = ts.solve_filter_pm(*args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
     need(bool(torch.isfinite(every).all()),
          f"{label} solve_filter: non-finite output")
     idx = main.nonzero()[:, 0]
     need(idx.numel() > 0, f"{label}: no main-path center")
-    xm = {k: v[..., idx].contiguous() for k, v in x.items()}
-    args = [xm[k] for k in ("C", "mask", "noise", "n", "m")]
-    sf = lambda: ts.solve_filter(  # noqa: E731
-        *args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
-    sf_plain = lambda: ts.solve_filter_plain(  # noqa: E731
-        *args, 1e-8, npx=npx)
+    xm = {k: v[idx].contiguous() for k, v in x.items()}
+    args_m = [xm[k] for k in PM_KEYS]
+    sf = lambda: ts.solve_filter_pm(  # noqa: E731
+        *args_m, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+    sf_plain = lambda: ts.solve_filter_pm_plain(  # noqa: E731
+        *args_m, 1e-8, npx=npx)
     field = sf()
+    in_place = ts.solve_filter_pm(*args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS,
+                                  rows=idx)
+    rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
+    rest[idx] = False
+    need(torch.equal(in_place[idx], field)
+         and not bool(in_place[rest].any()),
+         f"{label} solve_filter_pm: rows in place differ from the compact "
+         "stack")
     ref, plain_ms = timed_once(sf_plain)
     rel = rel_rms(field, ref)
-    n_off, d = x["C"].shape[:2]
     res = {"solve_filter": (float((field - ref).abs().max()),
                             cuda_ms(sf, reps), plain_ms, bounds.solve_filter(
                                 idx.numel(), n_off, d, SOLVE_SWEEPS))}
     print(f"[2] {label} solve_filter: {idx.numel()} main-path centers of "
-          f"{main.numel()} (O={x['C'].shape[0]}, d={x['C'].shape[1]}), "
-          f"finite on all; field vs float64 twin rel rms {rel:.3e} (limit "
-          f"{BATCH_REL_RMS:g}), max abs err {res['solve_filter'][0]:.3e}; "
-          f"kernel {res['solve_filter'][1]:.3f} ms, twin "
+          f"{main.numel()} (O={n_off}, d={d}), finite on all; field vs "
+          f"float64 twin rel rms {rel:.3e} (limit {BATCH_REL_RMS:g}), max "
+          f"abs err {res['solve_filter'][0]:.3e}; the engine's in-place rows "
+          f"bitwise equal; kernel {res['solve_filter'][1]:.3f} ms, twin "
           f"{res['solve_filter'][2]:.3f} ms, bound "
           f"{res['solve_filter'][3][0]:.3f} ms", flush=True)
     need(rel < BATCH_REL_RMS, f"{label} solve_filter vs twin")
+    model = ts.solve_filter_pm_schedule(
+        *(v[:MODEL_CENTERS] for v in args_m), 1e-8, npx, SOLVE_SWEEPS)
+    rel_m = rel_rms(field[:MODEL_CENTERS], model)
+    print(f"[2] {label} solve_filter vs its fp32 schedule model on the first "
+          f"{model.shape[0]} main-path centers: field rel rms {rel_m:.3e} "
+          f"(limit {SOLVE_MODEL_BATCH_REL_RMS:g})", flush=True)
+    need(rel_m < SOLVE_MODEL_BATCH_REL_RMS,
+         f"{label} solve_filter vs its schedule model")
 
     # the lane form on the first LANE_CENTERS of those centers
-    xm = {k: v[..., :LANE_CENTERS].contiguous() for k, v in xm.items()}
-    field = field[..., :LANE_CENTERS]
-    moments = lane_moments(xm)
+    xl = lanes_of({k: v[:LANE_CENTERS] for k, v in xm.items()})
+    field = field[:LANE_CENTERS].permute(1, 2, 0)
+    moments = lane_moments(xl)
     sm = lambda: ts.solve_matrices(  # noqa: E731
         *moments, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
     sm_plain = lambda: ts.solve_matrices_plain(  # noqa: E731
         *moments, 1e-8, npx=npx)
     lane = sm()
     lane_p, plain_ms = timed_once(sm_plain)
-    want = lane_field(lane_p, xm)
-    got = lane_field(lane, xm)
+    want = lane_field(lane_p, xl)
+    got = lane_field(lane, xl)
     rel_l = rel_rms(got, want)
     rel_c = rel_rms(got, field)
     res["solve_matrices"] = (float((got - want).abs().max()),
                              cuda_ms(sm, reps), plain_ms, bounds.solve_matrices(
-                                 xm["n"].shape[1], d, SOLVE_SWEEPS))
+                                 xl["n"].shape[1], d, SOLVE_SWEEPS))
     print(f"[2] {label} lane solve_matrices on the moments of the first "
-          f"{xm['n'].shape[1]} of those centers: "
+          f"{xl['n'].shape[1]} of those centers: "
           f"filtered field vs float64 twin rel rms {rel_l:.3e}, vs "
           f"solve_filter's kernel {rel_c:.3e} (limit {BATCH_REL_RMS:g}); "
           f"raw a2t rms {rmse(lane[0].cpu(), lane_p[0].cpu()):.3e}; kernel "
@@ -618,6 +677,47 @@ def compare_solve_batch(label, x, main, reps):
           f"{res['solve_matrices'][3][0]:.3f} ms", flush=True)
     need(max(rel_l, rel_c) < BATCH_REL_RMS, f"{label} solve_matrices")
     return res
+
+
+def phase_clocks(x, main) -> None:
+    """Per-phase clock64() cycles of solve_filter's kernel on the main-path
+    centers of one real r = 2 batch: a build of the sources with
+    -DBCD_PHASE_CLOCKS, in which the kernel stamps each phase boundary."""
+    import ctypes
+
+    import torch
+    from bcd_tpu_torch.ops import _build
+
+    lib = _build.library(("BCD_PHASE_CLOCKS",))
+    lib.bcd_solve_filter_phase_buffer.argtypes = [ctypes.c_void_p]
+    lib.bcd_solve_filter_phase_buffer.restype = ctypes.c_int
+    idx = main.nonzero()[:, 0]
+    xm = [x[k][idx].contiguous() for k in PM_KEYS]
+    p_total, n_off, d = xm[0].shape
+    clk = torch.zeros((p_total, len(PHASE_NAMES) + 1 + len(ROUND_PART_NAMES)),
+                      dtype=torch.int64, device=xm[0].device)
+    field = torch.empty_like(xm[0])
+    p = _build.ptr
+    need(lib.bcd_solve_filter_phase_buffer(p(clk)) == 0, "phase buffer")
+    for _ in range(2):  # the second run is read
+        rc = lib.bcd_solve_filter(*map(p, xm), None, 1e-8, p_total, n_off, d,
+                                  SOLVE_SWEEPS, p(field), _build.stream_of(clk))
+        need(rc == 0, f"phase-clock build of solve_filter: cudaError {rc}")
+        torch.cuda.synchronize()
+    stamps = clk[:, : len(PHASE_NAMES) + 1]
+    cyc = (stamps[:, 1:] - stamps[:, :-1]).double()
+    total = float((stamps[:, -1] - stamps[:, 0]).double().mean())
+    print(f"[2] solve_filter phase clocks (clock64 cycles a pixel, mean over "
+          f"{p_total} main-path centers, d={d}, {SOLVE_SWEEPS} sweeps; total "
+          f"{total:.0f}):", flush=True)
+    for name, col in zip(PHASE_NAMES, cyc.T):
+        print(f"    {name:28s} {float(col.mean()):12.0f}  "
+              f"{float(col.mean()) / total:6.1%}", flush=True)
+    rounds = clk[:, len(PHASE_NAMES) + 1 :].double().mean(0)
+    print("[2] ... the Jacobi's rounds by part (thread 0, cycles a pixel):",
+          flush=True)
+    for name, cycles in zip(ROUND_PART_NAMES, rounds):
+        print(f"    {name:28s} {float(cycles):12.0f}", flush=True)
 
 
 def device_time_table(label, run) -> None:
@@ -700,6 +800,15 @@ def main() -> int:
     print(f"[1] K2 solve_matrices_pm_kernel: stack frame, spill stores, "
           f"spill loads = {k2_spill} bytes", flush=True)
     need(k2_spill[1:] == [0, 0], "K2's kernel spills registers")
+
+    if "--phase-clocks" in sys.argv[1:]:
+        _, stats = full_scene()
+        pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
+                            PipelineParameters().prefiltering
+                            .spike_removal_threshold_stdev_factor)
+        phase_clocks(*r2_batch(pre, dev, params.histogram_distance_threshold))
+        print(card, flush=True)
+        return 0
 
     kernels = {}
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter and the lane-form
-solve_matrices) against their plain twins, and K2 against the plain model
-of its own schedule, on the card. Run on a machine
+solve_matrices) against their plain twins, and the solve kernels against
+the plain fp32 model of their own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
@@ -14,9 +14,10 @@ import torch
 
 from bcd_tpu_torch.ops import fused as tfused
 from bcd_tpu_torch.ops.solve_filter import (
-    D, MISC_CH, SMALL_CH, solve_filter, solve_filter_plain, solve_matrices,
-    solve_matrices_pm, solve_matrices_pm_plain, solve_matrices_pm_schedule,
-    solve_matrices_plain)
+    D, MISC_CH, SMALL_CH, solve_filter, solve_filter_plain, solve_filter_pm,
+    solve_filter_pm_schedule, solve_matrices, solve_matrices_pm,
+    solve_matrices_pm_plain, solve_matrices_pm_schedule, solve_matrices_plain,
+    solve_matrices_schedule)
 
 pytestmark = pytest.mark.gpu
 
@@ -176,10 +177,18 @@ def test_k2_kernel_degenerate_pixels_finite(cuda):
     assert bool(torch.isfinite(a2t).all() and torch.isfinite(small).all())
 
 
-def test_k4_kernel_matches_twin(cuda):
-    t, b = 32, 6
+@pytest.mark.parametrize("case,t,b", [
+    ("mixed", 32, 6), ("mixed", 16, 2), ("mixed", 17, 2),
+    ("no_main", 32, 6), ("fallback_only", 16, 3)])
+def test_k4_kernel_matches_twin(cuda, case, t, b):
+    """K4 against its twin: sums within atol/rtol 3e-5 (the kernel sums each
+    source's filter before applying it), counts exact, bitwise repeatable.
+    t = 17, b = 2 gives 21 candidate rows and columns, which neither the
+    kernel's 2-row band nor its 4-column staging divides; "no_main" empties
+    tile 0 (no main-path and no fallback center); "fallback_only" has no
+    main-path center at all."""
     h = b + 1
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(3 + t + b)
     args = _scene(rng, 2, t, h, 60)
     masks, _, misc = tfused.masks_moments(*args, 1.0, t=t, h=h, b=b)
     cv = misc[..., D + 55]
@@ -189,21 +198,44 @@ def test_k4_kernel_matches_twin(cuda):
     small[..., :D] = torch.tensor(rng.standard_normal((2, t * t, D)),
                                   dtype=torch.float32)
     gate = (torch.tensor(rng.random((2, t * t)) < 0.6) & (cv > 0)).float()
+    if case == "fallback_only":
+        gate[:] = 0.0
     small[..., D] = gate
     fb = cv * (1 - gate)
+    if case == "no_main":
+        gate[0] = 0.0
+        small[0, :, D] = 0.0
+        fb[0] = 0.0
     small[..., D + 1 : 2 * D + 1] = fb[..., None] * torch.tensor(
         rng.standard_normal((2, t * t, D)), dtype=torch.float32)
     small[..., 2 * D + 1] = fb
-    assert gate.any() and fb.any()
+    assert fb.any() and (gate.any() or case == "fallback_only")
     ref = tfused.apply_scatter(masks, a2t, small, args[2], t=t, h=h, b=b)
-    got = tfused.apply_scatter(masks.to(cuda), a2t.to(cuda), small.to(cuda),
-                               args[2].to(cuda), t=t, h=h, b=b).cpu()
+    dev_args = [x.to(cuda) for x in (masks, a2t, small, args[2])]
+    got = tfused.apply_scatter(*dev_args, t=t, h=h, b=b).cpu()
     np.testing.assert_allclose(got[..., :3].numpy(), ref[..., :3].numpy(),
                                rtol=3e-5, atol=3e-5)
     assert torch.equal(got[..., 3], ref[..., 3])
-    again = tfused.apply_scatter(masks.to(cuda), a2t.to(cuda), small.to(cuda),
-                                 args[2].to(cuda), t=t, h=h, b=b).cpu()
-    assert torch.equal(got, again)  # gather form: bitwise deterministic
+    again = tfused.apply_scatter(*dev_args, t=t, h=h, b=b).cpu()
+    assert torch.equal(got, again)  # fixed summation order, no atomics
+    if case == "no_main":
+        assert not bool(got[0].any())
+
+
+def test_k4_kernel_refuses_wide_windows(cuda):
+    """The kernel's window of 2b + 1 candidate columns lives in registers,
+    instantiated for b <= 8: b = 9 is refused before any launch (and by
+    the CLI before it reads its inputs, test_cli_refuses_radius_3_on_cuda)."""
+    t, b = 8, 9
+    h = b + 1
+    tp = t + 2 * h
+    with pytest.raises(NotImplementedError, match="b = 9"):
+        tfused.apply_scatter(
+            torch.zeros((1, t * t, (2 * b + 1) ** 2), dtype=torch.uint8,
+                        device=cuda),
+            torch.zeros((1, t * t, D * D), device=cuda),
+            torch.zeros((1, t * t, SMALL_CH), device=cuda),
+            torch.zeros((1, tp, tp, 3), device=cuda), t=t, h=h, b=b)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +315,49 @@ def test_solve_matrices_kernel_matches_twin(cuda, O, d):
     assert _rms(field[..., 48:], want[..., 48:]) < 2e-4
 
 
+@pytest.mark.parametrize("O,d", [(49, 27), (169, 75)])
+def test_solve_kernels_match_schedule(cuda, O, d):
+    """solve_filter and the lane solve_matrices against the plain fp32 model
+    of their own schedule (solve_schedule_core: the same rotations,
+    re-seating, clamp and Cholesky arithmetic), rms 1e-5 (about 2e-6 at
+    d = 75 on an H100), with the degenerate pixels in the batch."""
+    x = _degenerate(_stack_inputs(np.random.default_rng(d + 2), O, d, 256))
+    npx = d // 3
+    pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+          x["noise"].T.contiguous(), x["n"][0].contiguous(),
+          x["m"].T.contiguous()]
+    want = solve_filter_pm_schedule(*pm, 1e-8, npx, 6)
+    got = solve_filter_pm(*(a.to(cuda) for a in pm), 1e-8, npx=npx,
+                          sweeps=6).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, want) < 1e-5
+    args = [x[k] for k in ("m2", "msum", "nov", "n")]
+    want = solve_matrices_schedule(*args, 1e-8, npx, 6)
+    got = [t.cpu() for t in solve_matrices(*(a.to(cuda) for a in args), 1e-8,
+                                           npx=npx, sweeps=6)]
+    for g, w in zip(got, want):
+        assert _rms(g[..., 48:], w[..., 48:]) < 1e-5
+
+
+def test_solve_filter_pm_rows_in_place(cuda):
+    """The engine's entry: with ``rows`` the kernel reads those pixels of the
+    stacks in place and writes their fields, bit for bit those of the
+    compact stacks; the other rows are 0."""
+    x = _stack_inputs(np.random.default_rng(31), 169, 75, 64)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    rows = torch.tensor([1, 5, 6, 40, 63], device=cuda)
+    part = solve_filter_pm(*pm, 1e-8, npx=25, sweeps=6, rows=rows)
+    compact = solve_filter_pm(*[v[rows].contiguous() for v in pm], 1e-8,
+                              npx=25, sweeps=6)
+    assert torch.equal(part[rows], compact)
+    rest = torch.ones(64, dtype=torch.bool, device=cuda)
+    rest[rows] = False
+    assert not bool(part[rest].any())
+
+
 def test_solve_filter_kernel_refuses_large_patches(cuda):
     d = 147  # patch radius 3
     x = {k: v.to(cuda) for k, v in
@@ -292,11 +367,12 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
                      npx=d // 3, sweeps=6)
 
 
-def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """No kernel instantiation for d = 147: the CLI refuses before reading
-    its inputs and never runs the twin."""
+@pytest.mark.parametrize("flags", [["-w", "3"], ["-b", "9"]])
+def test_cli_refuses_radius_3_on_cuda(cuda, capsys, flags):
+    """No kernel instantiation for d = 147 (patch radius 3), nor K4's for a
+    search radius over 8: the CLI refuses before reading its inputs and
+    never runs a twin."""
     from bcd_tpu_torch import cli
 
-    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "3"]) == 1
+    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", *flags]) == 1
     assert "ROADMAP" in capsys.readouterr().out

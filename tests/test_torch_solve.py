@@ -178,8 +178,8 @@ def test_solve_wrappers_refuse_bad_inputs():
 @pytest.mark.parametrize("d", [27, 75, 147])
 def test_kernel_dims(d):
     """The CUDA solve kernel is built for patch radius 1 and 2; radius 3
-    (three 148 x 149 fp32 matrices, 264 KB) is refused with its ROADMAP
-    item."""
+    (a thread's column of W or Q would be 148 floats of registers) is
+    refused with its ROADMAP item."""
     if d in ts.KERNEL_DIMS:
         ts.check_kernel_dim(d)
     else:
@@ -277,14 +277,16 @@ def test_schedule_degenerate_pixels():
     assert (small[:32, D] == 0).all() and (small[32:64, D] == 1).all()
 
 
-def test_reseat_order_is_one_sweep_cycle():
+@pytest.mark.parametrize("dp", [28, 76])
+def test_reseat_order_is_one_sweep_cycle(dp):
     """reseat_order is the TPU kernel's re-seating (the concatenation of
     solve_filter_pallas.py:184-187, written out on row labels): a
     permutation that keeps row 0 and moves the other rows along one cycle
-    of length DP - 1, the round-robin order of a Brent-Luk sweep."""
-    order = ts.reseat_order()
-    half = ts.HALF
-    u, dn = np.arange(half), np.arange(half, ts.DP)
+    of length dp - 1, the round-robin order of a Brent-Luk sweep, at K2's
+    dp = 28 and solve_filter's dp = 76 (d = 75)."""
+    order = ts.reseat_order(dp)
+    half = dp // 2
+    u, dn = np.arange(half), np.arange(half, dp)
     tpu = np.concatenate([u[0:1], dn[0:1], u[1 : half - 1], dn[1:half],
                           u[half - 1 : half]])
     assert order == tpu.tolist()
@@ -295,4 +297,86 @@ def test_reseat_order_is_one_sweep_cycle():
         length += 1
         if row == 1:
             break
-    assert length == ts.DP - 1
+    assert length == dp - 1
+
+
+@pytest.mark.parametrize("form", ["solve_filter", "solve_matrices"])
+def test_schedule_d75_matches_twins(form):
+    """The kernels' fp32 schedule at d = 75 (the Jacobi as a function of d,
+    6 sweeps, 16 pixels) against the float64 twins, within the kernels'
+    2e-4 (about 4e-6 here): the model the card's solve_filter and lane
+    solve_matrices are held to."""
+    npx, d = 25, 75
+    m2, msum, nov, n, C, mask, noise, m = _moment_inputs(
+        np.random.default_rng(21), O=121, d=d, npx=npx, P=16)
+    if form == "solve_filter":
+        pm = [t for t in _t(C.transpose(2, 0, 1), mask.T, noise.T, n[0],
+                            m.T)]
+        got = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 6)
+        want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
+        assert got.shape == want.shape == (16, 121, d)
+        assert _rms(got, want) < 2e-4
+    else:
+        got = ts.solve_matrices_schedule(*_t(m2, msum, nov, n), 1e-8, npx, 6)
+        want = ts.solve_matrices_plain(*_t(m2, msum, nov, n), 1e-8, npx)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert _rms(g, w) < 2e-4
+
+
+def test_schedule_core_is_k2_schedule():
+    """solve_matrices_pm_schedule (K2's model) is solve_schedule_core on
+    K1's channel maps: the lane solve_matrices' model on the same moments
+    gives the same filter to rounding."""
+    from bcd_tpu_torch.ops.fused import _tri_pack
+
+    m2, msum, nov, n, *_ = _moment_inputs(np.random.default_rng(22), P=16)
+    m2_pm = m2.transpose(2, 0, 1).reshape(16, -1)[:, _tri_pack(D)]
+    misc = np.zeros((16, ts.MISC_CH), np.float32)
+    misc[:, :D] = msum.T
+    misc[:, D : D + 54] = nov.T
+    misc[:, D + 54] = n[0]
+    misc[:, D + 55] = 1.0
+    a2t, small = _schedule(np.ascontiguousarray(m2_pm), misc, 4)
+    lane_a2t, lane_b2 = ts.solve_matrices_schedule(*_t(m2, msum, nov, n),
+                                                   1e-8, 9, 4)
+    assert _rms(a2t.reshape(16, D, D), lane_a2t.numpy().transpose(2, 0, 1)) \
+        < 1e-5
+    assert _rms(small[:, :D], lane_b2.numpy()[0].T) < 1e-5
+
+
+def test_solve_filter_pm_is_the_lane_form():
+    """solve_filter (JAX's lane layout) is solve_filter_pm on the transposed
+    stacks; with ``rows`` only those pixels are solved, bit for bit, and the
+    other rows are 0 (the engine's in-place entry)."""
+    args = make_inputs(np.random.default_rng(23), P=24)
+    C, mask, noise, n, m = _t(*args)
+    lane = ts.solve_filter(C, mask, noise, n, m, 1e-8, npx=9, sweeps=6)
+    pm = [C.permute(2, 0, 1).contiguous(), mask.T.contiguous(),
+          noise.T.contiguous(), n[0].contiguous(), m.T.contiguous()]
+    field = ts.solve_filter_pm(*pm, 1e-8, npx=9, sweeps=6)
+    assert torch.equal(field, lane.permute(2, 0, 1))
+    rows = torch.tensor([3, 7, 8, 20])
+    part = ts.solve_filter_pm(*pm, 1e-8, npx=9, sweeps=6, rows=rows)
+    assert torch.equal(part[rows], ts.solve_filter_pm(
+        *[x[rows] for x in pm], 1e-8, npx=9, sweeps=6))
+    rest = torch.ones(24, dtype=torch.bool)
+    rest[rows] = False
+    assert not bool(part[rest].any())
+    empty = ts.solve_filter_pm(*pm, 1e-8, npx=9, sweeps=6,
+                               rows=torch.zeros(0, dtype=torch.long))
+    assert not bool(empty.any())
+
+
+def test_solve_filter_pm_refuses_bad_inputs():
+    C, mask, noise, n, m = _t(*make_inputs(np.random.default_rng(24), P=4))
+    pm = [C.permute(2, 0, 1).contiguous(), mask.T.contiguous(),
+          noise.T.contiguous(), n[0].contiguous(), m.T.contiguous()]
+    with pytest.raises(ValueError, match="3 \\* npx"):
+        ts.solve_filter_pm(*pm, 1e-8, npx=25, sweeps=6)
+    with pytest.raises(ValueError, match="noise"):
+        ts.solve_filter_pm(pm[0], pm[1], pm[2][:, :6], pm[3], pm[4], 1e-8,
+                           npx=9, sweeps=6)
+    with pytest.raises(ValueError, match="n must be"):
+        ts.solve_filter_pm(pm[0], pm[1], pm[2], n, pm[4], 1e-8, npx=9,
+                           sweeps=6)

@@ -153,3 +153,19 @@ def test_distance_masks_match_jax_with_zero_counts(skip_stride):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got_cv[0].numpy(), np.asarray(ref_cv))
     assert 0 < got.mean() < 1
+
+
+@pytest.mark.parametrize("tile", [8, 32])
+def test_candidate_stacks_are_kernel_ready(tile):
+    """The stacks ``solve_filter_pm`` reads in place on the card must be
+    contiguous float32 in every batch, also a batch of one tile (tile 32
+    covers the 20x20 scene in one), where the mask's reshape alone would be
+    a strided view."""
+    cfg = tmono.MonoscaleConfig(patch_radius=2, search_radius=5, tile=tile)
+    height, width = scene20()[0].shape[:2]
+    for _, (ly, lx), slabs in tmono.tile_batches(cfg, *_padded(cfg,
+                                                               scene20())):
+        s = tmono.candidate_stacks(cfg, *slabs, ly, lx, ly, lx, height,
+                                   width, height, width, R2_THRESHOLD)
+        for k in ("cand", "mask", "noise", "n", "m"):
+            assert s[k].dtype == torch.float32 and s[k].is_contiguous(), k
