@@ -194,14 +194,11 @@ def launch(argv: List[str]) -> int:
     if device is None:
         return 1
     if device.type == "cuda":
-        from bcd_tpu_torch.ops.fused import check_k4_radius
         from bcd_tpu_torch.ops.solve_filter import check_kernel_dim
 
-        mono = args.pipeline.denoiser.monoscale
         try:
-            check_kernel_dim(3 * (2 * mono.patch_radius + 1) ** 2)
-            if mono.patch_radius == 1:  # the fused engine's K4
-                check_k4_radius(mono.search_window_radius)
+            check_kernel_dim(3 * (2 * args.pipeline.denoiser.monoscale
+                                  .patch_radius + 1) ** 2)
         except NotImplementedError as e:
             print(f"ERROR: {e}")
             return 1

@@ -40,6 +40,13 @@
 //   - Every 4 candidate columns the finished WA rows go through shared
 //     memory, and one thread per (candidate, output channel) forms
 //     F = WA cpatch + wb (+ the fallback mean patch) in a fixed order.
+//   - A search radius over 8 (2b + 1 > 17 columns, more than the registers
+//     hold) runs in passes over blocks of the offsets, at most 17 x 17
+//     each (ceil((2b + 1) / 17)^2 passes, windows of equal odd width):
+//     each pass walks the sources again with the offsets of its block and
+//     adds its share of F, which is linear in WA, to the earlier passes'
+//     (the first pass stores, with the fallback). At b <= 8 there is one
+//     pass over all offsets.
 //   - fan_out_kernel sums the 3 x 3 patch groups per pixel.
 // No atomics: every sum has a fixed order, so the output is bitwise
 // deterministic from run to run, and the counts are sums of 0/1 weights,
@@ -64,21 +71,27 @@ constexpr int THREADS = 384;        // channels g and g + 384 a thread
 constexpr int NCH_PAD = 2 * THREADS;
 constexpr int R = 2;                // candidate rows a block
 constexpr int PERIOD = 4;           // source columns staged at once
-constexpr int MAX_B = 8;
+constexpr int MAX_NW = 17;          // widest window a pass holds in registers
 
-template <int ND>
+// One pass over the offsets dy in [dy0, dy0 + NW), dx in [dx0, dx0 + NW)
+// (those below nd = 2b + 1). acc[r][i] is the candidate of row zy0 + r and
+// column s + i at step s, which takes source column cx = s - dx0 (offset
+// dx = dx0 + i); after it, candidate column s has its sources of the pass.
+template <int NW>
 __global__ void __launch_bounds__(THREADS, 2)
 wa_filter_kernel(const uint8_t* __restrict__ masks, const float* __restrict__ a2t,
                  const float* __restrict__ small, const float* __restrict__ color,
-                 int tp, int t, int h, float* __restrict__ F) {
-  constexpr int B = ND / 2;
-  constexpr int NU = R + ND - 1;  // source rows within reach of the block
-  constexpr int WSTRIDE = 4 * ((ND + 3) / 4);
+                 int tp, int t, int h, int nd, int dy0, int dx0,
+                 float* __restrict__ F) {
+  constexpr int NU = R + NW - 1;  // source rows within reach of the block
+  constexpr int WSTRIDE = 4 * ((NW + 3) / 4);
   __shared__ __align__(16) float wsh[NU][R][PERIOD][WSTRIDE];
   __shared__ int live[NU][PERIOD];
   __shared__ __align__(16) float ring[PERIOD][R][NCH_PAD];
-  const int E = t + 2 * B;
+  const int B = nd / 2, E = t + 2 * B;
+  const bool first = dy0 == 0 && dx0 == 0;
   const int zy0 = blockIdx.x * R, n = blockIdx.y;
+  const int cy0 = zy0 - dy0 - (NW - 1);  // tile row of source row u = 0
   const int g = threadIdx.x;
   const size_t tile0 = (size_t)n * t * t;
 
@@ -98,47 +111,50 @@ wa_filter_kernel(const uint8_t* __restrict__ masks, const float* __restrict__ a2
     const1 = ch1 == D * D + D ? 1.f : 0.f;
   }
 
-  float acc[R][ND][2];
+  float acc[R][NW][2];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int i = 0; i < ND; ++i) acc[r][i][0] = acc[r][i][1] = 0.f;
+    for (int i = 0; i < NW; ++i) acc[r][i][0] = acc[r][i][1] = 0.f;
 
   for (int c0 = 0; c0 < E; c0 += PERIOD) {
-    // weights of source columns [c0, c0 + PERIOD): wsh[u][r][col][dx] is
-    // w of source (zy0 - 2b + u, c0 + col) toward candidate row zy0 + r,
+    // weights of steps [c0, c0 + PERIOD): wsh[u][r][col][dx] is w of
+    // source (cy0 + u, c0 + col - dx0) toward candidate row zy0 + r,
     // column c0 + col + dx
     for (int i = g; i < NU * R * PERIOD * WSTRIDE; i += THREADS) {
       const int dx = i % WSTRIDE, col = (i / WSTRIDE) % PERIOD;
       const int r = (i / (WSTRIDE * PERIOD)) % R, u = i / (WSTRIDE * PERIOD * R);
-      const int cy = zy0 - 2 * B + u, cx = c0 + col, dy = 2 * B - u + r;
+      const int cy = cy0 + u, cx = c0 + col - dx0, dy = NW - 1 - u + r;
       float w = 0.f;
-      if (dx < ND && cy >= 0 && cy < t && cx < t && dy >= 0 && dy < ND) {
+      if (dx < NW && dx0 + dx < nd && dy >= 0 && dy < NW && dy0 + dy < nd &&
+          cy >= 0 && cy < t && cx >= 0 && cx < t) {
         const size_t pc = tile0 + (size_t)cy * t + cx;
-        if (small[pc * SMALL_CH + D] != 0.f && masks[pc * ND * ND + dy * ND + dx]) w = 1.f;
+        if (small[pc * SMALL_CH + D] != 0.f &&
+            masks[pc * nd * nd + (dy0 + dy) * nd + dx0 + dx])
+          w = 1.f;
       }
       (&wsh[0][0][0][0])[i] = w;
     }
     for (int i = g; i < NU * PERIOD; i += THREADS) {
       const int u = i / PERIOD, col = i % PERIOD;
-      const int cy = zy0 - 2 * B + u, cx = c0 + col;
-      live[u][col] = cy >= 0 && cy < t && cx < t &&
+      const int cy = cy0 + u, cx = c0 + col - dx0;
+      live[u][col] = cy >= 0 && cy < t && cx >= 0 && cx < t &&
                      small[(tile0 + (size_t)cy * t + cx) * SMALL_CH + D] != 0.f;
     }
     __syncthreads();
 
     for (int col = 0; col < PERIOD; ++col) {
-      const int cx = c0 + col;
-      if (cx >= E) break;
+      if (c0 + col >= E) break;
+      const int cx = c0 + col - dx0;
       for (int u = 0; u < NU; ++u) {
         if (!live[u][col]) continue;
-        const size_t pc = tile0 + (size_t)(zy0 - 2 * B + u) * t + cx;
+        const size_t pc = tile0 + (size_t)(cy0 + u) * t + cx;
         const float s0 = __ldg(a2t + pc * (D * D) + g);
         const float s1 = src1 ? __ldg(src1 + pc * stride1) : const1;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const int dy = 2 * B - u + r;
-          if (dy < 0 || dy >= ND) continue;
+          const int dy = NW - 1 - u + r;
+          if (dy < 0 || dy >= NW) continue;
           const float4* w4 = reinterpret_cast<const float4*>(wsh[u][r][col]);
 #pragma unroll
           for (int k = 0; k < WSTRIDE / 4; ++k) {
@@ -146,7 +162,7 @@ wa_filter_kernel(const uint8_t* __restrict__ masks, const float* __restrict__ a2
             const float wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              if (4 * k + e < ND) {
+              if (4 * k + e < NW) {
                 acc[r][4 * k + e][0] = fmaf(wv[e], s0, acc[r][4 * k + e][0]);
                 acc[r][4 * k + e][1] = fmaf(wv[e], s1, acc[r][4 * k + e][1]);
               }
@@ -154,23 +170,24 @@ wa_filter_kernel(const uint8_t* __restrict__ masks, const float* __restrict__ a2
           }
         }
       }
-      // candidate column cx has all its sources: out of the window
+      // candidate column c0 + col has all its sources: out of the window
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         ring[col][r][g] = acc[r][0][0];
         ring[col][r][ch1] = acc[r][0][1];
 #pragma unroll
-        for (int i = 0; i + 1 < ND; ++i) {
+        for (int i = 0; i + 1 < NW; ++i) {
           acc[r][i][0] = acc[r][i + 1][0];
           acc[r][i][1] = acc[r][i + 1][1];
         }
-        acc[r][ND - 1][0] = acc[r][ND - 1][1] = 0.f;
+        acc[r][NW - 1][0] = acc[r][NW - 1][1] = 0.f;
       }
     }
     __syncthreads();
 
     // F = WA cpatch + wb (+ the fallback mean patch), count = WA's count
-    // channel (+ fb), one thread per (candidate, output channel)
+    // channel (+ fb), one thread per (candidate, output channel); a later
+    // pass adds its share
     for (int i = g; i < PERIOD * R * FCH; i += THREADS) {
       const int j = i % FCH, col = (i / FCH) % PERIOD, r = i / (FCH * PERIOD);
       const int zy = zy0 + r, zx = c0 + col;
@@ -190,13 +207,18 @@ wa_filter_kernel(const uint8_t* __restrict__ masks, const float* __restrict__ a2
       } else {
         f = wa[D * D + D];
       }
+      float* out = F + ((size_t)n * E * E + (size_t)zy * E + zx) * FCH + j;
+      if (!first) {
+        *out += f;
+        continue;
+      }
       // a fallback center deposits its mean patch at its own position only
       const int cy = zy - B, cx = zx - B;
       if (cy >= 0 && cy < t && cx >= 0 && cx < t) {
         const float* sm = small + (tile0 + (size_t)cy * t + cx) * SMALL_CH;
         f += (j < D) ? sm[D + 1 + j] : sm[2 * D + 1];
       }
-      F[((size_t)n * E * E + (size_t)zy * E + zx) * FCH + j] = f;
+      *out = f;
     }
   }
 }
@@ -226,13 +248,23 @@ __global__ void fan_out_kernel(const float* __restrict__ F, int n_tiles, int tp,
   o[3] = cnt;
 }
 
-template <int ND>
+// the passes of one window width, in a fixed order
+template <int NW>
 void launch_wa(const uint8_t* masks, const float* a2t, const float* small,
-               const float* color, int n_tiles, int tp, int t, int h, float* F,
-               cudaStream_t s) {
-  const int E = t + ND - 1;
-  wa_filter_kernel<ND><<<dim3((E + R - 1) / R, n_tiles), THREADS, 0, s>>>(
-      masks, a2t, small, color, tp, t, h, F);
+               const float* color, int n_tiles, int tp, int t, int h, int nd,
+               float* F, cudaStream_t s) {
+  const int E = t + nd - 1;
+  for (int dy0 = 0; dy0 < nd; dy0 += NW)
+    for (int dx0 = 0; dx0 < nd; dx0 += NW)
+      wa_filter_kernel<NW><<<dim3((E + R - 1) / R, n_tiles), THREADS, 0, s>>>(
+          masks, a2t, small, color, tp, t, h, nd, dy0, dx0, F);
+}
+
+// The window: 2b + 1 where that fits (b <= 8), else the odd width that
+// covers 2b + 1 in the fewest passes
+int window(int nd) {
+  const int passes = (nd + MAX_NW - 1) / MAX_NW;
+  return ((nd + passes - 1) / passes) | 1;
 }
 
 }  // namespace
@@ -242,18 +274,18 @@ extern "C" int bcd_apply_scatter(const unsigned char* masks, const float* a2t,
                                  int n_tiles, int t, int h, int b, float* F,
                                  float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int tp = t + 2 * h, E = t + 2 * b;
-  if (b < 1 || b > MAX_B) return (int)cudaErrorInvalidValue;
+  const int tp = t + 2 * h, nd = 2 * b + 1;
+  if (b < 1) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
-    switch (b) {
-      case 1: launch_wa<3>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      case 2: launch_wa<5>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      case 3: launch_wa<7>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      case 4: launch_wa<9>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      case 5: launch_wa<11>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      case 6: launch_wa<13>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      case 7: launch_wa<15>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
-      default: launch_wa<17>(masks, a2t, small, color, n_tiles, tp, t, h, F, s); break;
+    switch (window(nd)) {
+      case 3: launch_wa<3>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      case 5: launch_wa<5>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      case 7: launch_wa<7>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      case 9: launch_wa<9>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      case 11: launch_wa<11>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      case 13: launch_wa<13>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      case 15: launch_wa<15>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
+      default: launch_wa<17>(masks, a2t, small, color, n_tiles, tp, t, h, nd, F, s); break;
     }
     const size_t total = (size_t)n_tiles * tp * tp;
     fan_out_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(

@@ -88,47 +88,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-// Per-phase clocks (a build with -DBCD_PHASE_CLOCKS): thread 0 of each
-// pixel's block writes clock64() at the phase boundaries, PHASES + 1
-// stamps, then the Jacobi's cycles summed over its rounds by part of a
-// round (ROUND_PARTS), into the buffer that bcd_solve_filter_phase_buffer
-// sets.
-#define PHASES 7
-#define ROUND_PARTS 4
-#define CLOCK_SLOTS (PHASES + 1 + ROUND_PARTS)
-#ifdef BCD_PHASE_CLOCKS
-__device__ long long* bcd_phase_clk;
-#define PHASE(i) \
-  do { \
-    if (threadIdx.x == 0) bcd_phase_clk[(size_t)blockIdx.x * CLOCK_SLOTS + (i)] = clock64(); \
-  } while (0)
-#define ROUND_MARK(i) \
-  do { \
-    const long long now_ = clock64(); \
-    round_clk[i] += now_ - last_clk; \
-    last_clk = now_; \
-  } while (0)
-#define ROUND_FLUSH() \
-  do { \
-    if (threadIdx.x == 0) \
-      for (int i_ = 0; i_ < ROUND_PARTS; ++i_) \
-        bcd_phase_clk[(size_t)blockIdx.x * CLOCK_SLOTS + PHASES + 1 + i_] = round_clk[i_]; \
-  } while (0)
-extern "C" int bcd_solve_filter_phase_buffer(void* buf) {
-  return (int)cudaMemcpyToSymbol(bcd_phase_clk, &buf, sizeof(buf));
-}
-#else
-#define PHASE(i) \
-  do { \
-  } while (0)
-#define ROUND_MARK(i) \
-  do { \
-  } while (0)
-#define ROUND_FLUSH() \
-  do { \
-  } while (0)
-#endif
-
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -295,18 +254,13 @@ __device__ __forceinline__ void jacobi(float* sm, int sweeps) {
   // at each sweep's start by the rounds that read them)
   for (int s = t; s < DP; s += G::THREADS) st[s] = s < D ? C[s * DP + s] - bd_at(nov, s, s) : 0.f;
   int sb = 0, pb = 0;
-#ifdef BCD_PHASE_CLOCKS
-  long long round_clk[ROUND_PARTS] = {0, 0, 0, 0}, last_clk = clock64();
-#endif
   for (int sw = 0; sw < sweeps; ++sw) {
 #pragma unroll 1
     for (int r = 0; r < DP - 1; ++r) {
       // pivots <W[i,:], Q[i+h,:]>: a W lane forms i < H1, a Q lane the rest
       pair_sums<DP, 0, HALF, H1, 0, H1, HALF + H1, HALF - H1, H1>(
           x, m, part + (pb * WARPS + warp) * DP, lane);
-      ROUND_MARK(0);
       __syncthreads();
-      ROUND_MARK(1);
       // warp w forms rotations [w PPW, (w + 1) PPW), a lane each
       const float* cur = st + sb * G::ST_BUF;
       float* nxt = st + (1 - sb) * G::ST_BUF;
@@ -335,7 +289,6 @@ __device__ __forceinline__ void jacobi(float* sm, int sweeps) {
         nxt[dn] = aqq + tapq;
         nxt[DP + dn] = cs * fq;
       }
-      ROUND_MARK(2);
       __syncthreads();
       // fast-Givens rows, written straight into their re-seated slots
       const float4* c4 = reinterpret_cast<const float4*>(coef);
@@ -356,7 +309,6 @@ __device__ __forceinline__ void jacobi(float* sm, int sweeps) {
       for (int i = 0; i < DP; ++i) x[i] = nx[i];
       sb = 1 - sb;
       pb = 1 - pb;
-      ROUND_MARK(3);
     }
     // renormalize: fold the row scales back into the rows
     const float4* f4 = reinterpret_cast<const float4*>(st + sb * G::ST_BUF + DP);
@@ -370,7 +322,6 @@ __device__ __forceinline__ void jacobi(float* sm, int sweeps) {
       x[4 * i4 + 3] *= f.w;
     }
   }
-  ROUND_FLUSH();
   // exact eigenvalues lam_k = <W[k,:], Q[k,:]>: a W lane forms k < HALF, a
   // Q lane the rest; the rows of Q to T
   pair_sums<DP, 0, 0, HALF, 0, HALF, HALF, HALF, HALF>(x, m, part + (pb * WARPS + warp) * DP,
@@ -472,7 +423,6 @@ __device__ __forceinline__ void two_step(float* sm, float eps, int sweeps) {
   float* neg = sm + G::NEG_OFF;
 
   jacobi<D>(sm, sweeps);
-  PHASE(2);
   // step 1, on the S lanes: S1 = clamp(Cemp - BD) + BD = Cemp + sum over
   // negative eigenvalues of (-lam_k) q_k q_k^T, column c (eps joins the
   // pivots)
@@ -487,14 +437,12 @@ __device__ __forceinline__ void two_step(float* sm, float eps, int sweeps) {
     }
   }
   __syncthreads();  // every lane has read T (Q) before L^T goes there
-  PHASE(3);
   // the two solves share one copy of the Cholesky's code: step 0 solves
   // S1 X1 = BD and forms S2 = cov2 + BD, step 1 solves S2 X2 = BD
 #pragma unroll 1
   for (int step = 0;; ++step) {
     chol_solve_bd<D>(x, sm, T, eps);  // Y lanes: column c of X1, then X2
     if (step == 1) break;
-    PHASE(4);
     // step 2: cov2 = A1 Cemp A1^T. The Y lanes write the rows of
     // A1^T = I - X1 to T; the S lanes form column c of H = Cemp A1^T
     // (C symmetric: H[:, c] = sum_k A1^T[k][c] C[k][:]) and put it in C,
@@ -526,7 +474,6 @@ __device__ __forceinline__ void two_step(float* sm, float eps, int sweeps) {
       for (int i = 0; i < D; ++i) x[i] += act ? bd_at(nov, i, c) : 0.f;
     }
     __syncthreads();  // every lane has read T (A1^T) before L^T goes there
-    PHASE(5);
   }
   // X2 to T, b2[c] = sum_k X2[k][c] m[k] to NEG
   if (m && act) {
@@ -566,7 +513,6 @@ solve_filter_kernel(const float* __restrict__ cand, const float* __restrict__ ma
   const float n = n_in[p];
   for (int i = j; i < DP; i += T) m[i] = i < D ? m_in[p * D + i] : 0.f;
   for (int i = j; i < G::NOV; i += T) nov[i] = noise[p * G::NOV + i];
-  PHASE(0);
 
   // M2 column j = sum_o (w_o c_o) c_o[j], over chunks of DP candidates
   // staged in shared memory (T: w_o c_o, C: c_o, rows of DP floats)
@@ -617,10 +563,8 @@ solve_filter_kernel(const float* __restrict__ cand, const float* __restrict__ ma
     }
   }
   __syncthreads();
-  PHASE(1);
 
   two_step<D>(sm, eps, sweeps);
-  PHASE(6);
 
   // field_o = mask_o (c_o - T2 c_o + b2): column j of X2 = T2^T from T, so
   // (T2 c_o)[j] = sum_k c_o[k] X2[k][j]; candidates staged in C in chunks
@@ -660,7 +604,6 @@ solve_filter_kernel(const float* __restrict__ cand, const float* __restrict__ ma
     }
   }
   __syncthreads();
-  PHASE(7);
 }
 
 template <int D>

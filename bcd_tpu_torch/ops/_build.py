@@ -58,8 +58,8 @@ _SIGNATURES = {
     "bcd_solve_matrices": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P],
 }
 
-_libs: dict = {}
-_logs: dict = {}
+_lib = None
+_log = ""
 
 
 def reset_launches() -> None:
@@ -76,29 +76,27 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _library_path(flags: list[str]):
+def _library_path():
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return sources, BUILD_DIR / f"libbcd_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed.
-    ``defines`` (macro names) build a separate variant, e.g.
-    ``("BCD_PHASE_CLOCKS",)`` for the solve kernels' per-phase clocks."""
-    if defines in _libs:
-        return _libs[defines]
-    flags = NVCC_FLAGS + [f"-D{name}" for name in defines]
-    sources, path = _library_path(flags)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib, _log
+    if _lib is not None:
+        return _lib
+    sources, path = _library_path()
     log_path = path.with_suffix(".log")
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
         objs = [f"{tmp}.{src.stem}.o" for src in sources]
-        cmds = [[_nvcc(), *flags, "-c", "-o", obj, str(src)]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -119,13 +117,13 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         os.replace(f"{tmp}.so", path)
         for obj in objs:
             os.remove(obj)
-    _logs[defines] = log_path.read_text() if log_path.exists() else ""
+    _log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _libs[defines] = lib
+    _lib = lib
     return lib
 
 
@@ -133,7 +131,7 @@ def build_log() -> str:
     """nvcc's output for the loaded library (``-Xptxas -v``: registers,
     shared memory and spills of every kernel)."""
     library()
-    return _logs[()]
+    return _log
 
 
 def check(rc: int, name: str) -> None:

@@ -32,10 +32,6 @@ import torch
 from bcd_tpu_torch.ops import _build
 from bcd_tpu_torch.ops.solve_filter import D, DTRI, MISC_CH, SMALL_CH
 
-# search radii K4's kernel is instantiated for (its sliding window of
-# 2b + 1 candidate columns lives in registers)
-K4_MAX_B = 8
-
 
 @functools.lru_cache(maxsize=None)
 def tri_geometry(d: int):
@@ -207,6 +203,8 @@ def masks_moments(histo, nb, color, pixcov, valid, threshold,
     masks = torch.empty((n_tiles, t * t, n_off), dtype=torch.uint8, device=dev)
     m2 = torch.empty((n_tiles, t * t, DTRI), device=dev)
     misc = torch.empty((n_tiles, t * t, MISC_CH), device=dev)
+    if n_tiles == 0:  # nothing to compute: no launch
+        return masks, m2, misc
     p = _build.ptr
     rc = _build.library().bcd_masks_moments(
         p(histo), p(nb), p(color), p(pixcov), p(valid), float(threshold),
@@ -220,16 +218,6 @@ def masks_moments(histo, nb, color, pixcov, valid, threshold,
 # ---------------------------------------------------------------------------
 # K4
 # ---------------------------------------------------------------------------
-
-
-def check_k4_radius(b: int) -> None:
-    """Raise NotImplementedError for a search radius the K4 kernel has no
-    instantiation for."""
-    if not 1 <= b <= K4_MAX_B:
-        raise NotImplementedError(
-            f"search radius b = {b}: the K4 kernel is built for b in "
-            f"[1, {K4_MAX_B}] (its window of 2b + 1 candidate columns lives "
-            "in registers); see ROADMAP.md Queue 2, K4 for search radius > 8")
 
 
 def apply_scatter_plain(masks, a2t, small, color, t: int, h: int, b: int):
@@ -291,11 +279,12 @@ def apply_scatter(masks, a2t, small, color, t: int, h: int, b: int):
     if color.device.type != "cuda":
         raise ValueError(f"unsupported device {color.device}")
     _check_cuda(masks=masks, a2t=a2t, small=small, color=color)
-    check_k4_radius(b)
     dev = color.device
     e = t + 2 * b
     f_scratch = torch.empty((n_tiles, e * e, D + 1), device=dev)
     out = torch.empty((n_tiles, tp, tp, 4), device=dev)
+    if n_tiles == 0:  # nothing to compute: no launch
+        return out
     p = _build.ptr
     rc = _build.library().bcd_apply_scatter(
         p(masks), p(a2t), p(small), p(color), n_tiles, t, h, b,

@@ -295,6 +295,8 @@ def solve_matrices_pm(m2: torch.Tensor, misc: torch.Tensor, min_eigen: float,
     p_total = m2.shape[0]
     a2t = torch.empty((p_total, D * D), device=m2.device)
     small = torch.empty((p_total, SMALL_CH), device=m2.device)
+    if p_total == 0:  # nothing to solve: no launch
+        return a2t, small
     rc = _build.library().bcd_solve_matrices_pm(
         _build.ptr(m2), _build.ptr(misc), float(min_eigen), p_total,
         int(sweeps), _build.ptr(a2t), _build.ptr(small), _build.stream_of(m2))
@@ -378,6 +380,8 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
         field = torch.zeros((p_total, n_off, d), device=cand.device)
         rows_i32 = rows.to(device=cand.device, dtype=torch.int32).contiguous()
         n_rows = rows_i32.numel()
+    if n_rows == 0:  # nothing to solve: no launch
+        return field
     p = _build.ptr
     rc = _build.library().bcd_solve_filter(
         *map(p, tensors), None if rows_i32 is None else p(rows_i32),
@@ -476,12 +480,13 @@ def solve_matrices(m2_t, msum_t, nov_t, n_t, min_eigen: float, npx: int,
             nov_t.T.contiguous(), n_t]
     a2t = torch.empty((p_total, d, d), device=dev)
     b2 = torch.empty((p_total, d), device=dev)
-    p = _build.ptr
-    rc = _build.library().bcd_solve_matrices(
-        *map(p, rows), float(min_eigen), p_total, d, int(sweeps), p(a2t),
-        p(b2), _build.stream_of(m2_t))
-    _build.LAUNCHES["solve_matrices"] += 1
-    _build.check(rc, "solve_matrices")
+    if p_total > 0:  # else nothing to solve: no launch
+        p = _build.ptr
+        rc = _build.library().bcd_solve_matrices(
+            *map(p, rows), float(min_eigen), p_total, d, int(sweeps), p(a2t),
+            p(b2), _build.stream_of(m2_t))
+        _build.LAUNCHES["solve_matrices"] += 1
+        _build.check(rc, "solve_matrices")
     return a2t.permute(1, 2, 0).contiguous(), b2.T[None].contiguous()
 
 

@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch port (bcd_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase-clocks   # only solve_filter's phase clocks
 
 Phases, each printed on its own lines; any failure exits non-zero before
 the final line:
@@ -96,14 +95,6 @@ R2_KERNELS = ("solve_filter",)
 LANE_CENTERS = 2048
 # solve_filter_pm's stack arguments, in order
 PM_KEYS = ("cand", "mask", "noise", "n", "m")
-# solve_filter's kernel phases between its clock64() stamps (a build with
-# -DBCD_PHASE_CLOCKS; `python3 chip_smoke.py --phase-clocks`)
-PHASE_NAMES = ("moments", "Jacobi", "clamp", "Cholesky and solves 1",
-               "step 2", "Cholesky and solves 2, b2", "filter")
-# ... and the Jacobi's rounds by part, summed over its rounds
-ROUND_PART_NAMES = ("pivot partial sums", "barrier wait",
-                    "rotation angles", "rotations and re-seating")
-
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -679,47 +670,6 @@ def compare_solve_batch(label, x, main, reps):
     return res
 
 
-def phase_clocks(x, main) -> None:
-    """Per-phase clock64() cycles of solve_filter's kernel on the main-path
-    centers of one real r = 2 batch: a build of the sources with
-    -DBCD_PHASE_CLOCKS, in which the kernel stamps each phase boundary."""
-    import ctypes
-
-    import torch
-    from bcd_tpu_torch.ops import _build
-
-    lib = _build.library(("BCD_PHASE_CLOCKS",))
-    lib.bcd_solve_filter_phase_buffer.argtypes = [ctypes.c_void_p]
-    lib.bcd_solve_filter_phase_buffer.restype = ctypes.c_int
-    idx = main.nonzero()[:, 0]
-    xm = [x[k][idx].contiguous() for k in PM_KEYS]
-    p_total, n_off, d = xm[0].shape
-    clk = torch.zeros((p_total, len(PHASE_NAMES) + 1 + len(ROUND_PART_NAMES)),
-                      dtype=torch.int64, device=xm[0].device)
-    field = torch.empty_like(xm[0])
-    p = _build.ptr
-    need(lib.bcd_solve_filter_phase_buffer(p(clk)) == 0, "phase buffer")
-    for _ in range(2):  # the second run is read
-        rc = lib.bcd_solve_filter(*map(p, xm), None, 1e-8, p_total, n_off, d,
-                                  SOLVE_SWEEPS, p(field), _build.stream_of(clk))
-        need(rc == 0, f"phase-clock build of solve_filter: cudaError {rc}")
-        torch.cuda.synchronize()
-    stamps = clk[:, : len(PHASE_NAMES) + 1]
-    cyc = (stamps[:, 1:] - stamps[:, :-1]).double()
-    total = float((stamps[:, -1] - stamps[:, 0]).double().mean())
-    print(f"[2] solve_filter phase clocks (clock64 cycles a pixel, mean over "
-          f"{p_total} main-path centers, d={d}, {SOLVE_SWEEPS} sweeps; total "
-          f"{total:.0f}):", flush=True)
-    for name, col in zip(PHASE_NAMES, cyc.T):
-        print(f"    {name:28s} {float(col.mean()):12.0f}  "
-              f"{float(col.mean()) / total:6.1%}", flush=True)
-    rounds = clk[:, len(PHASE_NAMES) + 1 :].double().mean(0)
-    print("[2] ... the Jacobi's rounds by part (thread 0, cycles a pixel):",
-          flush=True)
-    for name, cycles in zip(ROUND_PART_NAMES, rounds):
-        print(f"    {name:28s} {float(cycles):12.0f}", flush=True)
-
-
 def device_time_table(label, run) -> None:
     """One traced ``run()``: wall, device busy and idle share, and the top
     device time by kernel."""
@@ -800,15 +750,6 @@ def main() -> int:
     print(f"[1] K2 solve_matrices_pm_kernel: stack frame, spill stores, "
           f"spill loads = {k2_spill} bytes", flush=True)
     need(k2_spill[1:] == [0, 0], "K2's kernel spills registers")
-
-    if "--phase-clocks" in sys.argv[1:]:
-        _, stats = full_scene()
-        pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
-                            PipelineParameters().prefiltering
-                            .spike_removal_threshold_stdev_factor)
-        phase_clocks(*r2_batch(pre, dev, params.histogram_distance_threshold))
-        print(card, flush=True)
-        return 0
 
     kernels = {}
 

@@ -76,7 +76,7 @@ def test_k1_kernel_matches_twin(cuda, t, b, nbins):
 
 @pytest.mark.parametrize("t,b,zero_counts", [
     (64, 3, False), (40, 6, False), (32, 7, False), (16, 3, True),
-    (32, 6, True)])
+    (32, 6, True), (24, 9, False)])
 def test_k1_kernel_bands_and_zero_counts(cuda, t, b, zero_counts):
     """Tiles whose chi^2 band (the largest square one that fits shared
     memory, chi_band in csrc/masks_moments.cu) does not divide the tile, so
@@ -179,14 +179,17 @@ def test_k2_kernel_degenerate_pixels_finite(cuda):
 
 @pytest.mark.parametrize("case,t,b", [
     ("mixed", 32, 6), ("mixed", 16, 2), ("mixed", 17, 2),
-    ("no_main", 32, 6), ("fallback_only", 16, 3)])
+    ("no_main", 32, 6), ("fallback_only", 16, 3), ("mixed", 8, 9),
+    ("mixed", 6, 17)])
 def test_k4_kernel_matches_twin(cuda, case, t, b):
     """K4 against its twin: sums within atol/rtol 3e-5 (the kernel sums each
     source's filter before applying it), counts exact, bitwise repeatable.
     t = 17, b = 2 gives 21 candidate rows and columns, which neither the
     kernel's 2-row band nor its 4-column staging divides; "no_main" empties
     tile 0 (no main-path and no fallback center); "fallback_only" has no
-    main-path center at all."""
+    main-path center at all. b = 9 and b = 17 run in passes over blocks of
+    the offsets (2 x 2 of width 11, 3 x 3 of width 13; the last ones
+    ragged)."""
     h = b + 1
     rng = np.random.default_rng(3 + t + b)
     args = _scene(rng, 2, t, h, 60)
@@ -220,22 +223,6 @@ def test_k4_kernel_matches_twin(cuda, case, t, b):
     assert torch.equal(got, again)  # fixed summation order, no atomics
     if case == "no_main":
         assert not bool(got[0].any())
-
-
-def test_k4_kernel_refuses_wide_windows(cuda):
-    """The kernel's window of 2b + 1 candidate columns lives in registers,
-    instantiated for b <= 8: b = 9 is refused before any launch (and by
-    the CLI before it reads its inputs, test_cli_refuses_radius_3_on_cuda)."""
-    t, b = 8, 9
-    h = b + 1
-    tp = t + 2 * h
-    with pytest.raises(NotImplementedError, match="b = 9"):
-        tfused.apply_scatter(
-            torch.zeros((1, t * t, (2 * b + 1) ** 2), dtype=torch.uint8,
-                        device=cuda),
-            torch.zeros((1, t * t, D * D), device=cuda),
-            torch.zeros((1, t * t, SMALL_CH), device=cuda),
-            torch.zeros((1, tp, tp, 3), device=cuda), t=t, h=h, b=b)
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +345,44 @@ def test_solve_filter_pm_rows_in_place(cuda):
     assert not bool(part[rest].any())
 
 
+def test_wrappers_count_only_launches(cuda):
+    """A wrapper adds to its launch counter only where its kernel runs: an
+    empty ``rows`` (no main-path center in the batch) and empty batches
+    launch nothing and count nothing, and give the right empty or zero
+    results."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(32), 169, 75, 8)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    _build.reset_launches()
+    field = solve_filter_pm(*pm, 1e-8, npx=25, sweeps=6,
+                            rows=torch.zeros(0, dtype=torch.long, device=cuda))
+    assert field.shape == (8, 169, 75) and not bool(field.any())
+    assert solve_filter_pm(*[v[:0] for v in pm], 1e-8, npx=25,
+                           sweeps=6).shape == (0, 169, 75)
+    a2t, small = solve_matrices_pm(torch.zeros((0, 378), device=cuda),
+                                   torch.zeros((0, MISC_CH), device=cuda),
+                                   1e-8, sweeps=4)
+    assert a2t.shape == (0, D * D) and small.shape == (0, SMALL_CH)
+    lane = solve_matrices(*(x[k][..., :0].contiguous().to(cuda)
+                            for k in ("m2", "msum", "nov", "n")), 1e-8,
+                          npx=25, sweeps=6)
+    assert lane[0].shape == (75, 75, 0) and lane[1].shape == (1, 75, 0)
+    t, b = 8, 2
+    tp = t + 2 * (b + 1)
+    empty = [torch.zeros((0, tp, tp, c), device=cuda) for c in (60, 1, 3, 6, 2)]
+    masks, _, _ = tfused.masks_moments(*empty, 1.0, t=t, h=b + 1, b=b)
+    out = tfused.apply_scatter(
+        masks, torch.zeros((0, t * t, D * D), device=cuda),
+        torch.zeros((0, t * t, SMALL_CH), device=cuda), empty[2], t=t,
+        h=b + 1, b=b)
+    assert out.shape == (0, tp, tp, 4)
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+
+
 def test_solve_filter_kernel_refuses_large_patches(cuda):
     d = 147  # patch radius 3
     x = {k: v.to(cuda) for k, v in
@@ -367,12 +392,11 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
                      npx=d // 3, sweeps=6)
 
 
-@pytest.mark.parametrize("flags", [["-w", "3"], ["-b", "9"]])
-def test_cli_refuses_radius_3_on_cuda(cuda, capsys, flags):
-    """No kernel instantiation for d = 147 (patch radius 3), nor K4's for a
-    search radius over 8: the CLI refuses before reading its inputs and
-    never runs a twin."""
+def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
+    """No kernel instantiation for d = 147: the CLI refuses before reading
+    its inputs and never runs the twin."""
     from bcd_tpu_torch import cli
 
-    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", *flags]) == 1
+    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
+                     "3"]) == 1
     assert "ROADMAP" in capsys.readouterr().out
