@@ -4,13 +4,12 @@ reference src/cli/main.cpp).
     python -m bcd_tpu_torch.cli -i in.exr -o out.exr [--device cuda|cpu]
 
 Flags ``-i -o -h -c -a -d -b -w -r -p --p-factor -m -s -e --tile
---skip-stride`` keep the JAX CLI's meaning, including the
+--skip-stride --stats`` keep the JAX CLI's meaning, including the
 ``<input>_hist.exr`` / ``<input>_cov.exr`` inference when -h/-c are omitted
 (main.cpp:344-370) and its exit codes. ``--device`` (default ``cuda``)
 picks where the denoise runs; with no CUDA device the run fails unless it
-says ``--device cpu``. What the port does not carry yet fails with exit
-code 1: ``--stats``, and on CUDA a patch radius of 3 or more (the solve
-kernel is built for radius 1 and 2).
+says ``--device cpu``. On CUDA a patch radius of 3 or more fails with exit
+code 1 (the solve kernel is built for radius 1 and 2).
 """
 
 from __future__ import annotations
@@ -20,11 +19,11 @@ import time
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from bcd_tpu_torch import params as P
+from bcd_tpu_torch.chrono import PhaseStats
 from bcd_tpu_torch.io import image_io
-from bcd_tpu_torch.convert import to_numpy
+from bcd_tpu_torch.convert import resolve_device, to_numpy
 
 
 def print_usage(prog: str) -> None:
@@ -51,6 +50,7 @@ def print_usage(prog: str) -> None:
     print(f"    -e <float>           Minimum eigen value for matrix inversion (default: {mono.min_eigen_value})")
     print("    --tile <int>         Processing tile size (default 32)")
     print("    --skip-stride <int>  Solve only every Nth patch center (deterministic analog of the reference's skip-marking heuristic); 1 = exact, at most 2r+1 (default: 1)")
+    print("    --stats              Print a per-phase time/pixel-count report after the run (the reference's COMPUTE_DENOISING_STATS build option, always available here)")
     print("    --device <name>      Torch device: cuda (default) or cpu")
 
 
@@ -64,6 +64,7 @@ class _Args:
         self.tile: Optional[int] = None
         self.skip_stride = 1
         self.device = "cuda"
+        self.stats = False
 
 
 def _expect_value(argv: List[str], i: int, flag: str, msg: str) -> str:
@@ -133,9 +134,9 @@ def parse_args(argv: List[str]) -> Optional[_Args]:
         elif flag == "--skip-stride":
             args.skip_stride = int(_expect_value(argv, i, flag, "stride"))
         elif flag == "--stats":
-            print(f"ERROR: {flag} is not ported yet (ROADMAP.md Queue 1, "
-                  "engine options)")
-            return None
+            args.stats = True
+            i += 1
+            continue
         else:
             i += 1  # unknown tokens skipped, like the reference parser
             continue
@@ -173,25 +174,14 @@ def parse_args(argv: List[str]) -> Optional[_Args]:
     return args
 
 
-def _resolve_device(name: str) -> Optional[torch.device]:
-    try:
-        device = torch.device(name)
-    except RuntimeError as e:
-        print(f"ERROR: bad --device '{name}': {e}")
-        return None
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"ERROR: --device {name} asked for, but no CUDA device is "
-              "available; pass --device cpu to run on the host")
-        return None
-    return device
-
-
 def launch(argv: List[str]) -> int:
     args = parse_args(argv)
     if args is None:
         return 1
-    device = _resolve_device(args.device)
-    if device is None:
+    try:
+        device = resolve_device(args.device)
+    except ValueError as e:
+        print(f"ERROR: {e}")
         return 1
     if device.type == "cuda":
         from bcd_tpu_torch.ops.solve_filter import check_kernel_dim
@@ -225,12 +215,17 @@ def launch(argv: List[str]) -> int:
 
     from bcd_tpu_torch.core.pipeline import denoise_pipeline
 
+    stats = PhaseStats() if args.stats else None
     out = denoise_pipeline(color, nb, histo, cov, device, args.pipeline,
                            tile=args.tile, skip_stride=args.skip_stride,
-                           progress_callback=progress)
+                           progress_callback=progress, stats=stats)
     print()
     image_io.write_exr(to_numpy(out), args.output_path)
     print(f"Written denoised output in file {args.output_path}")
+    if stats is not None:
+        # the reference prints its DenoisingStatistics tree after the run
+        # (DenoisingUnit.cpp:71-94 printChronometers + counters)
+        print(stats.report())
     return 0
 
 

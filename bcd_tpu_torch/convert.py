@@ -6,12 +6,31 @@ data are the four statistics images the JAX package consumes as numpy
 arrays:
 color (H, W, 3), sample count (H, W, 1), histograms (H, W, 3 * bins) and
 sample covariances (H, W, 6) in channel order xx, yy, zz, yz, xz, xy.
+
+Devices are explicit: every entry point takes one, defaults to the card,
+and ``resolve_device`` refuses a CUDA device that is not there instead of
+falling back to the host.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` (a name or a ``torch.device``) as a ``torch.device``;
+    ValueError for a bad name, or for CUDA on a host without a CUDA
+    device."""
+    try:
+        resolved = torch.device(device)
+    except RuntimeError as e:
+        raise ValueError(f"bad device '{device}': {e}") from e
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError(f"device '{device}' asked for, but no CUDA device "
+                         "is available; pass the device cpu (--device cpu) "
+                         "to run on the host")
+    return resolved
 
 
 def to_device(color, nb, histo, cov, device):

@@ -17,7 +17,7 @@ import torch
 
 from bcd_tpu_torch.core.monoscale import _stride_center_mask
 from bcd_tpu_torch.ops.fused import apply_scatter, masks_moments
-from bcd_tpu_torch.ops.solve_filter import solve_matrices_pm
+from bcd_tpu_torch.ops.solve_filter import D, solve_matrices_pm
 
 
 def validity_maps(cfg, gy, gx, ly, lx, core_h: int, core_w: int,
@@ -54,7 +54,8 @@ def denoise_tiles_fused(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     """Denoise N tiles. Inputs are (N, tp, tp, C) halo-padded slabs and
     (N,) integer tile origins; returns (out_sum (N, tp, tp, 3),
     count (N, tp, tp)), the apron-inclusive contributions for the global
-    overlap-add."""
+    overlap-add, and with ``cfg.collect_stats`` the batch's (main-path,
+    fallback) pixel counts, an int64 tensor (2,)."""
     t, b, h = cfg.tile, cfg.search_radius, cfg.halo
     n_tiles = color.shape[0]
     valid = validity_maps(cfg, gy, gx, ly, lx, core_h, core_w, height, width)
@@ -66,4 +67,9 @@ def denoise_tiles_fused(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     out = apply_scatter(masks, a2t.reshape(n_tiles, t * t, -1),
                         small.reshape(n_tiles, t * t, -1), color,
                         t=t, h=h, b=b)
+    if cfg.collect_stats:
+        # K2's small rows carry the gates (main path at column d, fallback
+        # at 2d + 1; 0 on padded and invalid rows), so the counters are sums
+        return out[..., 0:3], out[..., 3], \
+            (small[:, [D, 2 * D + 1]] > 0).sum(0)
     return out[..., 0:3], out[..., 3]

@@ -12,19 +12,25 @@ contributions are overlap-added in one deterministic pass
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
   the ``solve_filter`` kernel, run only on the main-path centers.
 
-Each kernel launches once per batch of tiles, not once per tile.
+Each kernel launches once per batch of tiles, not once per tile. With
+``collect_stats`` each tile engine also returns its batch's main-path and
+fallback pixel counts (the reference's DenoisingStatistics,
+DenoisingUnit.cpp:56-69), summed on the device into one int64 tensor a
+scale and read once; a progress callback hears once per tile batch,
+without a synchronization.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bcd_tpu_torch.chrono import PhaseStats, device_phase
 from bcd_tpu_torch.params import DenoiserParameters
 from bcd_tpu_torch.convert import to_device
 from bcd_tpu_torch.ops.solve_filter import solve_filter_pm
@@ -63,10 +69,6 @@ class MonoscaleConfig:
         if not 1 <= self.skip_stride <= self.k:
             raise ValueError(f"skip_stride {self.skip_stride} must be in "
                              f"[1, 2r + 1 = {self.k}]")
-        if self.collect_stats:
-            raise NotImplementedError(
-                "the DenoisingStatistics counters (--stats) are not ported "
-                "yet (ROADMAP.md Queue 1, engine options)")
         if self.tile < 1 or (self.tile_batch is not None
                              and self.tile_batch < 1):
             raise ValueError(f"bad tile {self.tile} / batch {self.tile_batch}")
@@ -271,7 +273,10 @@ def denoise_tiles(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     rows of the field 0: JAX runs the solve on every center and multiplies
     the fallback and invalid ones by a zero gate (monoscale.py:418), which
     this skips. Each center's solve is independent, so the result is the
-    same, and centers off the stride grid cost nothing."""
+    same, and centers off the stride grid cost nothing.
+
+    With ``cfg.collect_stats`` a third value is returned: the batch's
+    (main-path, fallback) center counts, an int64 tensor (2,)."""
     t, r, b = cfg.tile, cfg.patch_radius, cfg.search_radius
     tp = color.shape[1]
     n_tiles = color.shape[0]
@@ -304,6 +309,9 @@ def denoise_tiles(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
     out = F.fold(groups.reshape(n_tiles, 3 * npx, e * e), (tp, tp), k)
     count = F.fold(cacc.reshape(n_tiles, 1, e * e).expand(-1, npx, -1),
                    (tp, tp), k)
+    if cfg.collect_stats:
+        return (out.permute(0, 2, 3, 1), count[:, 0],
+                torch.stack([s["main"].sum(), s["fb"].sum()]))
     return out.permute(0, 2, 3, 1), count[:, 0]
 
 
@@ -345,7 +353,8 @@ def tile_batches(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p):
 
 def denoise_accumulate(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p,
                        threshold: float, min_eigen: float,
-                       origin=(0, 0), global_shape=None):
+                       origin=(0, 0), global_shape=None,
+                       progress: Optional[Callable[[float], None]] = None):
     """Run the engine over a halo-padded slab and return the unnormalized
     ``(out_sum, count)`` accumulators, apron-inclusive.
 
@@ -355,7 +364,10 @@ def denoise_accumulate(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p,
     ``global_shape`` the full image size: interior and window-truncation
     masks are evaluated globally. The accumulators (core_h + 2h,
     core_w + 2h[, 3]) hold, in the apron, contributions that belong to
-    neighboring slabs."""
+    neighboring slabs. With ``cfg.collect_stats`` a third value is
+    returned: the (main-path, fallback) pixel counts, an int64 tensor (2,)
+    on the device. ``progress`` hears k / n once the k-th of n tile
+    batches is enqueued."""
     from bcd_tpu_torch.core.fused import denoise_tiles_fused
 
     tiles = denoise_tiles_fused if cfg.fused else denoise_tiles
@@ -366,24 +378,35 @@ def denoise_accumulate(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p,
     tp = t + 2 * h
     contrib = torch.empty((ny * nx, 4, tp, tp), dtype=torch.float32,
                           device=color_p.device)
-    for idx, (ly, lx), slabs in tile_batches(cfg, color_p, nb_p, histo_p,
-                                             cov_p):
-        out_sum, count = tiles(
+    counts = (torch.zeros(2, dtype=torch.int64, device=color_p.device)
+              if cfg.collect_stats else None)
+    n_batches = math.ceil(ny * nx / cfg.batch)
+    for k, (idx, (ly, lx), slabs) in enumerate(
+            tile_batches(cfg, color_p, nb_p, histo_p, cov_p)):
+        out_sum, count, *batch_counts = tiles(
             cfg, *slabs, origin[0] + ly, origin[1] + lx, ly, lx,
             core_h, core_w, g_h, g_w, threshold, min_eigen)
         contrib[idx, 0:3] = out_sum.permute(0, 3, 1, 2)
         contrib[idx, 3] = count
+        if batch_counts:
+            counts += batch_counts[0]
+        if progress is not None:
+            progress((k + 1) / n_batches)
     # overlap-add: tile (ty, tx) covers [ty*t, ty*t + tp) x [tx*t, ...)
     acc = F.fold(contrib.reshape(ny * nx, 4 * tp * tp).T[None],
                  output_size=(ny * t + 2 * h, nx * t + 2 * h),
                  kernel_size=tp, stride=t)[0]
     acc = acc[:, : core_h + 2 * h, : core_w + 2 * h]
+    if cfg.collect_stats:
+        return acc[0:3].permute(1, 2, 0), acc[3], counts
     return acc[0:3].permute(1, 2, 0), acc[3]
 
 
 def denoise_image(cfg: MonoscaleConfig, color, nb, histo, cov,
-                  threshold: float, min_eigen: float) -> torch.Tensor:
-    """Denoise one whole (H, W, C) image; returns (H, W, 3). Pixels no
+                  threshold: float, min_eigen: float,
+                  progress: Optional[Callable[[float], None]] = None):
+    """Denoise one whole (H, W, C) image; returns (H, W, 3), and with
+    ``cfg.collect_stats`` also ``denoise_accumulate``'s counts. Pixels no
     estimate covers come out as 0."""
     height, width = color.shape[:2]
     h = cfg.halo
@@ -391,18 +414,21 @@ def denoise_image(cfg: MonoscaleConfig, color, nb, histo, cov,
     def pad(img, fill=0.0):
         return _pad_hw(img, h, h, h, h, fill)
 
-    out_acc, cnt_acc = denoise_accumulate(
+    out_acc, cnt_acc, *counts = denoise_accumulate(
         cfg, pad(color), pad(nb, 1.0), pad(histo), pad(cov),
-        threshold, min_eigen, origin=(0, 0), global_shape=(height, width))
+        threshold, min_eigen, origin=(0, 0), global_shape=(height, width),
+        progress=progress)
     out = out_acc[h : h + height, h : h + width]
     cnt = cnt_acc[h : h + height, h : h + width]
-    return torch.where(cnt[..., None] > 0,
-                       out / cnt.clamp(min=1.0)[..., None], 0.0)
+    final = torch.where(cnt[..., None] > 0,
+                        out / cnt.clamp(min=1.0)[..., None], 0.0)
+    return (final, counts[0]) if cfg.collect_stats else final
 
 
 def auto_engine_config(params: DenoiserParameters,
                        tile: Optional[int] = None,
-                       skip_stride: int = 1) -> MonoscaleConfig:
+                       skip_stride: int = 1,
+                       collect_stats: bool = False) -> MonoscaleConfig:
     """The engine configuration for ``params``: the one place engine
     selection happens. Patch radius 1 takes the fused engine, any other the
     candidate-stack engine (``MonoscaleConfig.fused``)."""
@@ -411,16 +437,36 @@ def auto_engine_config(params: DenoiserParameters,
         search_radius=params.search_window_radius,
         tile=tile or MonoscaleConfig.tile,
         skip_stride=skip_stride,
+        collect_stats=collect_stats,
     )
 
 
 def denoise_monoscale(color, nb, histo, cov, params: DenoiserParameters,
                       device, tile: Optional[int] = None,
-                      skip_stride: int = 1) -> torch.Tensor:
+                      skip_stride: int = 1,
+                      progress_callback: Optional[
+                          Callable[[float], None]] = None,
+                      stats: Optional[PhaseStats] = None) -> torch.Tensor:
     """Denoise one scale. Arrays are (H, W, C) (numpy or tensors), moved
-    to ``device`` as float32; returns an (H, W, 3) tensor on ``device``."""
-    cfg = auto_engine_config(params, tile=tile, skip_stride=skip_stride)
-    return denoise_image(
-        cfg, *to_device(color, nb, histo, cov, device),
-        float(params.histogram_distance_threshold),
-        float(params.min_eigen_value))
+    to ``device`` as float32; returns an (H, W, 3) tensor on ``device``.
+
+    ``progress_callback`` hears the fraction of tile batches enqueued.
+    ``stats``: the scale is timed as ``denoise WxH`` (ending in a device
+    synchronize) and the reference's DenoisingStatistics counters
+    (DenoisingUnit.cpp:56-69) are added to it, read from the device once;
+    the output is the same, bit for bit."""
+    cfg = auto_engine_config(params, tile=tile, skip_stride=skip_stride,
+                             collect_stats=stats is not None)
+    args = (*to_device(color, nb, histo, cov, device),
+            float(params.histogram_distance_threshold),
+            float(params.min_eigen_value))
+    if stats is None:
+        return denoise_image(cfg, *args, progress=progress_callback)
+    height, width = color.shape[:2]
+    with device_phase(stats, f"denoise {width}x{height}", device):
+        out, counts = denoise_image(cfg, *args, progress=progress_callback)
+        n_main, n_fb = counts.tolist()
+    stats.count("pixels: main-path solves", n_main)
+    stats.count("pixels: fallback (mean patch)", n_fb)
+    stats.count("pixels: managed", n_main + n_fb)
+    return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from bcd_tpu_torch.chrono import PhaseStats, device_phase
 from bcd_tpu_torch.params import DenoiserParameters
 from bcd_tpu_torch.convert import to_device
 from bcd_tpu_torch.core.monoscale import denoise_monoscale
@@ -36,26 +37,39 @@ def denoise_multiscale(color, nb, histo, cov, params: DenoiserParameters,
                        tile: Optional[int] = None,
                        skip_stride: int = 1,
                        progress_callback: Optional[
-                           Callable[[float], None]] = None):
-    """Full multiscale denoise on ``device``; returns an (H, W, 3) tensor."""
-    inputs = [to_device(color, nb, histo, cov, device)]
-    for _ in range(nb_of_scales - 1):
-        c, n, h, sc = inputs[-1]
-        inputs.append((
-            resample.downscale_average(c),
-            resample.downscale_sum(n),
-            resample.downscale_sum(h),
-            resample.downscale_sample_covariance_sum(sc, n),
-        ))
+                           Callable[[float], None]] = None,
+                       stats: Optional[PhaseStats] = None):
+    """Full multiscale denoise on ``device``; returns an (H, W, 3) tensor.
+
+    ``stats``: the phases ``pyramid build``, ``denoise WxH`` a scale (with
+    the DenoisingStatistics counters) and ``merge``, each ending in a
+    device synchronize."""
+    with device_phase(stats, "pyramid build", device):
+        inputs = [to_device(color, nb, histo, cov, device)]
+        for _ in range(nb_of_scales - 1):
+            c, n, h, sc = inputs[-1]
+            inputs.append((
+                resample.downscale_average(c),
+                resample.downscale_sum(n),
+                resample.downscale_sum(h),
+                resample.downscale_sample_covariance_sum(sc, n),
+            ))
 
     merged = None
     for scale in range(nb_of_scales - 1, -1, -1):
         mapper = _scale_progress_mapper(nb_of_scales, scale)
+        scale_cb = None
         if progress_callback is not None:
             progress_callback(mapper(0.0))
+            scale_cb = lambda p, m=mapper: progress_callback(m(p))  # noqa: E731
         out = denoise_monoscale(*inputs[scale], params, device, tile=tile,
-                                skip_stride=skip_stride)
+                                skip_stride=skip_stride,
+                                progress_callback=scale_cb, stats=stats)
         if progress_callback is not None:
             progress_callback(mapper(1.0))
-        merged = out if merged is None else resample.merge_outputs(out, merged)
+        if merged is None:
+            merged = out
+        else:
+            with device_phase(stats, "merge", device):
+                merged = resample.merge_outputs(out, merged)
     return merged

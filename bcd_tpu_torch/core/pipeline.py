@@ -9,6 +9,7 @@ from typing import Callable, Optional
 
 import torch
 
+from bcd_tpu_torch.chrono import PhaseStats, device_phase
 from bcd_tpu_torch.params import PipelineParameters
 from bcd_tpu_torch.convert import to_device
 from bcd_tpu_torch.core.monoscale import denoise_monoscale
@@ -29,28 +30,38 @@ def denoise_pipeline(colors, nb_of_samples, histograms, sample_covariances,
                      tile: Optional[int] = None,
                      skip_stride: int = 1,
                      progress_callback: Optional[
-                         Callable[[float], None]] = None) -> torch.Tensor:
+                         Callable[[float], None]] = None,
+                     stats: Optional[PhaseStats] = None) -> torch.Tensor:
     """Full pipeline on in-memory (H, W, C) arrays (numpy or tensors),
     computed on ``device``; returns the sanitized (H, W, 3) float32 tensor
     on ``device``. ``skip_stride`` > 1 solves only every skip_stride-th patch
-    center on both axes (``MonoscaleConfig.skip_stride``)."""
+    center on both axes (``MonoscaleConfig.skip_stride``).
+
+    ``stats``: phase timers (prefilter, pyramid, a denoise per scale,
+    merge), each ending in a device synchronize, and the reference's
+    DenoisingStatistics pixel counters (DenoisingUnit.cpp:56-69); the
+    output is the same, bit for bit."""
     p = pipeline_params or PipelineParameters()
     color, nb, histo, cov = to_device(colors, nb_of_samples, histograms,
                                       sample_covariances, device)
 
     if p.prefiltering.perform_spike_removal:
-        color, nb, histo, cov = spike_removal(
-            color, nb, histo, cov,
-            float(p.prefiltering.spike_removal_threshold_stdev_factor))
+        with device_phase(stats, "spike-removal prefilter", device):
+            color, nb, histo, cov = spike_removal(
+                color, nb, histo, cov,
+                float(p.prefiltering.spike_removal_threshold_stdev_factor))
 
     if p.denoiser.nb_of_scales > 1:
         out = denoise_multiscale(
             color, nb, histo, cov, p.denoiser.monoscale, device,
             nb_of_scales=p.denoiser.nb_of_scales, tile=tile,
-            skip_stride=skip_stride, progress_callback=progress_callback)
+            skip_stride=skip_stride, progress_callback=progress_callback,
+            stats=stats)
     else:
         out = denoise_monoscale(color, nb, histo, cov, p.denoiser.monoscale,
-                                device, tile=tile, skip_stride=skip_stride)
+                                device, tile=tile, skip_stride=skip_stride,
+                                progress_callback=progress_callback,
+                                stats=stats)
         if progress_callback is not None:
             progress_callback(1.0)
     return sanitize_output(out)

@@ -96,6 +96,17 @@ def solve_matrices(n_pixels: int, d: int, sweeps: int):
     return bound_ms(flops, nbytes)
 
 
+def accumulate(n_pixels: int, spp: int, nbins: int):
+    """The sample accumulator (plain PyTorch, no kernel of its own) for
+    ``n_pixels`` pixels of ``spp`` samples: the three color channels it
+    uses read once, the statistics (nb, mean, cov, histo) written once,
+    and about 60 operations a sample (its weight sums, color and
+    second-moment products, and each channel's companding and two-bin
+    splat)."""
+    return bound_ms(n_pixels * spp * 60,
+                    4 * n_pixels * (3 * spp + 1 + 3 + 6 + 3 * nbins))
+
+
 def probes() -> dict[str, tuple[float, str]]:
     """The four TPU-compiler probes in scripts/ (not ported; ROADMAP Queue
     2) at the shapes their scripts run."""

@@ -16,6 +16,15 @@ from typing import Optional
 
 
 @dataclass
+class HistogramParameters:
+    """Histogram binning parameters (reference SamplesAccumulator.h:20-30)."""
+
+    nb_of_bins: int = 20
+    gamma: float = 2.2
+    max_value: float = 2.5
+
+
+@dataclass
 class DenoiserParameters:
     """Monoscale denoiser parameters (reference IDenoiser.h:20-44).
 

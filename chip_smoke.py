@@ -34,7 +34,17 @@ the final line:
    launch solve_filter and beat the noisy input. Wall time, MPix/s and
    peak memory of the r=2 pipeline (bitwise repeatable); the card against
    the port's CPU pipeline on a 64x64 crop; device time by kernel.
-6. One JSON line of kernel results, the card line, and the final line
+6. Ingest and the renderer surface on a 1088x1920, 16 spp RGBA render of
+   the same scene: its raw dump through ``raw2bcd_cli.main`` on the card
+   (read, accumulate and write times; the statistics against the float64
+   stand-in ``accumulate_statistics``; the accumulator bitwise repeatable,
+   its device time beside its bound), ``bcd --stats`` on its EXRs (the
+   counters against the managed pixel count, the output bitwise that of
+   a run without stats, with the same launches), ``MultiscaleDenoiser``
+   on the in-memory statistics bitwise ``denoise_multiscale``'s, and the
+   batch CLI on two copies of the frame and a broken one (isolation, each
+   output the CLI's bit for bit, ``--resume``).
+7. One JSON line of kernel results, the card line, and the final line
    ``{"ok": true, "device": {...}}``.
 
 Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
@@ -42,6 +52,8 @@ Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -95,6 +107,18 @@ R2_KERNELS = ("solve_filter",)
 LANE_CENTERS = 2048
 # solve_filter_pm's stack arguments, in order
 PM_KEYS = ("cand", "mask", "noise", "n", "m")
+# phase 6: samples a pixel of the ingest render
+INGEST_SPP = 16
+# the accumulator (float32) against the float64 stand-in at 16 spp: mean
+# within rtol 1e-5 (float32 sums of 16 samples); cov within 1e-5 of
+# |cov| + |mean_i mean_j| (it is E[x_i x_j] - mean_i mean_j, and the
+# float32 error is that of the second moment, at most |cov| + |mean_i
+# mean_j|); histo within 2e-4 (each sample moves its two bin weights by at
+# most 18 |dv|, |dv| <= 2 ulp of v <= 2 between float32 and float64
+# companding, about 9e-6 a sample, 1.4e-4 for 16)
+ACC_MEAN_RTOL = 1e-5
+ACC_COV_REL = 1e-5
+ACC_HISTO_ATOL = 2e-4
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -699,6 +723,242 @@ def device_time_table(label, run) -> None:
               flush=True)
 
 
+def run_quiet(fn, *args, **kwargs):
+    """(fn(...), its standard output): a CLI's prints, for parsing."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kwargs)
+    return rc, buf.getvalue()
+
+
+def check_against_standin(label, nb, mean, cov, histo, ref):
+    """The accumulator's statistics (numpy) against the float64 stand-in's
+    (color, nb, histo, cov), within the ACC_* limits."""
+    r_mean, r_nb, r_histo, r_cov = ref
+    need(np.array_equal(nb, r_nb), f"{label}: nb not exact")
+    e_mean = float(np.max(np.abs(mean - r_mean)
+                          / (np.abs(r_mean) + 1e-30)))
+    m0, m1, m2 = (r_mean[..., i] for i in range(3))
+    scale = np.abs(r_cov) + np.abs(np.stack(
+        [m0 * m0, m1 * m1, m2 * m2, m1 * m2, m0 * m2, m0 * m1], axis=-1))
+    e_cov = float(np.max(np.abs(cov - r_cov) / (scale + 1e-30)))
+    e_histo = float(np.max(np.abs(histo - r_histo)))
+    print(f"[6] {label} vs the float64 stand-in: nb exact; mean max rel err "
+          f"{e_mean:.3e} (limit {ACC_MEAN_RTOL:g}); cov max err over "
+          f"|cov| + |mean_i mean_j| {e_cov:.3e} (limit {ACC_COV_REL:g}), max "
+          f"abs {float(np.max(np.abs(cov - r_cov))):.3e}; histo max abs err "
+          f"{e_histo:.3e} (limit {ACC_HISTO_ATOL:g})", flush=True)
+    need(e_mean <= ACC_MEAN_RTOL and e_cov <= ACC_COV_REL
+         and e_histo <= ACC_HISTO_ATOL, f"{label} against the stand-in")
+
+
+def ingest_phase(dev, card, clean) -> None:
+    """Phase 6: raw dump -> raw2bcd on the card -> bcd --stats, the API and
+    the batch CLI, at 1088x1920, INGEST_SPP spp, RGBA."""
+    import shutil
+
+    import torch
+    from bcd_tpu_torch import batch_cli, cli, raw2bcd_cli
+    from bcd_tpu_torch.chrono import PhaseStats
+    from bcd_tpu_torch.convert import to_numpy
+    from bcd_tpu_torch.core.api import DenoiserInputs, MultiscaleDenoiser
+    from bcd_tpu_torch.core.multiscale import denoise_multiscale
+    from bcd_tpu_torch.core.pipeline import denoise_pipeline
+    from bcd_tpu_torch.io import image_io, raw
+    from bcd_tpu_torch.ops import _build, bounds
+    from bcd_tpu_torch.ops.accumulator import SamplesAccumulator
+    from bcd_tpu_torch.params import DenoiserParameters, PipelineParameters
+    from make_test_scene import sample_noisy
+
+    height, width = clean.shape[:2]
+    mpix = height * width / 1e6
+    work = os.path.join(WORK, "ingest")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    rgb = sample_noisy(clean, INGEST_SPP, 0)
+    samples = np.concatenate(
+        [rgb, np.ones(rgb.shape[:3] + (1,), np.float32)], axis=-1)
+    dump = os.path.join(work, "scene.raw")
+    raw.write_raw(dump, samples)
+    dump_gb = os.path.getsize(dump) / 1e9
+    print(f"[6] {width}x{height}, {INGEST_SPP} spp RGBA: samples and a "
+          f"{dump_gb:.3f} GB raw dump in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    ref = accumulate_statistics(rgb)
+    print(f"[6] float64 stand-in statistics in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # raw2bcd through its entry point, in process, on the card
+    prefix = os.path.join(work, "frame")
+    SamplesAccumulator(1, 1, device=dev).add_samples(samples[:1, :1])
+    torch.cuda.synchronize()
+    st = PhaseStats()
+    t0 = time.perf_counter()
+    rc, log = run_quiet(raw2bcd_cli.main, [dump, prefix], stats=st)
+    wall = time.perf_counter() - t0
+    need(rc == 0, f"raw2bcd: rc {rc}\n{log}")
+    tm = st.timers
+    print(f"[6] python -m bcd_tpu_torch.raw2bcd_cli (in process) on {card}: "
+          f"{wall:.3f} s wall = dump read {tm['dump read']:.3f} s + "
+          f"accumulate {tm['accumulate']:.3f} s (device, by CUDA events, "
+          f"{tm['accumulate, device']:.4f} s, uploads included) + EXR write "
+          f"{tm['EXR write']:.3f} s; {mpix / wall:.3f} MPix/s, "
+          f"{dump_gb / wall:.3f} GB/s of dump", flush=True)
+    histo_f, nb_f = image_io.separate_nb_of_samples_from_histogram(
+        image_io.load_multi_channels_exr(prefix + "_hist.exr"))
+    cov_f = image_io.load_multi_channels_exr(prefix + "_cov.exr")
+    color_f = image_io.load_exr(prefix + ".exr")
+    half = float(np.max(np.abs(color_f - ref[0]) / (np.abs(ref[0]) + 1e-30)))
+    need(half <= 2 ** -10, "raw2bcd color file beyond half precision")
+
+    # the accumulator twice on the card (row blocks of 64 already on the
+    # device, so the events time the device work alone), against the
+    # stand-in and the raw2bcd files
+    dev_samples = torch.as_tensor(samples, device=dev)
+    runs, ms = [], []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        acc = SamplesAccumulator(height, width, device=dev)
+        for row0 in range(0, height, raw2bcd_cli.ROWS_PER_BLOCK):
+            acc.add_samples(
+                dev_samples[row0 : row0 + raw2bcd_cli.ROWS_PER_BLOCK],
+                row0=row0)
+        runs.append(acc.extract_samples_statistics())
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    del dev_samples
+    need(all(torch.equal(a, b) for a, b in zip(*runs)),
+         "accumulator not bitwise repeatable on the card")
+    nb, mean, cov, histo = (to_numpy(x) for x in runs[0])
+    bound = bounds.accumulate(height * width, INGEST_SPP, 20)
+    print(f"[6] accumulator on device-resident row blocks: {ms[0]:.3f} / "
+          f"{ms[1]:.3f} ms (CUDA events), bitwise repeatable; bound "
+          f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+    check_against_standin("accumulator", nb, mean, cov, histo, ref)
+    need(np.array_equal(nb_f, nb) and np.array_equal(histo_f, histo)
+         and np.array_equal(cov_f, cov),
+         "raw2bcd's files differ from the accumulator on device blocks")
+    print(f"[6] raw2bcd's hist and cov files bitwise the accumulator's; color "
+          f"file within half precision (max rel err {half:.3e})", flush=True)
+    del samples, rgb
+
+    # bcd --stats on the EXRs, against a plain run
+    out_plain, out_stats = prefix + "_out.exr", prefix + "_out_stats.exr"
+    argv = ["-i", prefix + ".exr", "-p", "1", "-s", "3"]
+    launches, walls, logs = [], [], []
+    for out, extra in ((out_plain, []), (out_stats, ["--stats"])):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, log = run_quiet(cli.main, argv + ["-o", out] + extra)
+        walls.append(time.perf_counter() - t0)
+        launches.append(dict(_build.LAUNCHES))
+        logs.append(log)
+        need(rc == 0, f"bcd {' '.join(extra)}: rc {rc}\n{log}")
+    for name in R1_KERNELS:
+        need(launches[1][name] > 0, f"bcd --stats did not launch {name}")
+    need(launches[0] == launches[1], "--stats changed the launches")
+    plain, with_stats = (image_io.load_exr(p) for p in (out_plain, out_stats))
+    need(np.array_equal(plain, with_stats), "--stats changed the output")
+    counters = dict(line.rsplit(": ", 1) for line in logs[1].splitlines()
+                    if line.startswith("pixels: "))
+    main_n, fb_n, managed = (int(counters[f"pixels: {k}"]) for k in (
+        "main-path solves", "fallback (mean patch)", "managed"))
+    interior = sum((height // 2 ** s - 2) * (width // 2 ** s - 2)
+                   for s in range(3))
+    print(f"[6] bcd --stats (-p 1 -s 3): {walls[1]:.3f} s wall (plain "
+          f"{walls[0]:.3f} s), launches {launches[1]} as the plain run's, "
+          f"output bitwise the plain run's; pixels: main-path {main_n}, "
+          f"fallback {fb_n}, managed {managed} (interior of the 3 scales "
+          f"{interior}); main-path share {main_n / managed:.4f}", flush=True)
+    print("\n".join("    " + line for line in logs[1].splitlines()
+                    if line.startswith(("pixels", "Chronometers", "  "))),
+          flush=True)
+    need(main_n + fb_n == managed == interior, "--stats counters")
+    e_out, e_in = rmse(plain, clean), rmse(color_f, clean)
+    print(f"[6] rmse vs clean: output {e_out:.5f}, noisy input {e_in:.5f}",
+          flush=True)
+    need(e_out < e_in, "the 16 spp output is not closer to the clean image")
+
+    # the stats overhead in memory: plain, stats, stats, plain
+    stats_dev = [torch.as_tensor(x, device=dev) for x in (mean, nb, histo,
+                                                          cov)]
+    pipeline = PipelineParameters()
+    times = {"plain": [], "stats": []}
+    for kind in ("plain", "stats", "stats", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        denoise_pipeline(*stats_dev, dev, pipeline,
+                         stats=PhaseStats() if kind == "stats" else None)
+        torch.cuda.synchronize()
+        times[kind].append(time.perf_counter() - t0)
+    print(f"[6] denoise_pipeline 1088x1920 in memory, in turns plain, "
+          f"stats, stats, plain: plain {['%.4f' % x for x in times['plain']]}"
+          f" s, with stats {['%.4f' % x for x in times['stats']]} s",
+          flush=True)
+
+    # the in-memory API on the accumulator's statistics
+    mean_t, nb_t, histo_t, cov_t = (runs[0][1], runs[0][0], runs[0][3],
+                                    runs[0][2])
+    ref_api = to_numpy(denoise_multiscale(mean_t, nb_t, histo_t, cov_t,
+                                          DenoiserParameters(), dev,
+                                          nb_of_scales=3))
+    den = MultiscaleDenoiser(nb_of_scales=3, device=dev)
+    den.set_inputs(DenoiserInputs(mean_t, nb_t, histo_t, cov_t))
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    need(den.denoise(), "MultiscaleDenoiser.denoise refused its inputs")
+    api_s = time.perf_counter() - t0
+    api_launches = dict(_build.LAUNCHES)
+    got = den.get_outputs().denoised_colors
+    need(got.dtype == np.float32 and np.array_equal(got, ref_api),
+         "MultiscaleDenoiser differs from denoise_multiscale")
+    for name in R1_KERNELS:
+        need(api_launches[name] > 0, f"the API did not launch {name}")
+    print(f"[6] MultiscaleDenoiser(3) on the accumulator's tensors: "
+          f"{api_s:.4f} s a frame (download included), bitwise "
+          f"denoise_multiscale's; launches {api_launches}", flush=True)
+    del runs, stats_dev, mean_t, nb_t, histo_t, cov_t
+
+    # the batch CLI: two copies of the frame and one without its _cov file
+    frames = []
+    for name, suffixes in (("a", ("", "_hist", "_cov")),
+                           ("b", ("", "_hist", "_cov")),
+                           ("broken", ("", "_hist"))):
+        for suffix in suffixes:
+            os.link(prefix + suffix + ".exr",
+                    os.path.join(work, name + suffix + ".exr"))
+        frames.append(os.path.join(work, name + ".exr"))
+    preset = os.path.join(work, "preset.bcd.json")
+    with open(preset, "w") as f:
+        json.dump({"nbOfScales": 3, "performSpikeRemovalPrefiltering": True,
+                   "searchWindowRadius": 6, "patchRadius": 1}, f)
+    outdir = os.path.join(work, "batch")
+    argv = frames + ["-a", preset, "-o", outdir]
+    t0 = time.perf_counter()
+    rc, log = run_quiet(batch_cli.main, argv)
+    batch_s = time.perf_counter() - t0
+    need(rc == 1 and "2/3 frames" in log,
+         f"batch CLI: rc {rc}, expected 1 with 2/3 frames\n{log}")
+    for name in ("a", "b"):
+        out = image_io.load_exr(os.path.join(outdir,
+                                             name + "_BCDfiltered.exr"))
+        need(np.array_equal(out, plain),
+             f"batch frame {name} differs from the CLI run")
+    rc, log2 = run_quiet(batch_cli.main, argv + ["--resume"])
+    need(rc == 1 and "resume: skipping 2 already-denoised frames" in log2
+         and "0/1 frames" in log2, f"batch --resume\n{log2}")
+    print(f"[6] batch CLI, 2 frames + 1 broken: rc 1, "
+          f"{log.strip().splitlines()[-1]!r} ({batch_s / 2:.3f} s a frame "
+          f"with EXR I/O), outputs bitwise the CLI's; --resume skipped both",
+          flush=True)
+    shutil.rmtree(work)
+
+
 def main() -> int:
     import torch
 
@@ -958,8 +1218,14 @@ def main() -> int:
           "on the card", flush=True)
     need(gap < R2_CPU_RMSE, "-w 2 on the card against the CPU pipeline")
     device_time_table("[5]", lambda: denoise_pipeline(*dev_stats, dev, p2))
+    del dev_stats, crop, outs, got
 
-    # --- 6. results --------------------------------------------------------
+    # --- 6. ingest and the renderer surface --------------------------------
+    t0 = time.perf_counter()
+    ingest_phase(dev, card, clean)
+    print(f"[6] phase 6 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- 7. results --------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
                "bcd_tpu/ops/fused_pallas.py:429"),

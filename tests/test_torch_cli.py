@@ -85,11 +85,41 @@ def test_cli_radius2_matches_engine(tmp_path):
     # --skip-stride out of [1, 2r + 1], whatever the flags' order
     ("-i", "x.exr", "-o", "y.exr", "-w", "2", "--skip-stride", "6",
      "--device", "cpu"),
-    ("-i", "x.exr", "-o", "y.exr", "--stats", "--device", "cpu"),
+    ("-i", "x.exr", "-o", "y.exr", "--device", "xyz"),  # no such device
 ])
 def test_cli_error_paths(args):
     # main() returns what `python -m bcd_tpu_torch.cli` exits with
     assert cli.main(list(args)) == 1
+
+
+def test_cli_stats_report(tmp_path, capsys):
+    """``--stats`` (once refused), -s 2 -b 3 on the golden crop: the same
+    output bit for bit, then the report; main + fallback = managed = the
+    interior pixels of both scales (14x14 and 7x7 at r = 1)."""
+    from tests.test_torch_engine import golden_crop
+
+    color, nb, histo, cov = golden_crop()
+    image_io.write_exr(color, str(tmp_path / "in.exr"))
+    image_io.write_multi_channels_exr(
+        image_io.merge_histogram_and_nb_of_samples(histo, nb),
+        str(tmp_path / "in_hist.exr"))
+    image_io.write_multi_channels_exr(cov, str(tmp_path / "in_cov.exr"))
+    argv = ["-i", str(tmp_path / "in.exr"), "-b", "3", "-s", "2",
+            "--device", "cpu"]
+    assert cli.main(argv + ["-o", str(tmp_path / "plain.exr")]) == 0
+    capsys.readouterr()
+    assert cli.main(argv + ["-o", str(tmp_path / "stats.exr"), "--stats"]) == 0
+    out = capsys.readouterr().out
+    np.testing.assert_array_equal(
+        image_io.load_exr(str(tmp_path / "stats.exr")),
+        image_io.load_exr(str(tmp_path / "plain.exr")))
+    counters = dict(line.rsplit(": ", 1) for line in out.splitlines()
+                    if line.startswith("pixels: "))
+    main, fb, managed = (int(counters[f"pixels: {k}"]) for k in (
+        "main-path solves", "fallback (mean patch)", "managed"))
+    assert main + fb == managed == 12 * 12 + 5 * 5
+    assert main > 0
+    assert "Chronometers:" in out and "denoise 14x14" in out
 
 
 @pytest.mark.parametrize("flags,msg", [

@@ -400,3 +400,114 @@ def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
                      "3"]) == 1
     assert "ROADMAP" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the renderer-facing surface on the card
+# ---------------------------------------------------------------------------
+
+
+def _golden_crop(n):
+    """An n x n crop of the golden inputs, read with the port's own EXR
+    codec (this file runs where JAX is not installed)."""
+    import os
+
+    from bcd_tpu_torch.io import image_io
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden")
+
+    def load(name):
+        return image_io.load_multi_channels_exr(os.path.join(folder, name))
+
+    histo, nb = image_io.separate_nb_of_samples_from_histogram(
+        load("in_hist.exr"))
+    return [np.ascontiguousarray(x[:n, :n])
+            for x in (load("in_color.exr"), nb, histo, load("in_cov.exr"))]
+
+
+def test_accumulator_cuda_matches_cpu_and_repeats(cuda):
+    """Streamed row blocks on the card against the same on the host (nb
+    exact, the rest within the CPU tests' tolerances against JAX), bitwise
+    equal from run to run, and the one-shot form the same sums."""
+    from bcd_tpu_torch.ops.accumulator import (SamplesAccumulator,
+                                               accumulate_samples)
+
+    rng = np.random.default_rng(21)
+    samples = np.abs(rng.random((40, 33, 1, 4)) * 2 + 0.5 * rng.standard_normal(
+        (40, 33, 16, 4))).astype(np.float32)
+    samples[0, :, :5, 0] = 1e3  # saturated
+    samples[1, :, :5, 1] = np.float32(2.5 ** 2.2)  # on the last bin edge
+
+    def streamed(device):
+        acc = SamplesAccumulator(40, 33, device=device)
+        for r0 in (32, 0, 16):
+            acc.add_samples(samples[r0 : r0 + 16], row0=r0)
+        return acc.extract_samples_statistics()
+
+    host, a, b = streamed("cpu"), streamed(cuda), streamed(cuda)
+    once = accumulate_samples(samples, device=cuda)
+    tol = [(0, 0), (1e-5, 1e-6), (1e-4, 1e-5), (1e-4, 1e-4)]
+    for x, y, z, ref, (rtol, atol) in zip(a, b, once, host, tol):
+        assert x.device.type == "cuda"
+        assert torch.equal(x, y)
+        np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), rtol=rtol,
+                                   atol=atol)
+        np.testing.assert_allclose(z.cpu().numpy(), ref.numpy(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+def test_stats_counters_cuda_equal_cpu(cuda, radius):
+    """The DenoisingStatistics counters of both engines on the card equal
+    those of the CPU twins on a 32x32 golden crop (r = 1 at b = 6, r = 2
+    at b = 5 and threshold 2.25), and stats leave the card's output
+    bitwise unchanged."""
+    from bcd_tpu_torch.chrono import PhaseStats
+    from bcd_tpu_torch.core.monoscale import denoise_monoscale
+    from bcd_tpu_torch.params import DenoiserParameters
+
+    params = (DenoiserParameters() if radius == 1 else DenoiserParameters(
+        patch_radius=2, search_window_radius=5,
+        histogram_distance_threshold=2.25))
+    args = _golden_crop(32)
+    counters = []
+    for device in ("cpu", cuda):
+        stats = PhaseStats()
+        out = denoise_monoscale(*args, params, device, stats=stats)
+        counters.append(dict(stats.counters))
+    assert torch.equal(out, denoise_monoscale(*args, params, cuda))
+    assert counters[0] == counters[1]
+    assert counters[1]["pixels: main-path solves"] > 0
+    assert counters[1]["pixels: managed"] == (32 - 2 * radius) ** 2
+
+
+def test_api_on_cuda_launches_the_kernels(cuda):
+    """MultiscaleDenoiser (r = 1) launches K1, K2 and K4 and Denoiser at
+    r = 2 launches solve_filter; both outputs within the goldens' rmse of
+    the CPU twins'."""
+    from bcd_tpu_torch.core.api import (Denoiser, DenoiserInputs,
+                                        MultiscaleDenoiser)
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.params import DenoiserParameters
+
+    args = _golden_crop(32)
+    r2 = DenoiserParameters(patch_radius=2, search_window_radius=5,
+                            histogram_distance_threshold=2.25)
+    for make, params, kernels in (
+            (lambda d: MultiscaleDenoiser(2, device=d), DenoiserParameters(),
+             ("masks_moments", "solve_matrices_pm", "apply_scatter")),
+            (lambda d: Denoiser(device=d), r2, ("solve_filter",))):
+        outs = []
+        for device in (cuda, "cpu"):
+            den = make(device)
+            den.set_inputs(DenoiserInputs(*args))
+            den.set_parameters(params)
+            _build.reset_launches()
+            assert den.denoise()
+            outs.append(den.get_outputs().denoised_colors)
+            if device is cuda:
+                assert all(_build.LAUNCHES[k] > 0 for k in kernels), \
+                    _build.LAUNCHES
+        assert outs[0].dtype == np.float32 and outs[0].shape == (32, 32, 3)
+        assert np.sqrt(np.mean((outs[0] - outs[1]) ** 2)) < 1e-4
