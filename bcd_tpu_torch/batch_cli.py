@@ -44,9 +44,11 @@ def load_frame(color_path: str):
     color = image_io.load_exr(color_path)
     if color.shape[-1] == 1:
         color = np.repeat(color, 3, axis=-1)
+    # the covariances before the histograms: a frame without one of its
+    # files fails before its 3 * bins + 1 FLOAT channels are inflated
+    cov = image_io.load_multi_channels_exr(stem + "_cov.exr")
     hist_and_count = image_io.load_multi_channels_exr(stem + "_hist.exr")
     histo, nb = image_io.separate_nb_of_samples_from_histogram(hist_and_count)
-    cov = image_io.load_multi_channels_exr(stem + "_cov.exr")
     return color, nb, histo, cov
 
 

@@ -4,9 +4,10 @@ only; reference DeepImage container, include/bcd/core/DeepImage.h).
 The reference's ``DeepImage<T>`` is a W x H x D scalar buffer, row-major
 with the channel innermost (index = line*width*depth + column*depth +
 channel, DeepImage.hpp:386-396). In the port the same object is simply a
-numpy array or tensor of shape (H, W, D) in C order — identical memory layout —
-so the "container" reduces to these conventions plus a few helpers that
-replace the reference's index arithmetic and window iterators:
+numpy array or tensor of shape (H, W, D) in C order — identical memory
+layout — so the "container" reduces to these conventions plus a few
+helpers that replace the reference's index arithmetic and window
+iterators:
 
 - channel orders:   color (R, G, B); covariance (xx, yy, zz, yz, xz, xy,
   CovarianceMatrix.h:18-28); histograms channel-major (3 * nbOfBins, the

@@ -23,7 +23,10 @@ from bcd_tpu_torch.core import api as tapi
 from bcd_tpu_torch.core import monoscale as tmono
 from bcd_tpu_torch.params import DenoiserParameters as TParams
 from bcd_tpu_torch.parallel.frames import denoise_frames
-from tests.test_torch_engine import golden_crop
+from tests.test_torch_stats import golden_crop
+from tests.torch_workers import share_cores
+
+share_cores()
 
 CPU = torch.device("cpu")
 # the port (twins, float32) against JAX's XLA engine: the engine tests' bound
@@ -60,7 +63,9 @@ def jax_outputs():
 def test_denoisers_match_jax(scales):
     den = (tapi.Denoiser(tile=16, device=CPU) if scales == 1
            else tapi.MultiscaleDenoiser(2, tile=16, device=CPU))
-    args = golden_crop() if scales == 1 else [torch.from_numpy(a) for a in golden_crop()]
+    args = golden_crop()
+    if scales == 2:  # the API takes tensors too
+        args = [torch.from_numpy(a) for a in args]
     out, seen = _run(den, TParams(search_window_radius=3),
                      tapi.DenoiserInputs, args)
     assert isinstance(out, np.ndarray) and out.dtype == np.float32

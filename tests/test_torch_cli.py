@@ -12,6 +12,9 @@ import torch
 from bcd_tpu.io import image_io
 from bcd_tpu_torch import cli
 from tests.test_torch_engine import prefilter_scene
+from tests.torch_workers import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -96,7 +99,7 @@ def test_cli_stats_report(tmp_path, capsys):
     """``--stats`` (once refused), -s 2 -b 3 on the golden crop: the same
     output bit for bit, then the report; main + fallback = managed = the
     interior pixels of both scales (14x14 and 7x7 at r = 1)."""
-    from tests.test_torch_engine import golden_crop
+    from tests.test_torch_stats import golden_crop
 
     color, nb, histo, cov = golden_crop()
     image_io.write_exr(color, str(tmp_path / "in.exr"))

@@ -10,6 +10,9 @@ from bcd_tpu_torch.ops import fused as tfused
 from bcd_tpu_torch.ops.solve_filter import SMALL_CH
 from tests.test_fused_pallas import (
     B, D, H, ND, T, TP, _flat_inputs, _scene, _validity)
+from tests.torch_workers import share_cores
+
+share_cores()
 
 
 @pytest.fixture(scope="module")

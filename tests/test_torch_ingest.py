@@ -23,6 +23,9 @@ from bcd_tpu_torch.io import raw as traw
 from bcd_tpu_torch.ops import accumulator as tacc
 from bcd_tpu_torch.params import HistogramParameters as THist
 from tests import reference_impl as oracle
+from tests.torch_workers import share_cores
+
+share_cores()
 
 CPU = torch.device("cpu")
 NAMES = ("nb", "mean", "cov", "histo")

@@ -17,6 +17,9 @@ from bcd_tpu.io import image_io as jio
 from bcd_tpu_torch import params as tparams
 from bcd_tpu_torch.io import exr as texr
 from bcd_tpu_torch.io import image_io as tio
+from tests.torch_workers import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

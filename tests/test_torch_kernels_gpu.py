@@ -434,8 +434,9 @@ def test_accumulator_cuda_matches_cpu_and_repeats(cuda):
                                                accumulate_samples)
 
     rng = np.random.default_rng(21)
-    samples = np.abs(rng.random((40, 33, 1, 4)) * 2 + 0.5 * rng.standard_normal(
-        (40, 33, 16, 4))).astype(np.float32)
+    samples = np.abs(rng.random((40, 33, 1, 4)) * 2
+                     + 0.5 * rng.standard_normal((40, 33, 16, 4))
+                     ).astype(np.float32)
     samples[0, :, :5, 0] = 1e3  # saturated
     samples[1, :, :5, 1] = np.float32(2.5 ** 2.2)  # on the last bin edge
 

@@ -9,6 +9,9 @@ import torch
 
 from bcd_tpu_torch.ops import solve_filter as ts
 from tests.test_solve_filter_pallas import _moment_inputs, _pm_inputs, make_inputs
+from tests.torch_workers import share_cores
+
+share_cores()
 
 D = 27
 

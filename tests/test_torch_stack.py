@@ -12,6 +12,9 @@ from bcd_tpu_torch.convert import to_device, to_numpy
 from bcd_tpu_torch.core import monoscale as tmono
 from tests import reference_impl as oracle
 from tests.test_ops_vs_oracle import make_stats
+from tests.torch_workers import share_cores
+
+share_cores()
 
 CPU = torch.device("cpu")
 # r = 2 needs n >= d + 1 = 76 similar patches for the main path; b = 5
