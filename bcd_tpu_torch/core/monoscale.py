@@ -10,7 +10,8 @@ contributions are overlap-added in one deterministic pass
 - Patch radius 1: the fused K1 -> K2 -> K4 pipeline (``core/fused.py``).
 - Any other radius: the candidate-stack engine below, the port of JAX's
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
-  the ``solve_filter`` kernel, run only on the main-path centers.
+  ``solve_filter_pm``, run only on the main-path centers: on the card the
+  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3.
 
 Each kernel launches once per batch of tiles, not once per tile. With
 ``collect_stats`` each tile engine also returns its batch's main-path and
@@ -35,14 +36,26 @@ from bcd_tpu_torch.params import DenoiserParameters
 from bcd_tpu_torch.convert import to_device
 from bcd_tpu_torch.ops.solve_filter import solve_filter_pm
 
-# Jacobi sweeps of solve_filter_pm in the candidate-stack engine: JAX's
+# Jacobi sweeps of solve_filter_pm in the candidate-stack engine. JAX's
 # accelerator path calls solve_filter without ``sweeps``
 # (bcd_tpu/core/monoscale.py:412-415), so it runs the kernel's default 6
-# (ops/solve_filter_pallas.py:442), not MonoscaleConfig.solve_sweeps (K2's)
+# (ops/solve_filter_pallas.py:442), not MonoscaleConfig.solve_sweeps (K2's).
+# At d = 147 (r = 3) six sweeps leave the fp32 schedule 4.7e-4 rms from the
+# exact solve on synthetic stacks, eight 2.9e-6 (tests/test_torch_solve.py
+# ::test_schedule_sweeps_at_d147); JAX's r = 3 result is its plain path's,
+# with a converged eigh, since its kernel cannot hold d = 147 in VMEM.
 SOLVE_FILTER_SWEEPS = 6
+SOLVE_FILTER_SWEEPS_R3 = 8
+
+
+def solve_filter_sweeps(d: int) -> int:
+    return SOLVE_FILTER_SWEEPS if d <= 75 else SOLVE_FILTER_SWEEPS_R3
+
+
 FUSED_TILE_BATCH = 128
 # at r = 2, b = 6, t = 32 a batch of 16 tiles holds a (16384, 169, 75) fp32
-# candidate stack of 831 MB, and the filtered field as much again
+# candidate stack of 831 MB, and the filtered field as much again; at r = 3
+# a (16384, 169, 147) stack of 1.63 GB, and the field as much again
 STACK_TILE_BATCH = 16
 
 
@@ -288,7 +301,7 @@ def denoise_tiles(cfg, color, nb, histo, pixcov, gy, gx, ly, lx,
 
     field = solve_filter_pm(s["cand"], s["mask"], s["noise"], s["n"], s["m"],
                             min_eigen, npx=cfg.npx,
-                            sweeps=SOLVE_FILTER_SWEEPS,
+                            sweeps=solve_filter_sweeps(d),
                             rows=s["main"].nonzero()[:, 0])
     field[:, self_o] += s["fb"].float()[:, None] * s["m"]
     cnt = s["mask"] * main[:, None]

@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
-            "solve_filter": 0, "solve_matrices": 0}
+            "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +56,12 @@ _SIGNATURES = {
     "bcd_solve_filter": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P],
     # m2, msum, nov, n, eps, n_pixels, d, sweeps, a2t, b2, stream
     "bcd_solve_matrices": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P],
+    # cand, mask, noise, n, m, rows, eps, n_rows, n_offsets, d, sweeps,
+    # scratch, n_blocks, field, stream
+    "bcd_solve_filter_smem": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P,
+                              _I, _P, _P],
+    # d, n_blocks -> floats of scratch
+    "bcd_solve_filter_smem_scratch_floats": [_I, _I],
 }
 
 _lib = None

@@ -16,7 +16,12 @@ Ports of ``bcd_tpu/ops/solve_filter_pallas.py``:
   it transposes to pixel rows for the kernel.
 
 ``solve_filter_pm`` and ``solve_matrices`` share ``csrc/solve_filter.cu``,
-built for d = 27 (r = 1) and d = 75 (r = 2); the kernels' headers give the
+built for d = 27 (r = 1) and d = 75 (r = 2), which keeps a column of the
+Jacobi's matrices in a thread's registers. At d = 147 (r = 3) a column
+outgrows the registers: ``solve_filter_pm`` runs ``csrc/solve_filter_smem.cu``
+there, the same function with the two matrices in shared memory; the lane
+``solve_matrices`` has no d = 147 kernel. Larger d is refused: the two
+matrices outgrow a block's shared memory. The kernels' headers give the
 math, the design and what bounds them. ``solve_schedule_core`` is the plain
 float32 model of every solve kernel's schedule (K2's too), the reference
 they are held to on the card beside the float64 twins.
@@ -50,10 +55,17 @@ DTRI = D * (D + 1) // 2
 MISC_CH = D + 6 * NPX + 2
 SMALL_CH = 2 * D + 2
 EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
-# patch dimensions csrc/solve_filter.cu is built for (r = 1, 2); at r >= 3
-# a thread's column of W or Q (d + 1 floats) outgrows its registers
-KERNEL_DIMS = (27, 75)
-ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 3")
+# patch dimensions solve_filter_pm has a kernel for: csrc/solve_filter.cu
+# (r = 1, 2; a thread's column of W or Q, d + 1 floats, in registers) and
+# csrc/solve_filter_smem.cu (r = 3; W and Q, 2 (d + 1)^2 floats, in shared
+# memory, 175 KB of a block's 227 KB)
+KERNEL_DIMS = (27, 75, 147)
+SMEM_DIMS = (147,)
+# the lane solve_matrices' kernel (csrc/solve_filter.cu only)
+LANE_KERNEL_DIMS = (27, 75)
+SMEM_BYTES = 232448  # shared memory an H100 block may have
+ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 4")
+ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
 def _sym_apply(mats: torch.Tensor, fn) -> torch.Tensor:
@@ -107,12 +119,16 @@ def _check_kernel_inputs(names, tensors) -> None:
 
 
 def check_kernel_dim(d: int) -> None:
-    """Raise NotImplementedError for a patch dimension the CUDA kernel has
-    no instantiation for."""
+    """Raise NotImplementedError for a patch dimension ``solve_filter_pm``
+    has no CUDA kernel for."""
     if d not in KERNEL_DIMS:
+        need = 2 * (d + d % 2) ** 2 * 4
         raise NotImplementedError(
-            f"patch dimension d = {d}: the CUDA kernel is built for d in "
-            f"{KERNEL_DIMS} (patch radius 1, 2); see {ROADMAP_LARGE_D}")
+            f"patch dimension d = {d}: the CUDA solve kernels are built for "
+            f"d in {KERNEL_DIMS} (patch radius 1, 2, 3); the Jacobi's two "
+            f"working matrices take {need} bytes at this d, more than the "
+            f"{SMEM_BYTES} bytes of shared memory a block may have; see "
+            f"{ROADMAP_LARGE_D}")
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +370,10 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     n (P,) set sizes, m (P, d) masked mean patches. Returns field (P, O, d)
     = mask * (A2 c + b2). With ``rows`` (int64 pixel indices), only those
     pixels are solved and the other rows of field are 0. ``sweeps`` is the
-    kernel's number of Jacobi sweeps; the twin's exact eigh has none.
+    kernel's number of Jacobi sweeps; the twin's exact eigh has none. On
+    CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147
+    ``csrc/solve_filter_smem.cu``, and any other d is refused
+    (``check_kernel_dim``).
     """
     if cand.dim() != 3:
         raise ValueError(f"cand must be (P, O, d), got {tuple(cand.shape)}")
@@ -382,11 +401,25 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
         n_rows = rows_i32.numel()
     if n_rows == 0:  # nothing to solve: no launch
         return field
-    p = _build.ptr
-    rc = _build.library().bcd_solve_filter(
-        *map(p, tensors), None if rows_i32 is None else p(rows_i32),
-        float(min_eigen), n_rows, n_off, d, int(sweeps), p(field),
-        _build.stream_of(cand))
+    p, lib = _build.ptr, _build.library()
+    rows_p = None if rows_i32 is None else p(rows_i32)
+    if d in SMEM_DIMS:
+        # a persistent grid, one block an SM, each with its scratch slot
+        n_blocks = min(n_rows, torch.cuda.get_device_properties(
+            cand.device).multi_processor_count)
+        scratch = torch.empty(
+            lib.bcd_solve_filter_smem_scratch_floats(d, n_blocks),
+            device=cand.device)
+        rc = lib.bcd_solve_filter_smem(
+            *map(p, tensors), rows_p, float(min_eigen), n_rows, n_off, d,
+            int(sweeps), p(scratch), n_blocks, p(field),
+            _build.stream_of(cand))
+        _build.LAUNCHES["solve_filter_smem"] += 1
+        _build.check(rc, "solve_filter_smem")
+        return field
+    rc = lib.bcd_solve_filter(
+        *map(p, tensors), rows_p, float(min_eigen), n_rows, n_off, d,
+        int(sweeps), p(field), _build.stream_of(cand))
     _build.LAUNCHES["solve_filter"] += 1
     _build.check(rc, "solve_filter")
     return field
@@ -473,7 +506,10 @@ def solve_matrices(m2_t, msum_t, nov_t, n_t, min_eigen: float, npx: int,
     _check_kernel_inputs(names, tensors)
     if m2_t.device.type == "cpu":
         return solve_matrices_plain(m2_t, msum_t, nov_t, n_t, min_eigen, npx)
-    check_kernel_dim(d)
+    if d not in LANE_KERNEL_DIMS:
+        raise NotImplementedError(
+            f"patch dimension d = {d}: the lane solve_matrices' CUDA kernel "
+            f"is built for d in {LANE_KERNEL_DIMS}; see {ROADMAP_LANE_D}")
     dev = m2_t.device
     # pixel rows for the kernel, held here until the launch is queued
     rows = [m2_t.permute(2, 0, 1).contiguous(), msum_t.T.contiguous(),

@@ -44,7 +44,16 @@ the final line:
    on the in-memory statistics bitwise ``denoise_multiscale``'s, and the
    batch CLI on two copies of the frame and a broken one (isolation, each
    output the CLI's bit for bit, ``--resume``).
-7. One JSON line of kernel results, the card line, and the final line
+7. The -w 3 path (d = 147, the shared-memory solve kernel
+   solve_filter_smem) on the same scene: the kernel against the fp32 model
+   of its schedule and its float64 twin on synthetic stacks and on one
+   real 16-tile r = 3 batch (its in-place rows bit for bit), its time
+   beside its bound; ``bcd -w 3`` through the CLI's entry point (launches
+   only solve_filter_smem, beats the noisy input; wall time, peak memory,
+   main-path fraction; the kernel's share of its device time, the run
+   traced); a 48x48 crop on the card against the port's CPU pipeline,
+   bitwise repeatable.
+8. One JSON line of kernel results, the card line, and the final line
    ``{"ok": true, "device": {...}}``.
 
 Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
@@ -101,6 +110,21 @@ R2_CPU_RMSE = 1e-4
 # the kernels each path launches (ops/_build.LAUNCHES keys)
 R1_KERNELS = ("masks_moments", "solve_matrices_pm", "apply_scatter")
 R2_KERNELS = ("solve_filter",)
+R3_KERNELS = ("solve_filter_smem",)
+# phase 7, d = 147 (csrc/solve_filter_smem.cu): against the plain fp32 model
+# of its schedule on synthetic stacks (first readings on an H100 2.3e-6
+# and 2.4e-6, so about 4x), and the filtered field of a real r = 3 batch,
+# relative rms (first reading 5.9e-7, so about 8x)
+SMEM_MODEL_RMS = 1e-5
+SMEM_MODEL_BATCH_REL_RMS = 5e-6
+# centers of the real r = 3 batch the fp32 model runs on, and the float64
+# twin (its eigh at d = 147 is the costly part): two a block of the
+# kernel's persistent grid on an H100's 132 SMs
+R3_MODEL_CENTERS = 2048
+R3_TWIN_CENTERS = 264
+# the -w 3 run's finest-scale main-path fraction must exceed this (first
+# reading on an H100 0.9171)
+R3_MAIN_FLOOR = 0.8
 # centers of the real r = 2 batch on which the lane solve_matrices, on no
 # engine path, is held to its float64 twin (whose call takes about 3 ms a
 # center on the card)
@@ -500,15 +524,15 @@ def lane_moments(x):
             (mk * x["C"]).sum(0), (x["noise"] * x["n"]).contiguous(), x["n"])
 
 
-def r2_batch(stats, dev, thr, batch=8):
+def r2_batch(stats, dev, thr, batch=8, radius=2):
     """The candidate-stack engine's solve inputs for tile batch ``batch``
-    (16 tiles of 32x32) of a whole image at r = 2, b = 6, built as the
-    engine builds them. Returns (pixel-major stacks cand, mask, noise, n, m
-    of every center, main-path mask)."""
+    (16 tiles of 32x32) of a whole image at r = ``radius``, b = 6, built as
+    the engine builds them. Returns (pixel-major stacks cand, mask, noise,
+    n, m of every center, main-path mask)."""
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               candidate_stacks, tile_batches)
 
-    cfg = MonoscaleConfig(patch_radius=2, search_radius=6)
+    cfg = MonoscaleConfig(patch_radius=radius, search_radius=6)
     height, width = stats[0].shape[:2]
     batches = tile_batches(cfg, *padded(cfg, *stats, dev))
     for _ in range(batch):
@@ -535,13 +559,14 @@ def lanes_of(x):
             "n": x["n"][None].contiguous(), "m": x["m"].T.contiguous()}
 
 
-def r2_main_fraction(stats, dev, thr) -> float:
-    """Main-path centers over managed centers of the r = 2, b = 6 engine on
-    a whole image: n >= d + 1 similar patches (distance masks only)."""
+def r2_main_fraction(stats, dev, thr, radius=2) -> float:
+    """Main-path centers over managed centers of the r = ``radius``, b = 6
+    engine on a whole image: n >= d + 1 similar patches (distance masks
+    only)."""
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               _distance_masks, tile_batches)
 
-    cfg = MonoscaleConfig(patch_radius=2, search_radius=6)
+    cfg = MonoscaleConfig(patch_radius=radius, search_radius=6)
     height, width = stats[0].shape[:2]
     main = managed = 0
     for _, (ly, lx), slabs in tile_batches(cfg, *padded(cfg, *stats, dev)):
@@ -549,7 +574,7 @@ def r2_main_fraction(stats, dev, thr) -> float:
                                     ly, lx, height, width, height, width, thr)
         main += int(((masks.sum(1) >= cfg.d + 1) & cv).sum())
         managed += int(cv.sum())
-    need(managed > 0, "no managed pixels at r = 2")
+    need(managed > 0, f"no managed pixels at r = {radius}")
     return main / managed
 
 
@@ -694,6 +719,184 @@ def compare_solve_batch(label, x, main, reps):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the -w 3 path (d = 147, csrc/solve_filter_smem.cu)
+# ---------------------------------------------------------------------------
+
+
+def compare_smem_synthetic(dev, sweeps):
+    """solve_filter_pm at d = 147 on 1024 synthetic pixels of 169
+    candidates: against the fp32 model of its schedule and the float64
+    twin. Returns the max abs err against the twin."""
+    import torch
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    x = stack_inputs(np.random.default_rng(147), 169, 147, 1024, dev)
+    pm = pm_of(x)
+    field = ts.solve_filter_pm(*pm, 1e-8, npx=49, sweeps=sweeps)
+    need(bool(torch.isfinite(field).all()), "synthetic d=147: non-finite")
+    model = ts.solve_filter_pm_schedule(*pm, 1e-8, 49, sweeps)
+    twin = ts.solve_filter_pm_plain(*pm, 1e-8, 49)
+    e_m, e_t = rmse(field.cpu(), model.cpu()), rmse(field.cpu(), twin.cpu())
+    print(f"[7] synthetic d=147 (O=169, 1024 pixels, sweeps {sweeps}): "
+          f"solve_filter_smem vs its fp32 schedule model rms {e_m:.3e} "
+          f"(limit {SMEM_MODEL_RMS:g}), vs float64 twin rms {e_t:.3e} "
+          f"(limit {SYNTH_RMS:g}); model vs twin "
+          f"{rmse(model.cpu(), twin.cpu()):.3e}", flush=True)
+    need(e_m < SMEM_MODEL_RMS, "synthetic d=147 vs the schedule model")
+    need(e_t < SYNTH_RMS, "synthetic d=147 vs the float64 twin")
+    return float((field - twin).abs().max())
+
+
+def compare_smem_batch(label, x, main, sweeps):
+    """solve_filter_smem on one real r = 3 batch: the engine's in-place call
+    on the main-path rows against the compact one, bit for bit; its field
+    against the fp32 model on at most R3_MODEL_CENTERS centers and against
+    the float64 twin on R3_TWIN_CENTERS. Returns (max_abs_err, ms,
+    plain_ms, bound) on the twin's centers (two a block of a persistent
+    grid on 132 SMs), and prints the whole batch's time beside its
+    bound."""
+    import torch
+    from bcd_tpu_torch.ops import bounds
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    p_all, n_off, d = x["cand"].shape
+    args = [x[k] for k in PM_KEYS]
+    idx = main.nonzero()[:, 0]
+    need(idx.numel() >= R3_TWIN_CENTERS, f"{label}: too few main-path centers")
+    in_place = ts.solve_filter_pm(*args, 1e-8, npx=49, sweeps=sweeps,
+                                  rows=idx)
+    need(bool(torch.isfinite(in_place).all()), f"{label}: non-finite field")
+    xm = {k: v[idx].contiguous() for k, v in x.items()}
+    args_m = [xm[k] for k in PM_KEYS]
+    field = ts.solve_filter_pm(*args_m, 1e-8, npx=49, sweeps=sweeps)
+    rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
+    rest[idx] = False
+    need(torch.equal(in_place[idx], field)
+         and not bool(in_place[rest].any()),
+         f"{label} solve_filter_smem: rows in place differ from the compact "
+         "stack")
+    del in_place
+    ms_batch = cuda_ms(lambda: ts.solve_filter_pm(
+        *args, 1e-8, npx=49, sweeps=sweeps, rows=idx), 1)
+    bound_batch = bounds.solve_filter(idx.numel(), n_off, d, sweeps)
+    model = ts.solve_filter_pm_schedule(
+        *(v[:R3_MODEL_CENTERS] for v in args_m), 1e-8, 49, sweeps)
+    rel_m = rel_rms(field[:R3_MODEL_CENTERS], model)
+    del model
+    sub = [v[:R3_TWIN_CENTERS].contiguous() for v in args_m]
+    sf = lambda: ts.solve_filter_pm(  # noqa: E731
+        *sub, 1e-8, npx=49, sweeps=sweeps)
+    ref, plain_ms = timed_once(
+        lambda: ts.solve_filter_pm_plain(*sub, 1e-8, npx=49))
+    got = sf()
+    rel = rel_rms(got, ref)
+    res = (float((got - ref).abs().max()), cuda_ms(sf, 3), plain_ms,
+           bounds.solve_filter(R3_TWIN_CENTERS, n_off, d, sweeps))
+    print(f"[7] {label} solve_filter_smem: {idx.numel()} main-path centers "
+          f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
+          f"engine's in-place rows bitwise equal to the compact call; "
+          f"{ms_batch:.3f} ms for the batch's main rows, bound "
+          f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
+    print(f"[7] {label}: field vs its fp32 schedule model on the first "
+          f"{min(R3_MODEL_CENTERS, idx.numel())} centers rel rms {rel_m:.3e} "
+          f"(limit {SMEM_MODEL_BATCH_REL_RMS:g}); vs the float64 twin on the "
+          f"first {R3_TWIN_CENTERS} rel rms {rel:.3e} (limit "
+          f"{BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those centers "
+          f"kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
+          f"{res[3][0]:.3f} ms", flush=True)
+    need(rel_m < SMEM_MODEL_BATCH_REL_RMS,
+         f"{label} solve_filter_smem vs its schedule model")
+    need(rel < BATCH_REL_RMS, f"{label} solve_filter_smem vs twin")
+    return res
+
+
+def r3_phase(dev, card, stats, clean, scene_path, e_in):
+    """Phase 7: the -w 3 path on the 1088x1920 scene. Returns the kernels
+    line's entry (max_abs_err, ms, plain_ms, bound) and the -w 3 run's
+    launch counts."""
+    import torch
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
+    from bcd_tpu_torch.core.pipeline import denoise_pipeline
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops.spike_removal import spike_removal
+    from bcd_tpu_torch.params import PipelineParameters
+
+    sweeps = solve_filter_sweeps(147)
+    # (a) synthetic
+    e_syn = compare_smem_synthetic(dev, sweeps)
+    # (b) one real 16-tile batch of the finest scale (after the prefilter)
+    p3 = PipelineParameters()
+    p3.denoiser.monoscale.patch_radius = 3
+    thr = p3.denoiser.monoscale.histogram_distance_threshold
+    pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
+                        p3.prefiltering.spike_removal_threshold_stdev_factor)
+    frac3 = r2_main_fraction(pre, dev, thr, radius=3)
+    print(f"[7] 1088x1920 finest scale at r=3, b=6, threshold {thr:g}: "
+          f"main-path fraction {frac3:.4f} (floor {R3_MAIN_FLOOR:g})",
+          flush=True)
+    need(frac3 > R3_MAIN_FLOOR, "the -w 3 run barely reaches the main path")
+    res = compare_smem_batch("full-size r=3 batch 8",
+                             *r2_batch(pre, dev, thr, radius=3),
+                             sweeps=sweeps)
+    res = (max(res[0], e_syn),) + res[1:]
+    del pre
+
+    # (c) bcd -w 3 through the CLI's entry point, warmed up on a crop: the
+    # frame is run once, traced (the kernel's share of its device time)
+    dev_stats = [torch.as_tensor(x, device=dev) for x in stats]
+    denoise_pipeline(*(x[:64, :64].contiguous() for x in dev_stats), dev, p3)
+    out_path = scene_path.replace(".exr", "_out_w3.exr")
+    argv3 = ["-i", scene_path, "-o", out_path, "-w", "3"]
+    rcs = []
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cli3_s, busy, rows = device_time_table(
+        "[7] bcd -w 3", lambda: rcs.append(cli.main(argv3)))
+    peak3 = torch.cuda.max_memory_allocated()
+    launches3 = dict(_build.LAUNCHES)
+    need(rcs == [0], "-w 3 CLI run")
+    smem_us = sum(us for us, _, key in rows if "solve_filter_smem" in key)
+    print(f"[7] python -m bcd_tpu_torch.cli {' '.join(argv3)}: rc 0, "
+          f"{cli3_s:.3f} s wall with EXR I/O and the profiler on {card}; "
+          f"peak memory {peak3 / 2**20:.1f} MiB; launches {launches3}; "
+          f"solve_filter_smem {smem_us / 1e6:.4f} s of {busy:.4f} s device "
+          f"time (share {smem_us / 1e6 / max(busy, 1e-9):.3f})", flush=True)
+    for name in R3_KERNELS:
+        need(launches3[name] > 0,
+             f"kernel {name} was not launched by the -w 3 path")
+    for name in R1_KERNELS:
+        need(launches3[name] == 0, f"the -w 3 path launched {name}")
+    out3 = image_io.load_exr(out_path)
+    need(out3.shape == clean.shape and np.isfinite(out3).all(),
+         "-w 3 CLI output shape / finiteness")
+    e_out3 = rmse(out3, clean)
+    print(f"[7] rmse vs clean: -w 3 output {e_out3:.5f}, noisy input "
+          f"{e_in:.5f}; finest-scale main-path fraction {frac3:.4f}",
+          flush=True)
+    need(e_out3 < e_in, "the -w 3 output is not closer to the clean image")
+
+    # (d) a 48x48 crop on the card, twice, against the port's CPU pipeline
+    crop = [x[:48, :48].contiguous() for x in dev_stats]
+    got = denoise_pipeline(*crop, dev, p3)
+    need(torch.equal(got, denoise_pipeline(*crop, dev, p3)),
+         "-w 3 crop not bitwise repeatable")
+    t0 = time.perf_counter()
+    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p3)
+    cpu_s = time.perf_counter() - t0
+    gap = rmse(got.cpu(), ref)
+    print(f"[7] -w 3 pipeline on a 48x48 crop (b=6): card vs the port's CPU "
+          f"pipeline (float64 twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit "
+          f"{R2_CPU_RMSE:g}), max abs "
+          f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
+          "on the card", flush=True)
+    need(gap < R2_CPU_RMSE, "-w 3 on the card against the CPU pipeline")
+    return res, launches3
+
+
 def device_time_table(label, run) -> None:
     """One traced ``run()``: wall, device busy and idle share, and the top
     device time by kernel."""
@@ -721,6 +924,7 @@ def device_time_table(label, run) -> None:
     for us, calls, key in rows[:12]:
         print(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {key[:90]}",
               flush=True)
+    return wall, busy, rows
 
 
 def run_quiet(fn, *args, **kwargs):
@@ -1225,7 +1429,13 @@ def main() -> int:
     ingest_phase(dev, card, clean)
     print(f"[6] phase 6 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # --- 7. results --------------------------------------------------------
+    # --- 7. the -w 3 path ---------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_147"], launches3 = r3_phase(
+        dev, card, stats, clean, paths[""], e_in)
+    print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- 8. results --------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
                "bcd_tpu/ops/fused_pallas.py:429"),
@@ -1240,9 +1450,13 @@ def main() -> int:
         "solve_matrices": ("solve_matrices",
                            "bcd_tpu_torch/csrc/solve_filter.cu",
                            "bcd_tpu/ops/solve_filter_pallas.py:594"),
+        "solve_filter_147": ("solve_filter_smem",
+                             "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                             "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
-            "solve_matrices": launches2["solve_matrices"]}
+            "solve_matrices": launches2["solve_matrices"],
+            "solve_filter_smem": launches3["solve_filter_smem"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

@@ -138,6 +138,36 @@ def test_cli_refuses_out_of_range_options(flags, msg, capsys):
     assert msg in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("flags,nb_of_cores,use_cuda", [
+    (("--ncores", "4"), 4, True),
+    (("--use-cuda", "0"), 0, False),
+    (("--ncores", "2", "--use-cuda", "1"), 2, True),
+])
+def test_cli_records_ncores_and_use_cuda(flags, nb_of_cores, use_cuda):
+    """Parsed into the parameters as JAX's ``parse_args`` parses them, and
+    recorded only."""
+    from bcd_tpu import cli as jcli
+
+    argv = ["-i", "x.exr", "-o", "y.exr", *flags]
+    for parsed in (cli.parse_args(argv), jcli.parse_args(argv)):
+        mono = parsed.pipeline.denoiser.monoscale
+        assert (mono.nb_of_cores, mono.use_cuda) == (nb_of_cores, use_cuda)
+
+
+def test_cli_refuses_use_cuda_value(capsys):
+    """``--use-cuda 2``: JAX's message, and exit code 1 from ``main``."""
+    from bcd_tpu import cli as jcli
+
+    argv = ["-i", "x.exr", "-o", "y.exr", "--use-cuda", "2"]
+    msg = "ERROR in program arguments: expecting 0 or 1 after '--use-cuda'"
+    assert jcli.parse_args(argv) is None
+    assert msg in capsys.readouterr().out
+    assert cli.parse_args(argv) is None
+    assert msg in capsys.readouterr().out
+    assert cli.main(argv + ["--device", "cpu"]) == 1
+    assert msg in capsys.readouterr().out
+
+
 def test_cli_default_device_needs_a_card(scene, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (K1, K2, K4, solve_filter and the lane-form
-solve_matrices) against their plain twins, and the solve kernels against
-the plain fp32 model of their own schedule, on the card. Run on a machine
-with an NVIDIA Hopper card:
+"""The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
+shared-memory form at d = 147 and the lane-form solve_matrices) against
+their plain twins, and the solve kernels against the plain fp32 model of
+their own schedule, on the card. Run on a machine with an NVIDIA Hopper
+card:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
 from bcd_tpu_torch.ops import fused as tfused
 from bcd_tpu_torch.ops.solve_filter import (
     D, MISC_CH, SMALL_CH, solve_filter, solve_filter_plain, solve_filter_pm,
-    solve_filter_pm_schedule, solve_matrices, solve_matrices_pm,
+    solve_filter_pm_plain, solve_filter_pm_schedule, solve_matrices,
+    solve_matrices_pm,
     solve_matrices_pm_plain, solve_matrices_pm_schedule, solve_matrices_plain,
     solve_matrices_schedule)
 
@@ -267,13 +270,15 @@ def _rms(a, b):
     return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
 
 
-@pytest.mark.parametrize("O,d", [(49, 27), (169, 75)])
+@pytest.mark.parametrize("O,d", [(49, 27), (169, 75), (169, 147)])
 def test_solve_filter_kernel_matches_twin(cuda, O, d):
+    """At the engine's sweeps for d (6 at d = 27 and 75, 8 at d = 147,
+    where the shared-memory kernel runs)."""
     x = _degenerate(_stack_inputs(np.random.default_rng(d), O, d, 256))
     args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
     ref = solve_filter_plain(*args, 1e-8, npx=d // 3)
     got = solve_filter(*(a.to(cuda) for a in args), 1e-8, npx=d // 3,
-                       sweeps=6).cpu()
+                       sweeps=solve_filter_sweeps(d)).cpu()
     assert bool(torch.isfinite(got).all())
     assert bool((got[:, :, 16:48] == 0).all())
     assert _rms(got, ref) < 2e-4
@@ -326,19 +331,49 @@ def test_solve_kernels_match_schedule(cuda, O, d):
         assert _rms(g[..., 48:], w[..., 48:]) < 1e-5
 
 
-def test_solve_filter_pm_rows_in_place(cuda):
+# the shared-memory kernel at d = 147 against the plain fp32 model of its
+# schedule on 64 synthetic pixels: chip_smoke.py's limit for the same
+# check on 1,024 pixels (its readings on an H100: 2.3e-6, 2.4e-6)
+SMEM_MODEL_RMS = 1e-5
+
+
+def test_solve_filter_smem_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 147 (csrc/solve_filter_smem.cu) against the
+    fp32 model of its schedule, rms SMEM_MODEL_RMS, and against the
+    float64 twin, rms 2e-4, on 64 synthetic pixels of 169 candidates at
+    the engine's 8 sweeps; it launches the shared-memory kernel only."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(147), 169, 147, 64)
+    pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+          x["noise"].T.contiguous(), x["n"][0].contiguous(),
+          x["m"].T.contiguous()]
+    _build.reset_launches()
+    got = solve_filter_pm(*(a.to(cuda) for a in pm), 1e-8, npx=49,
+                          sweeps=8).cpu()
+    assert _build.LAUNCHES["solve_filter_smem"] == 1
+    assert _build.LAUNCHES["solve_filter"] == 0
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, 49, 8)) \
+        < SMEM_MODEL_RMS
+    assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 49)) < 2e-4
+
+
+@pytest.mark.parametrize("d", [75, 147])
+def test_solve_filter_pm_rows_in_place(cuda, d):
     """The engine's entry: with ``rows`` the kernel reads those pixels of the
     stacks in place and writes their fields, bit for bit those of the
     compact stacks; the other rows are 0."""
-    x = _stack_inputs(np.random.default_rng(31), 169, 75, 64)
+    x = _stack_inputs(np.random.default_rng(31), 169, d, 64)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
         x["m"].T.contiguous())]
     rows = torch.tensor([1, 5, 6, 40, 63], device=cuda)
-    part = solve_filter_pm(*pm, 1e-8, npx=25, sweeps=6, rows=rows)
+    sweeps = solve_filter_sweeps(d)
+    part = solve_filter_pm(*pm, 1e-8, npx=d // 3, sweeps=sweeps, rows=rows)
     compact = solve_filter_pm(*[v[rows].contiguous() for v in pm], 1e-8,
-                              npx=25, sweeps=6)
+                              npx=d // 3, sweeps=sweeps)
     assert torch.equal(part[rows], compact)
     rest = torch.ones(64, dtype=torch.bool, device=cuda)
     rest[rows] = False
@@ -361,6 +396,16 @@ def test_wrappers_count_only_launches(cuda):
     field = solve_filter_pm(*pm, 1e-8, npx=25, sweeps=6,
                             rows=torch.zeros(0, dtype=torch.long, device=cuda))
     assert field.shape == (8, 169, 75) and not bool(field.any())
+    x3 = _stack_inputs(np.random.default_rng(33), 169, 147, 4)
+    pm3 = [v.to(cuda) for v in (
+        x3["C"].permute(2, 0, 1).contiguous(), x3["mask"].T.contiguous(),
+        x3["noise"].T.contiguous(), x3["n"][0].contiguous(),
+        x3["m"].T.contiguous())]
+    field = solve_filter_pm(*pm3, 1e-8, npx=49, sweeps=8,
+                            rows=torch.zeros(0, dtype=torch.long, device=cuda))
+    assert field.shape == (4, 169, 147) and not bool(field.any())
+    assert solve_filter_pm(*[v[:0] for v in pm3], 1e-8, npx=49,
+                           sweeps=8).shape == (0, 169, 147)
     assert solve_filter_pm(*[v[:0] for v in pm], 1e-8, npx=25,
                            sweeps=6).shape == (0, 169, 75)
     a2t, small = solve_matrices_pm(torch.zeros((0, 378), device=cuda),
@@ -384,22 +429,60 @@ def test_wrappers_count_only_launches(cuda):
 
 
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    d = 147  # patch radius 3
+    """d = 243 (patch radius 4): W and Q would outgrow a block's shared
+    memory; refused with the reason, and the lane form at d = 147 too."""
+    d = 243
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="shared memory.*ROADMAP"):
         solve_filter(*(x[k] for k in ("C", "mask", "noise", "n", "m")), 1e-8,
-                     npx=d // 3, sweeps=6)
+                     npx=d // 3, sweeps=8)
+    x = {k: v.to(cuda) for k, v in
+         _stack_inputs(np.random.default_rng(0), 9, 147, 2).items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve_matrices(*(x[k] for k in ("m2", "msum", "nov", "n")), 1e-8,
+                       npx=49, sweeps=8)
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """No kernel instantiation for d = 147: the CLI refuses before reading
-    its inputs and never runs the twin."""
+    """Radius 3 runs on the card now (solve_filter_smem); radius 4, for
+    which no kernel is built, is refused before the inputs are read, with
+    the shared-memory reason, and the twin never runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "3"]) == 1
-    assert "ROADMAP" in capsys.readouterr().out
+                     "4"]) == 1
+    out = capsys.readouterr().out
+    assert "shared memory" in out and "ROADMAP" in out
+
+
+def test_cli_radius_3_cuda_matches_cpu(cuda, tmp_path):
+    """``bcd -w 3 -d 2.25`` (-p 1 -s 3, b = 6) on a 48x48 golden crop (2.5%
+    of its finest-scale centers on the main path at this threshold): the card
+    launches solve_filter_smem (and no r = 1 kernel) and its output is
+    within the goldens' rmse 1e-4 of the CPU run's."""
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+
+    color, nb, histo, cov = _golden_crop(48)
+    image_io.write_exr(color, str(tmp_path / "in.exr"))
+    image_io.write_multi_channels_exr(
+        image_io.merge_histogram_and_nb_of_samples(histo, nb),
+        str(tmp_path / "in_hist.exr"))
+    image_io.write_multi_channels_exr(cov, str(tmp_path / "in_cov.exr"))
+    outs = []
+    for device in ("cuda", "cpu"):
+        _build.reset_launches()
+        out = str(tmp_path / f"out_{device}.exr")
+        assert cli.main(["-i", str(tmp_path / "in.exr"), "-o", out, "-w",
+                         "3", "-d", "2.25", "--device", device]) == 0
+        if device == "cuda":
+            assert _build.LAUNCHES["solve_filter_smem"] > 0, _build.LAUNCHES
+            assert _build.LAUNCHES["masks_moments"] == 0
+        outs.append(image_io.load_exr(out))
+    assert np.isfinite(outs[0]).all()
+    assert np.sqrt(np.mean((outs[0] - outs[1]) ** 2)) < 1e-4
 
 
 # ---------------------------------------------------------------------------

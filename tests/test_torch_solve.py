@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
 from bcd_tpu_torch.ops import solve_filter as ts
 from tests.test_solve_filter_pallas import _moment_inputs, _pm_inputs, make_inputs
 from tests.torch_workers import share_cores
@@ -79,19 +80,25 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("O,d", [(49, 27), (121, 75)])
+@pytest.mark.parametrize("O,d", [(49, 27), (121, 75), (49, 147)])
 def test_solve_filter_twin_matches_jax_reference(O, d):
-    """d = 27 (r = 1) and d = 75 (r = 2, npx = 25), P = 128, within JAX's
-    own kernel-vs-reference bound (test_solve_filter_pallas.py:34)."""
+    """d = 27 (r = 1), d = 75 (r = 2, npx = 25) and d = 147 (r = 3, npx =
+    49), P = 128, within JAX's own kernel-vs-reference bound
+    (test_solve_filter_pallas.py:34). At d = 147 JAX's Pallas kernel cannot
+    run on a TPU (its scratch outgrows VMEM), so the reference is
+    ``solve_filter_reference``, the function JAX's plain path computes; P =
+    8 there, as JAX's Jacobi eigh at d = 147 takes about 0.5 s a pixel on a
+    CPU core."""
     import jax.numpy as jnp
     from bcd_tpu.ops.solve_filter_pallas import solve_filter_reference
 
     npx = d // 3
-    args = make_inputs(np.random.default_rng(O), O=O, d=d, npx=npx, P=128)
+    P = 8 if d == 147 else 128
+    args = make_inputs(np.random.default_rng(O), O=O, d=d, npx=npx, P=P)
     got = ts.solve_filter(*_t(*args), 1e-8, npx=npx, sweeps=6).numpy()
     ref = np.asarray(solve_filter_reference(
         *(jnp.asarray(a) for a in args), 1e-8, npx=npx))
-    assert got.shape == (O, d, 128)
+    assert got.shape == (O, d, P)
     assert _rms(got, ref) < 2e-4
 
 
@@ -178,15 +185,16 @@ def test_solve_wrappers_refuse_bad_inputs():
                           sweeps=6)
 
 
-@pytest.mark.parametrize("d", [27, 75, 147])
+@pytest.mark.parametrize("d", [27, 75, 147, 243])
 def test_kernel_dims(d):
-    """The CUDA solve kernel is built for patch radius 1 and 2; radius 3
-    (a thread's column of W or Q would be 148 floats of registers) is
-    refused with its ROADMAP item."""
+    """The CUDA solve kernels are built for patch radius 1, 2 (registers)
+    and 3 (shared memory); radius 4 (W and Q would take 476 KB of shared
+    memory) is refused with the reason and its ROADMAP item."""
     if d in ts.KERNEL_DIMS:
         ts.check_kernel_dim(d)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="shared memory.*ROADMAP"):
             ts.check_kernel_dim(d)
 
 
@@ -280,13 +288,13 @@ def test_schedule_degenerate_pixels():
     assert (small[:32, D] == 0).all() and (small[32:64, D] == 1).all()
 
 
-@pytest.mark.parametrize("dp", [28, 76])
+@pytest.mark.parametrize("dp", [28, 76, 148])
 def test_reseat_order_is_one_sweep_cycle(dp):
     """reseat_order is the TPU kernel's re-seating (the concatenation of
     solve_filter_pallas.py:184-187, written out on row labels): a
     permutation that keeps row 0 and moves the other rows along one cycle
     of length dp - 1, the round-robin order of a Brent-Luk sweep, at K2's
-    dp = 28 and solve_filter's dp = 76 (d = 75)."""
+    dp = 28 and solve_filter's dp = 76 (d = 75) and 148 (d = 147)."""
     order = ts.reseat_order(dp)
     half = dp // 2
     u, dn = np.arange(half), np.arange(half, dp)
@@ -303,28 +311,53 @@ def test_reseat_order_is_one_sweep_cycle(dp):
     assert length == dp - 1
 
 
+@pytest.mark.parametrize("d", [75, 147])
 @pytest.mark.parametrize("form", ["solve_filter", "solve_matrices"])
-def test_schedule_d75_matches_twins(form):
-    """The kernels' fp32 schedule at d = 75 (the Jacobi as a function of d,
-    6 sweeps, 16 pixels) against the float64 twins, within the kernels'
-    2e-4 (about 4e-6 here): the model the card's solve_filter and lane
-    solve_matrices are held to."""
-    npx, d = 25, 75
+def test_schedule_matches_twins(form, d):
+    """The kernels' fp32 schedule (the Jacobi as a function of d) against
+    the float64 twins, within the kernels' 2e-4: at d = 75, 6 sweeps on 16
+    pixels of 121 candidates (about 4e-6 here); at d = 147, the engine's 8
+    sweeps (core/monoscale.solve_filter_sweeps) on 8 pixels of 49
+    candidates (about 7e-7). The model the card's solve kernels are held
+    to."""
+    npx = d // 3
+    O, P = (121, 16) if d == 75 else (49, 8)
+    sweeps = solve_filter_sweeps(d)
     m2, msum, nov, n, C, mask, noise, m = _moment_inputs(
-        np.random.default_rng(21), O=121, d=d, npx=npx, P=16)
+        np.random.default_rng(21), O=O, d=d, npx=npx, P=P)
     if form == "solve_filter":
         pm = [t for t in _t(C.transpose(2, 0, 1), mask.T, noise.T, n[0],
                             m.T)]
-        got = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 6)
+        got = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, sweeps)
         want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
-        assert got.shape == want.shape == (16, 121, d)
+        assert got.shape == want.shape == (P, O, d)
         assert _rms(got, want) < 2e-4
     else:
-        got = ts.solve_matrices_schedule(*_t(m2, msum, nov, n), 1e-8, npx, 6)
+        got = ts.solve_matrices_schedule(*_t(m2, msum, nov, n), 1e-8, npx,
+                                         sweeps)
         want = ts.solve_matrices_plain(*_t(m2, msum, nov, n), 1e-8, npx)
         for g, w in zip(got, want):
             assert g.shape == w.shape
             assert _rms(g, w) < 2e-4
+
+
+def test_schedule_sweeps_at_d147():
+    """Why the engine runs 8 sweeps at d = 147 where it runs 6 at d = 75:
+    on 8 pixels of 169 candidates the fp32 schedule at 6 sweeps is about
+    4.7e-4 rms from the float64 twin, past the kernels' 2e-4; at 8 about
+    3e-6."""
+    npx, d = 49, 147
+    pm = _t(*(a for a in _pm_stacks(np.random.default_rng(21), 169, d, 8)))
+    want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
+    assert solve_filter_sweeps(d) == 8
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 6), want) > 2e-4
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 8), want) < 2e-5
+
+
+def _pm_stacks(rng, O, d, P):
+    """make_inputs' stacks in solve_filter_pm's pixel-major layout."""
+    C, mask, noise, n, m = make_inputs(rng, O=O, d=d, npx=d // 3, P=P)
+    return C.transpose(2, 0, 1), mask.T, noise.T, n[0], m.T
 
 
 def test_schedule_core_is_k2_schedule():
