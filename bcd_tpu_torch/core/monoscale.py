@@ -11,7 +11,7 @@ contributions are overlap-added in one deterministic pass
 - Any other radius: the candidate-stack engine below, the port of JAX's
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
   ``solve_filter_pm``, run only on the main-path centers: on the card the
-  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3.
+  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 and 4.
 
 Each kernel launches once per batch of tiles, not once per tile. With
 ``collect_stats`` each tile engine also returns its batch's main-path and
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from bcd_tpu_torch.chrono import PhaseStats, device_phase
 from bcd_tpu_torch.params import DenoiserParameters
 from bcd_tpu_torch.convert import to_device
-from bcd_tpu_torch.ops.solve_filter import solve_filter_pm
+from bcd_tpu_torch.ops.solve_filter import check_solve_path, solve_filter_pm
 
 # Jacobi sweeps of solve_filter_pm in the candidate-stack engine. JAX's
 # accelerator path calls solve_filter without ``sweeps``
@@ -42,8 +42,10 @@ from bcd_tpu_torch.ops.solve_filter import solve_filter_pm
 # (ops/solve_filter_pallas.py:442), not MonoscaleConfig.solve_sweeps (K2's).
 # At d = 147 (r = 3) six sweeps leave the fp32 schedule 4.7e-4 rms from the
 # exact solve on synthetic stacks, eight 2.9e-6 (tests/test_torch_solve.py
-# ::test_schedule_sweeps_at_d147); JAX's r = 3 result is its plain path's,
-# with a converged eigh, since its kernel cannot hold d = 147 in VMEM.
+# ::test_schedule_sweeps_at_d147); at d = 243 (r = 4) seven leave 1.1e-4,
+# eight 5e-6 (::test_schedule_sweeps_at_d243), so eight again. JAX's r = 3
+# and r = 4 results are its plain path's, with a converged eigh, since its
+# kernel cannot hold d = 147 or 243 in VMEM.
 SOLVE_FILTER_SWEEPS = 6
 SOLVE_FILTER_SWEEPS_R3 = 8
 
@@ -55,7 +57,9 @@ def solve_filter_sweeps(d: int) -> int:
 FUSED_TILE_BATCH = 128
 # at r = 2, b = 6, t = 32 a batch of 16 tiles holds a (16384, 169, 75) fp32
 # candidate stack of 831 MB, and the filtered field as much again; at r = 3
-# a (16384, 169, 147) stack of 1.63 GB, and the field as much again
+# a (16384, 169, 147) stack of 1.63 GB; at r = 4, b = 8 a (16384, 289, 243)
+# stack of 4.60 GB, and the field as much again (the peak of a -w 4 -b 8
+# frame on the card: PERF.md)
 STACK_TILE_BATCH = 16
 
 
@@ -384,6 +388,8 @@ def denoise_accumulate(cfg: MonoscaleConfig, color_p, nb_p, histo_p, cov_p,
     from bcd_tpu_torch.core.fused import denoise_tiles_fused
 
     tiles = denoise_tiles_fused if cfg.fused else denoise_tiles
+    if not cfg.fused and color_p.device.type == "cuda":
+        check_solve_path(cfg.d, len(_offsets(cfg)))
     t, h = cfg.tile, cfg.halo
     core_h, core_w = color_p.shape[0] - 2 * h, color_p.shape[1] - 2 * h
     g_h, g_w = global_shape if global_shape is not None else (core_h, core_w)

@@ -1,10 +1,12 @@
-// solve_filter at patch radius 3 (d = 147): the per-pixel two-step
-// Bayesian solve and filter of the candidate stacks, with the Jacobi's two
-// working matrices in shared memory.
+// solve_filter at patch radius 3 (d = 147) and 4 (d = 243): the per-pixel
+// two-step Bayesian solve and filter of the candidate stacks, with the
+// Jacobi's two working matrices in shared memory (d = 147), or as much of
+// them as fits there and the rest in a global slot of the block (d = 243).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
-// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147; it
-// computes what csrc/solve_filter.cu computes at d = 27 and 75. Per pixel:
+// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147 and 243;
+// it computes what csrc/solve_filter.cu computes at d = 27 and 75. Per
+// pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
 //   Cemp = (M2 - n m m^T) / max(n - 1, 1), BD = block-diagonal noise;
@@ -19,44 +21,54 @@
 // The exact fp32 model of this schedule is ops/solve_filter.py::
 // solve_filter_pm_schedule (its Jacobi, _jacobi_fp32, is a function of d).
 //
-// What bounds it on an H100. About 0.17 GFLOP a pixel at the engine's 8
-// sweeps (ops/bounds.py), three quarters of it the Jacobi: 147 rounds a
-// sweep, each 74 pivot inner products and 74 row-pair rotations of two
-// 148 x 148 matrices. csrc/solve_filter.cu keeps a column of W or Q in a
-// thread's registers; at d = 147 a column is 148 floats, more than a
-// thread can hold. Here W and Q live in shared memory (2 x 148 x 148
-// floats, 175 KB of the 227 KB a block may have), so a round reads and
-// writes both once: 350 KB of shared-memory traffic against 55 K FMAs,
-// about 2,700 cycles of an SM's 128 bytes a cycle against 430 of its FMA
-// rate. The design is the simple one, not tuned (its time beside its
-// bound: PERF.md).
+// What bounds it on an H100. About 0.17 GFLOP a pixel at d = 147 and 0.75
+// at d = 243 at the engine's 8 sweeps (ops/bounds.py), three quarters of
+// it the Jacobi: d rounds a sweep, each (d + 1) / 2 pivot inner products
+// and as many row-pair rotations of two (d + 1) x (d + 1) matrices.
+// csrc/solve_filter.cu keeps a column of W or Q in a thread's registers;
+// at d = 147 a column is 148 floats, more than a thread can hold. Here W
+// and Q are rows: at d = 147 all in shared memory (2 x 148 x 148 floats,
+// 175 KB of the 227 KB a block may have), so a round reads and writes both
+// once: 350 KB of shared-memory traffic against 55 K FMAs, about 2,700
+// cycles of an SM's 128 bytes a cycle against 430 of its FMA rate. At
+// d = 243 the two matrices take 476 KB: the first 227 of their 488 rows
+// stay in shared memory, the other 261 (255 KB a block, 34 MB for 132
+// blocks, inside the 50 MB L2) in a global slot of the block, and a round
+// moves 953 KB, more than half of it through L2. The design is the simple
+// one, not tuned (its time beside its bound: PERF.md).
 //
 // The design:
 //   - A persistent grid, one 512-thread block an SM, each block looping
 //     over its share of the pixels (`rows`).
-//   - Re-seating by indirection: a round pairs seats (i, i + 74); the rows
-//     never move in shared memory, a seat -> row map (`slot`, two buffers)
-//     is permuted after each round instead. The pair state (diagonal
-//     estimates, fast-Givens row scales) is kept by row.
+//   - Each of the 2 (d + 1) rows of W and Q has a fixed home for the whole
+//     pixel, row r in shared memory for r < RS and in the block's global
+//     slot beyond (`Rows`); everything below addresses rows through it, so
+//     the same code runs over either memory.
+//   - Re-seating by indirection: a round pairs seats (i, i + HALF); the
+//     rows never move, a seat -> row map (`slot`, two buffers) is permuted
+//     after each round instead. The pair state (diagonal estimates,
+//     fast-Givens row scales) is kept by row.
 //   - A round: eight lanes a pair form the inner products <W[a], Q[b]>
 //     (16-byte loads, a three-step shuffle reduction; a warp takes four
 //     pairs and four more in a second pass, both loaded together), one
 //     lane a pair then forms its angles and row scales (as _jacobi_fp32
-//     does), its record {alpha, beta, row offsets} and the next seat map;
-//     a barrier; every thread rotates 16-byte units of the rows of W and
-//     Q, one FMA an element; a barrier.
+//     does), its record {alpha, beta, rows} and the next seat map; a
+//     barrier; every thread rotates 16-byte units of the rows of W and Q,
+//     one FMA an element; a barrier. At d = 243 a round is bound by the
+//     L2 traffic of the global rows, not by their latency: loading four
+//     units before storing any did not make it faster (PERF.md).
 //   - The parts of O(d^3) that run once a pixel are block-wide register-
-//     tiled products (4 x 4 outputs a thread, 16-byte operand rows, all of
-//     the form sum_k X[k][i] Y[k][j]): M2, the clamp, H = Cemp A1^T,
-//     cov2 = A1 H and the filter. Cemp and H do not fit beside W and Q:
-//     they live in a global scratch slot of the block (2 x 148 x 148
-//     floats a block, about 23 MB for 132 blocks, mostly in L2), which the
-//     wrapper allocates (bcd_solve_filter_smem_scratch_floats sizes it).
-//     The Cholesky solves reuse the shared space of W and Q once the clamp
-//     has read Q: right-looking, one barrier a column, eps joining each
-//     pivot as it is reached (pivots floored at 1e-30), the forward
-//     substitution taken along, the pivot row kept in registers (five
-//     columns a lane); the back substitution right-looking too.
+//     tiled products (4 x 4 outputs a thread, at most NTP tiles a thread at
+//     once, 16-byte operand rows, all of the form sum_k X[k][i] Y[k][j]):
+//     M2, the clamp, H = Cemp A1^T, cov2 = A1 H and the filter. Cemp and H
+//     live in the block's global scratch slot (2 (d + 1)^2 floats a block,
+//     mostly in L2), which the wrapper allocates with the global rows
+//     (bcd_solve_filter_smem_scratch_floats sizes it). The Cholesky solves
+//     reuse the space of W and Q once the clamp has read Q: right-looking,
+//     one barrier a column, eps joining each pivot as it is reached (pivots
+//     floored at 1e-30), the forward substitution taken along, the pivot
+//     row kept in registers (d / 32 columns a lane); the back substitution
+//     right-looking too.
 //
 // Layouts (pixel-major, P pixels; bcd_tpu_torch/ops/solve_filter.py):
 // cand (P, O, d), mask (P, O), noise (P, 6 npx) with the channels
@@ -70,6 +82,7 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_FLOATS = 232448 / 4;  // shared memory a block may have
 
 template <int D>
 struct Smem {
@@ -78,30 +91,56 @@ struct Smem {
   static constexpr int DP = D + (D & 1);  // even size for the pairing
   static constexpr int HALF = DP / 2;     // a round rotates seats (i, i + HALF)
   static constexpr int Q4 = DP / 4;       // 16-byte units a row
-  static constexpr int TILES = Q4 * Q4;   // 4 x 4 output tiles of a DP x DP product
   static constexpr int TRI = Q4 * (Q4 + 1) / 2;  // tiles on and below the diagonal
   static constexpr int THREADS = 512;
   static constexpr int WARPS = THREADS / 32;
   static constexpr int MAT = DP * DP;
-  // shared layout in floats: R0 (W; candidates; S), R1 (Q; weighted
-  // candidates; right-hand sides, X1, A1^T, X2), then vectors
-  static constexpr int R0 = 0;
-  static constexpr int R1 = MAT;
-  static constexpr int M_OFF = 2 * MAT;
+  // tiles a thread accumulates at once in a block-wide product (16 floats
+  // each), and in M2's (the candidates are staged again for each pass)
+  static constexpr int NTP = 3;
+  static constexpr int NTP_M2 = 2;
+  static constexpr int M2_PASSES = (TRI + NTP_M2 * THREADS - 1) / (NTP_M2 * THREADS);
+  // the vectors: m, the noise, diag, f, neg (then b2), the Cholesky's
+  // 1 / L[j][j], a round's pair records {alpha, beta, top row, bottom row}
+  // and two seat maps (int)
+  static constexpr int VEC = DP + (NOV + 3) / 4 * 4 + 4 * DP + 4 * HALF + 2 * DP;
+  // rows of W (0 .. DP) and Q (DP .. 2 DP) in shared memory; the others
+  // in the block's global slot (Rows)
+  static constexpr int RS = (SMEM_FLOATS - VEC) / DP < 2 * DP ? (SMEM_FLOATS - VEC) / DP : 2 * DP;
+  static constexpr int GROWS = 2 * DP - RS;
+  // shared layout in floats: the shared rows, then the vectors
+  static constexpr int M_OFF = RS * DP;
   static constexpr int NOV_OFF = M_OFF + DP;
   static constexpr int DIAG_OFF = NOV_OFF + (NOV + 3) / 4 * 4;
   static constexpr int F_OFF = DIAG_OFF + DP;
   static constexpr int NEG_OFF = F_OFF + DP;  // then b2
   static constexpr int R_OFF = NEG_OFF + DP;  // the Cholesky's 1 / L[j][j]
-  // a round's pair records {alpha, beta, top row offset, bottom row offset}
   static constexpr int REC_OFF = R_OFF + DP;
-  static constexpr int SLOT_OFF = REC_OFF + 4 * HALF;  // two seat maps (int)
+  static constexpr int SLOT_OFF = REC_OFF + 4 * HALF;
   static constexpr int FLOATS = SLOT_OFF + 2 * DP;
   static constexpr int BYTES = FLOATS * (int)sizeof(float);
-  static constexpr int SCRATCH = 2 * MAT;  // global floats a block: Cemp, H
+  // global floats a block: Cemp, H, then the rows not in shared memory
+  static constexpr int SCRATCH = 2 * MAT + GROWS * DP;
+  static_assert(FLOATS == M_OFF + VEC, "the vectors' layout");
   static_assert(DP % 4 == 0 && REC_OFF % 4 == 0, "rows of 16-byte units");
   static_assert(4 * WARPS <= HALF && HALF <= 8 * WARPS, "a round's pairs in two passes");
-  static_assert(BYTES <= 232448, "more shared memory than a block may have");
+  static_assert(RS >= DP / 2 && BYTES <= 4 * SMEM_FLOATS, "more shared memory than a block may have");
+};
+
+// row r of W (r < DP) or Q (DP + r): in shared memory below RS, else in
+// the block's global slot
+template <int D>
+struct Rows {
+  float* s;
+  float* g;
+  __device__ __forceinline__ float* operator()(int r) const {
+    using G = Smem<D>;
+    if constexpr (G::GROWS == 0) {
+      return s + r * G::DP;
+    } else {
+      return r < G::RS ? s + r * G::DP : g + (r - G::RS) * G::DP;
+    }
+  }
 };
 
 // entry (i, j) of the block-diagonal noise covariance; per patch pixel the
@@ -144,101 +183,111 @@ __device__ __forceinline__ float4 ld4(const float* p, bool global) {
                 : *reinterpret_cast<const float4*>(p);
 }
 
-// Block-wide product acc(i, j) = sum_{k < kn} X[k][i] Y[k][j] over 4 x 4
-// tiles: X and Y row-major with row stride DP, in shared memory or (flag
-// set) the block's global scratch. Tiles go to threads tid, tid + 512, ...:
-// all Q4 x Q4 of them, or with `lower` those with ti >= tj (tri_tile).
-// `skip(k)` (uniform over the block) leaves a k out; `xs(k)` scales row k
-// of X. epi(i0, j0, acc) stores a tile.
-template <int D, class Skip, class XScale, class Epi>
-__device__ __forceinline__ void tile_product(const float* X, bool xg, const float* Y, bool yg,
-                                             int kn, bool lower, int rows4, Skip skip,
-                                             XScale xs, Epi epi) {
+// Block-wide product acc(i, j) = sum_{k < kn} X(k)[i] Y(k)[j] over 4 x 4
+// tiles: X(k) and Y(k) give row k (DP floats) of each operand, in shared
+// memory or the global rows (Rows) or (flag set) the block's global
+// scratch, read past L1. Tiles go to threads tid, tid + 512, ..., NTP at a
+// time: all rows4 x Q4 of them, or with `lower` those with ti >= tj
+// (tri_tile). `skip(k)` (uniform over the block) leaves a k out; `xs(k)`
+// scales row k of X. epi(i0, j0, acc) stores a tile; it must not write
+// what X or Y read.
+template <int D, class XRow, class YRow, class Skip, class XScale, class Epi>
+__device__ __forceinline__ void tile_product(XRow X, bool xg, YRow Y, bool yg, int kn,
+                                             bool lower, int rows4, Skip skip, XScale xs,
+                                             Epi epi) {
   using G = Smem<D>;
-  constexpr int DP = G::DP, NT = (G::TILES + G::THREADS - 1) / G::THREADS;
+  constexpr int NT = G::NTP;
   const int n_tiles = lower ? G::TRI : rows4 * G::Q4;
   const int tid = threadIdx.x;
-  int ti[NT], tj[NT];
-  float acc[NT][16];
-#pragma unroll
-  for (int u = 0; u < NT; ++u) {
-    const int t = tid + u * G::THREADS;
-    ti[u] = tj[u] = 0;
-    if (t < n_tiles) {
-      if (lower) {
-        tri_tile(t, ti[u], tj[u]);
-      } else {
-        ti[u] = t / G::Q4;
-        tj[u] = t - ti[u] * G::Q4;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[u][e] = 0.f;
-  }
 #pragma unroll 1
-  for (int k = 0; k < kn; ++k) {
-    if (skip(k)) continue;
-    const float s = xs(k);
+  for (int t0 = tid; t0 < n_tiles; t0 += NT * G::THREADS) {
+    int ti[NT], tj[NT];
+    float acc[NT][16];
 #pragma unroll
     for (int u = 0; u < NT; ++u) {
-      if (tid + u * G::THREADS < n_tiles) {
-        const float4 a = ld4(X + k * DP + 4 * ti[u], xg);
-        const float4 b = ld4(Y + k * DP + 4 * tj[u], yg);
-        const float av[4] = {a.x * s, a.y * s, a.z * s, a.w * s};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+      const int t = t0 + u * G::THREADS;
+      ti[u] = tj[u] = 0;
+      if (t < n_tiles) {
+        if (lower) {
+          tri_tile(t, ti[u], tj[u]);
+        } else {
+          ti[u] = t / G::Q4;
+          tj[u] = t - ti[u] * G::Q4;
+        }
+      }
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
+      for (int e = 0; e < 16; ++e) acc[u][e] = 0.f;
+    }
+#pragma unroll 1
+    for (int k = 0; k < kn; ++k) {
+      if (skip(k)) continue;
+      const float s = xs(k);
+      const float* xk = X(k);
+      const float* yk = Y(k);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[u][4 * p + q] = fmaf(av[p], bv[q], acc[u][4 * p + q]);
+      for (int u = 0; u < NT; ++u) {
+        if (t0 + u * G::THREADS < n_tiles) {
+          const float4 a = ld4(xk + 4 * ti[u], xg);
+          const float4 b = ld4(yk + 4 * tj[u], yg);
+          const float av[4] = {a.x * s, a.y * s, a.z * s, a.w * s};
+          const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[u][4 * p + q] = fmaf(av[p], bv[q], acc[u][4 * p + q]);
+        }
       }
     }
-  }
 #pragma unroll
-  for (int u = 0; u < NT; ++u)
-    if (tid + u * G::THREADS < n_tiles) epi(4 * ti[u], 4 * tj[u], acc[u]);
+    for (int u = 0; u < NT; ++u)
+      if (t0 + u * G::THREADS < n_tiles) epi(4 * ti[u], 4 * tj[u], acc[u]);
+  }
 }
 
-// X = (S + eps I)^-1 BD for S (symmetric, rows of DP floats) in Sm, the
-// right-hand sides in Y (set here to BD, ending as X). Right-looking, one
-// barrier a column: at step j every thread forms r_j = 1 / L[j][j] from
-// the pivot, rows i > j of the trailing matrix (on and above the
-// diagonal; S stays symmetric, so row j is column j) and of Y take
-// L[i][j] = S[j][i] r_j times row j, scaled by r_j. Row j of Y is scaled
-// in place at step j + 1, when nobody reads it. The back substitution goes
-// up, right-looking: at step i row i of X is final, and rows l < i take
-// L[i][l] X[i]. Ends with a block barrier.
-template <int D>
-__device__ __forceinline__ void chol_solve(float* Sm, float* Y, const float* nov, float* rv,
+// X = (S + eps I)^-1 BD for S (symmetric, rows S(i) of DP floats), the
+// right-hand sides in rows Y(i) (set here to BD, ending as X).
+// Right-looking, one barrier a column: at step j every thread forms
+// r_j = 1 / L[j][j] from the pivot, rows i > j of the trailing matrix (on
+// and above the diagonal; S stays symmetric, so row j is column j) and of
+// Y take L[i][j] = S[j][i] r_j times row j, scaled by r_j. Row j of Y is
+// scaled in place at step j + 1, when nobody reads it. The back
+// substitution goes up, right-looking: at step i row i of X is final, and
+// rows l < i take L[i][l] X[i]. Ends with a block barrier.
+template <int D, class SRow, class YRow>
+__device__ __forceinline__ void chol_solve(SRow S, YRow Y, const float* nov, float* rv,
                                            float eps) {
   using G = Smem<D>;
   constexpr int DP = G::DP;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   for (int e = tid; e < DP * DP; e += G::THREADS) {
     const int i = e / DP, c = e - i * DP;
-    Y[e] = (i < D && c < D) ? bd_at(nov, i, c) : 0.f;
+    Y(i)[c] = (i < D && c < D) ? bd_at(nov, i, c) : 0.f;
   }
   constexpr int CL = (D + 31) / 32;  // columns a lane: c = lane + 32 m
 #pragma unroll 1
   for (int j = 0; j < D; ++j) {
     __syncthreads();
-    const float rj = 1.f / sqrtf(fmaxf(Sm[j * DP + j] + eps, 1e-30f));
+    const float* sj = S(j);
+    const float rj = 1.f / sqrtf(fmaxf(sj[j] + eps, 1e-30f));
     if (tid == 0) rv[j] = rj;
     if (j > 0 && warp == G::WARPS - 1) {
       const float rp = rv[j - 1];
-      for (int c = lane; c < D; c += 32) Y[(j - 1) * DP + c] *= rp;
+      float* yp = Y(j - 1);
+      for (int c = lane; c < D; c += 32) yp[c] *= rp;
     }
     // row j of S (= column j) and of Y, scaled by r_j, in registers
+    const float* yj = Y(j);
     float sr[CL], yr[CL];
 #pragma unroll
     for (int mm = 0; mm < CL; ++mm) {
       const int c = lane + 32 * mm;
-      sr[mm] = c < D ? Sm[j * DP + c] * rj : 0.f;
-      yr[mm] = c < D ? Y[j * DP + c] * rj : 0.f;
+      sr[mm] = c < D ? sj[c] * rj : 0.f;
+      yr[mm] = c < D ? yj[c] * rj : 0.f;
     }
     for (int i = j + 1 + warp; i < D; i += G::WARPS) {
-      const float lij = Sm[j * DP + i] * rj;
-      float* si = Sm + i * DP;
-      float* yi = Y + i * DP;
+      const float lij = sj[i] * rj;
+      float* si = S(i);
+      float* yi = Y(i);
 #pragma unroll
       for (int mm = 0; mm < CL; ++mm) {
         const int c = lane + 32 * mm;
@@ -250,7 +299,8 @@ __device__ __forceinline__ void chol_solve(float* Sm, float* Y, const float* nov
   __syncthreads();
   if (warp == G::WARPS - 1) {
     const float rp = rv[D - 1];
-    for (int c = lane; c < D; c += 32) Y[(D - 1) * DP + c] *= rp;
+    float* yp = Y(D - 1);
+    for (int c = lane; c < D; c += 32) yp[c] *= rp;
   }
   // back substitution: X[i] = (Y[i] - sum_{k > i} L[k][i] X[k]) r_i, with
   // L[k][i] = S[i][k] r_i; step i scales row i (final) and updates rows
@@ -261,17 +311,19 @@ __device__ __forceinline__ void chol_solve(float* Sm, float* Y, const float* nov
     const float ri = rv[i];
     if (i < D - 1 && warp == G::WARPS - 1) {
       const float rn = rv[i + 1];
-      for (int c = lane; c < D; c += 32) Y[(i + 1) * DP + c] *= rn;
+      float* yn = Y(i + 1);
+      for (int c = lane; c < D; c += 32) yn[c] *= rn;
     }
+    const float* yi = Y(i);
     float xr[CL];
 #pragma unroll
     for (int mm = 0; mm < CL; ++mm) {
       const int c = lane + 32 * mm;
-      xr[mm] = c < D ? Y[i * DP + c] * ri : 0.f;
+      xr[mm] = c < D ? yi[c] * ri : 0.f;
     }
     for (int l = warp; l < i; l += G::WARPS) {
-      const float lil = Sm[l * DP + i] * rv[l];
-      float* yl = Y + l * DP;
+      const float lil = S(l)[i] * rv[l];
+      float* yl = Y(l);
 #pragma unroll
       for (int mm = 0; mm < CL; ++mm) {
         const int c = lane + 32 * mm;
@@ -282,7 +334,8 @@ __device__ __forceinline__ void chol_solve(float* Sm, float* Y, const float* nov
   __syncthreads();
   if (warp == G::WARPS - 1) {
     const float r0 = rv[0];
-    for (int c = lane; c < D; c += 32) Y[c] *= r0;
+    float* y0 = Y(0);
+    for (int c = lane; c < D; c += 32) y0[c] *= r0;
   }
   __syncthreads();
 }
@@ -298,8 +351,6 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
   constexpr int DP = G::DP, HALF = G::HALF, Q4 = G::Q4, T = G::THREADS;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* R0 = sm + G::R0;
-  float* R1 = sm + G::R1;
   float* mv = sm + G::M_OFF;
   float* nov = sm + G::NOV_OFF;
   float* diag = sm + G::DIAG_OFF;
@@ -310,6 +361,11 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
   int* slot = reinterpret_cast<int*>(sm + G::SLOT_OFF);
   float* cemp = scratch + (size_t)blockIdx.x * G::SCRATCH;  // global, row stride DP
   float* hmat = cemp + G::MAT;
+  const Rows<D> row{sm, hmat + G::MAT};
+  auto W = [&](int i) { return row(i); };       // W; candidates; S; Ct
+  auto Q = [&](int i) { return row(DP + i); };  // Q; weighted candidates; Y
+  auto cemp_row = [&](int k) { return cemp + k * DP; };
+  auto hmat_row = [&](int k) { return hmat + k * DP; };
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   auto none = [](int) { return false; };
   auto one = [](int) { return 1.f; };
@@ -325,76 +381,89 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
     for (int i = tid; i < DP; i += T) mv[i] = i < D ? m_in[p * D + i] : 0.f;
     for (int i = tid; i < G::NOV; i += T) nov[i] = noise[p * G::NOV + i];
 
-    // M2 = sum_o (w_o c_o) c_o^T over chunks of DP candidates (R0: c_o,
-    // R1: w_o c_o); Cemp to the scratch, mirrored from the lower tiles;
-    // W = Cemp - BD to R0, Q = I to R1
+    // M2 = sum_o (w_o c_o) c_o^T over chunks of DP candidates (W rows: c_o,
+    // Q rows: w_o c_o), NTP_M2 lower tiles a thread a pass; Cemp to the
+    // scratch, mirrored from the lower tiles; then W = Cemp - BD, Q = I
     {
-      constexpr int NT = (G::TRI + T - 1) / T;
-      int ti[NT], tj[NT];
-      float acc[NT][16];
-#pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        ti[u] = tj[u] = 0;
-        if (tid + u * T < G::TRI) tri_tile(tid + u * T, ti[u], tj[u]);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[u][e] = 0.f;
-      }
+      constexpr int NT = G::NTP_M2;
+      const float nm1 = fmaxf(n - 1.f, 1.f);
 #pragma unroll 1
-      for (int o0 = 0; o0 < n_off; o0 += DP) {
-        const int cnt = min(DP, n_off - o0);
-        __syncthreads();
-        for (int e = tid; e < cnt * DP; e += T) {
-          const int o = e / DP, i = e - o * DP;
-          const float c = i < D ? cp[(size_t)(o0 + o) * D + i] : 0.f;
-          R0[e] = c;
-          R1[e] = wp[o0 + o] * c;
+      for (int pass = 0; pass < G::M2_PASSES; ++pass) {  // uniform: it holds barriers
+        const int t0 = tid + pass * NT * T;
+        int ti[NT], tj[NT];
+        float acc[NT][16];
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          ti[u] = tj[u] = 0;
+          if (t0 + u * T < G::TRI) tri_tile(t0 + u * T, ti[u], tj[u]);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[u][e] = 0.f;
         }
-        __syncthreads();
 #pragma unroll 1
-        for (int o = 0; o < cnt; ++o) {
+        for (int o0 = 0; o0 < n_off; o0 += DP) {
+          const int cnt = min(DP, n_off - o0);
+          __syncthreads();
+          for (int e = tid; e < cnt * DP; e += T) {
+            const int o = e / DP, i = e - o * DP;
+            const float c = i < D ? cp[(size_t)(o0 + o) * D + i] : 0.f;
+            W(o)[i] = c;
+            Q(o)[i] = wp[o0 + o] * c;
+          }
+          __syncthreads();
+#pragma unroll 1
+          for (int o = 0; o < cnt; ++o) {
+            const float* qo = Q(o);
+            const float* wo = W(o);
 #pragma unroll
-          for (int u = 0; u < NT; ++u) {
-            if (tid + u * T < G::TRI) {
-              const float4 a = *reinterpret_cast<const float4*>(R1 + o * DP + 4 * ti[u]);
-              const float4 b = *reinterpret_cast<const float4*>(R0 + o * DP + 4 * tj[u]);
-              const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+            for (int u = 0; u < NT; ++u) {
+              if (t0 + u * T < G::TRI) {
+                const float4 a = *reinterpret_cast<const float4*>(qo + 4 * ti[u]);
+                const float4 b = *reinterpret_cast<const float4*>(wo + 4 * tj[u]);
+                const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-              for (int r = 0; r < 4; ++r)
+                for (int r = 0; r < 4; ++r)
 #pragma unroll
-                for (int s = 0; s < 4; ++s) acc[u][4 * r + s] = fmaf(av[r], bv[s], acc[u][4 * r + s]);
+                  for (int s = 0; s < 4; ++s)
+                    acc[u][4 * r + s] = fmaf(av[r], bv[s], acc[u][4 * r + s]);
+              }
             }
           }
         }
+        __syncthreads();  // every thread is done with the candidates
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          if (t0 + u * T >= G::TRI) continue;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              const int i = 4 * ti[u] + r, j = 4 * tj[u] + s;
+              if (j > i) continue;  // the upper half of a diagonal tile
+              const float ce =
+                  (i < D && j < D) ? (acc[u][4 * r + s] - n * mv[i] * mv[j]) / nm1 : 0.f;
+              cemp[i * DP + j] = ce;
+              cemp[j * DP + i] = ce;
+            }
+        }
       }
-      __syncthreads();  // every thread is done with the candidates
-      const float nm1 = fmaxf(n - 1.f, 1.f);
-#pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        if (tid + u * T >= G::TRI) continue;
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const int i = 4 * ti[u] + r, j = 4 * tj[u] + s;
-            if (j > i) continue;  // the upper half of a diagonal tile
-            const float ce = (i < D && j < D) ? (acc[u][4 * r + s] - n * mv[i] * mv[j]) / nm1 : 0.f;
-            const float w = (i < D && j < D) ? ce - bd_at(nov, i, j) : 0.f;
-            cemp[i * DP + j] = ce;
-            cemp[j * DP + i] = ce;
-            R0[i * DP + j] = w;
-            R0[j * DP + i] = w;
-          }
+      __syncthreads();  // Cemp is whole
+      for (int e = tid; e < DP * DP; e += T) {
+        const int i = e / DP, j = e - i * DP;
+        W(i)[j] = (i < D && j < D) ? __ldcg(cemp + e) - bd_at(nov, i, j) : 0.f;
       }
-      for (int e = tid; e < DP * DP; e += T) R1[e] = (e % (DP + 1) == 0) ? 1.f : 0.f;
+      for (int e = tid; e < DP * DP; e += T) {
+        const int i = e / DP, c = e - i * DP;
+        Q(i)[c] = i == c ? 1.f : 0.f;
+      }
       for (int i = tid; i < DP; i += T) {
         slot[i] = i;
         fsc[i] = 1.f;
       }
       __syncthreads();
-      for (int i = tid; i < DP; i += T) diag[i] = R0[i * DP + i];
+      for (int i = tid; i < DP; i += T) diag[i] = W(i)[i];
     }
 
-    // the Jacobi: rows W = R0, Q = R1 by physical row; seat s is row
+    // the Jacobi: rows W(r), Q(r) by physical row r; seat s is row
     // slot[buf][s]
     int buf = 0;
 #pragma unroll 1
@@ -411,11 +480,11 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
         const int p0 = 4 * warp + g, p1 = 4 * G::WARPS + p0;
         float s0 = 0.f, s1 = 0.f;
         {
-          const float4* w0 = reinterpret_cast<const float4*>(R0 + cur[p0] * DP);
-          const float4* q0 = reinterpret_cast<const float4*>(R1 + cur[p0 + HALF] * DP);
+          const float4* w0 = reinterpret_cast<const float4*>(W(cur[p0]));
+          const float4* q0 = reinterpret_cast<const float4*>(Q(cur[p0 + HALF]));
           const bool two = p1 < HALF;
-          const float4* w1 = reinterpret_cast<const float4*>(R0 + cur[two ? p1 : p0] * DP);
-          const float4* q1 = reinterpret_cast<const float4*>(R1 + cur[(two ? p1 : p0) + HALF] * DP);
+          const float4* w1 = reinterpret_cast<const float4*>(W(cur[two ? p1 : p0]));
+          const float4* q1 = reinterpret_cast<const float4*>(Q(cur[(two ? p1 : p0) + HALF]));
 #pragma unroll
           for (int mm = 0; mm < (Q4 + 7) / 8; ++mm) {
             const int c4 = sub + 8 * mm;
@@ -452,8 +521,8 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
           const float inv_cf = 1.f / (cs * fp_ * fq);
           const float tapq = tt * apq;
           rec[i] = make_float4(small ? 0.f : -sn * fq * fq * inv_cf,
-                               small ? 0.f : sn * fp_ * fp_ * inv_cf,
-                               __int_as_float(ra * DP), __int_as_float(rb * DP));
+                               small ? 0.f : sn * fp_ * fp_ * inv_cf, __int_as_float(ra),
+                               __int_as_float(rb));
           diag[ra] = app - tapq;
           diag[rb] = aqq + tapq;
           fsc[ra] = cs * fp_;
@@ -462,16 +531,17 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
           nxt[to_seat<DP>(i + HALF)] = rb;
         }
         __syncthreads();
-        // fast-Givens rows: top' = top + alpha bot, bot' = beta top + bot
+        // fast-Givens rows: top' = top + alpha bot, bot' = beta top + bot,
+        // 16-byte unit u of the pair record's rows of W (u < HALF Q4) or Q
 #pragma unroll 1
         for (int u = tid; u < 2 * HALF * Q4; u += T) {
           const bool qm = u >= HALF * Q4;
           const int v = qm ? u - HALF * Q4 : u;
           const int pi = v / Q4, c4 = v - pi * Q4;
-          float* M = qm ? R1 : R0;
           const float4 rc = rec[pi];
-          float4* top = reinterpret_cast<float4*>(M + __float_as_int(rc.z)) + c4;
-          float4* bot = reinterpret_cast<float4*>(M + __float_as_int(rc.w)) + c4;
+          const int base = qm ? DP : 0;
+          float4* top = reinterpret_cast<float4*>(row(base + __float_as_int(rc.z))) + c4;
+          float4* bot = reinterpret_cast<float4*>(row(base + __float_as_int(rc.w))) + c4;
           const float a = rc.x, b = rc.y;
           const float4 x = *top, y = *bot;
           *top = make_float4(fmaf(a, y.x, x.x), fmaf(a, y.y, x.y), fmaf(a, y.z, x.z),
@@ -484,11 +554,9 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
       // renormalize: fold the row scales into the rows
       __syncthreads();
       for (int u = tid; u < 2 * DP * Q4; u += T) {
-        const bool qm = u >= DP * Q4;
-        const int v = qm ? u - DP * Q4 : u;
-        const int row = v / Q4;
-        float4* x = reinterpret_cast<float4*>((qm ? R1 : R0) + row * DP) + (v - row * Q4);
-        const float f = fsc[row];
+        const int r = u / Q4;  // W rows, then Q rows
+        float4* x = reinterpret_cast<float4*>(row(r)) + (u - r * Q4);
+        const float f = fsc[r < DP ? r : r - DP];
         const float4 y = *x;
         *x = make_float4(y.x * f, y.y * f, y.z * f, y.w * f);
       }
@@ -498,17 +566,19 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
     // exact eigenvalues lam_a = <W[a], Q[a]> by row; the negative ones
     __syncthreads();
     for (int a = warp; a < DP; a += G::WARPS) {
+      const float* wa = W(a);
+      const float* qa = Q(a);
       float s = 0.f;
-      for (int k = lane; k < DP; k += 32) s = fmaf(R0[a * DP + k], R1[a * DP + k], s);
+      for (int k = lane; k < DP; k += 32) s = fmaf(wa[k], qa[k], s);
       s = warp_sum(s);
       if (lane == 0) neg[a] = fmaxf(-s, 0.f);
     }
     __syncthreads();
 
     // step 1: S1 = Cemp + sum_a neg_a q_a q_a^T (lower tiles, mirrored) to
-    // R0, over the rows with a negative eigenvalue
+    // W, over the rows with a negative eigenvalue
     tile_product<D>(
-        R1, false, R1, false, DP, true, Q4, [&](int k) { return neg[k] == 0.f; },
+        Q, false, Q, false, DP, true, Q4, [&](int k) { return neg[k] == 0.f; },
         [&](int k) { return neg[k]; },
         [&](int i0, int j0, const float* acc) {
           for (int r = 0; r < 4; ++r)
@@ -516,20 +586,21 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
               const int i = i0 + r, j = j0 + s;
               if (j > i) continue;
               const float v = (i < D && j < D) ? __ldcg(cemp + i * DP + j) + acc[4 * r + s] : 0.f;
-              R0[i * DP + j] = v;
-              R0[j * DP + i] = v;
+              W(i)[j] = v;
+              W(j)[i] = v;
             }
         });
-    __syncthreads();  // every thread has read Q before the solve writes R1
-    chol_solve<D>(R0, R1, nov, rv, eps);  // R1: X1
+    __syncthreads();  // every thread has read Q before the solve writes it
+    chol_solve<D>(W, Q, nov, rv, eps);  // Q rows: X1
     // A1^T = I - X1 in place; H = Cemp A1^T to the scratch (Cemp is
     // symmetric: H[i][c] = sum_k Cemp[k][i] A1^T[k][c])
     for (int e = tid; e < DP * DP; e += T) {
       const int i = e / DP, c = e - i * DP;
-      R1[e] = (i < D && c < D) ? (i == c ? 1.f : 0.f) - R1[e] : 0.f;
+      float* qi = Q(i);
+      qi[c] = (i < D && c < D) ? (i == c ? 1.f : 0.f) - qi[c] : 0.f;
     }
     __syncthreads();
-    tile_product<D>(cemp, true, R1, false, D, false, Q4, none, one,
+    tile_product<D>(cemp_row, true, Q, false, D, false, Q4, none, one,
                     [&](int i0, int j0, const float* acc) {
                       for (int r = 0; r < 4; ++r) {
                         float* h = hmat + (i0 + r) * DP + j0;
@@ -539,40 +610,40 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
                     });
     __syncthreads();
     // S2 = A1 H + BD (cov2[i][j] = sum_k A1^T[k][i] H[k][j]; lower tiles,
-    // mirrored) to R0
-    tile_product<D>(R1, false, hmat, true, D, true, Q4, none, one,
+    // mirrored) to W
+    tile_product<D>(Q, false, hmat_row, true, D, true, Q4, none, one,
                     [&](int i0, int j0, const float* acc) {
                       for (int r = 0; r < 4; ++r)
                         for (int s = 0; s < 4; ++s) {
                           const int i = i0 + r, j = j0 + s;
                           if (j > i) continue;
                           const float v = (i < D && j < D) ? acc[4 * r + s] + bd_at(nov, i, j) : 0.f;
-                          R0[i * DP + j] = v;
-                          R0[j * DP + i] = v;
+                          W(i)[j] = v;
+                          W(j)[i] = v;
                         }
                     });
-    __syncthreads();  // every thread has read A1^T before the solve writes R1
-    chol_solve<D>(R0, R1, nov, rv, eps);  // R1: X2
+    __syncthreads();  // every thread has read A1^T before the solve writes Q
+    chol_solve<D>(W, Q, nov, rv, eps);  // Q rows: X2
     // b2[c] = sum_k X2[k][c] m[k]
     for (int c = tid; c < DP; c += T) {
       float s = 0.f;
       if (c < D)
-        for (int k = 0; k < D; ++k) s = fmaf(R1[k * DP + c], mv[k], s);
+        for (int k = 0; k < D; ++k) s = fmaf(Q(k)[c], mv[k], s);
       neg[c] = s;
     }
 
     // field_o = mask_o (c_o - X2^T c_o + b2): candidates staged transposed
-    // in R0 (Ct[k][o]) in chunks of DP
+    // in the W rows (Ct[k][o]) in chunks of DP
 #pragma unroll 1
     for (int o0 = 0; o0 < n_off; o0 += DP) {
       const int cnt = min(DP, n_off - o0);
       __syncthreads();
       for (int e = tid; e < DP * DP; e += T) {
         const int o = e / DP, k = e - o * DP;
-        R0[k * DP + o] = (o < cnt && k < D) ? cp[(size_t)(o0 + o) * D + k] : 0.f;
+        W(k)[o] = (o < cnt && k < D) ? cp[(size_t)(o0 + o) * D + k] : 0.f;
       }
       __syncthreads();
-      tile_product<D>(R0, false, R1, false, D, false, (cnt + 3) / 4, none, one,
+      tile_product<D>(W, false, Q, false, D, false, (cnt + 3) / 4, none, one,
                       [&](int i0, int j0, const float* acc) {
                         for (int r = 0; r < 4; ++r) {
                           const int o = i0 + r;
@@ -582,7 +653,7 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
                             const int j = j0 + s;
                             if (j >= D) continue;
                             float out = 0.f;
-                            if (w != 0.f) out = (R0[j * DP + o] - acc[4 * r + s] + neg[j]) * w;
+                            if (w != 0.f) out = (W(j)[o] - acc[4 * r + s] + neg[j]) * w;
                             fp[(size_t)(o0 + o) * D + j] = out;
                           }
                         }
@@ -609,8 +680,10 @@ int launch(const float* cand, const float* mask, const float* noise, const float
 // floats of global scratch the kernel needs for `n_blocks` blocks at patch
 // dimension d; -1 for a d it is not built for
 extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
-  if (d != 147 || n_blocks < 0) return -1;
-  return n_blocks * Smem<147>::SCRATCH;
+  if (n_blocks < 0) return -1;
+  if (d == 147) return n_blocks * Smem<147>::SCRATCH;
+  if (d == 243) return n_blocks * Smem<243>::SCRATCH;
+  return -1;
 }
 
 extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
@@ -619,8 +692,10 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      int n_rows, int n_off, int d, int sweeps,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
-  if (d != 147 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if ((d != 147 && d != 243) || n_blocks <= 0) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
-  return launch<147>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
-                     n_blocks, field, (cudaStream_t)stream);
+  return d == 147 ? launch<147>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps,
+                                scratch, n_blocks, field, (cudaStream_t)stream)
+                  : launch<243>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps,
+                                scratch, n_blocks, field, (cudaStream_t)stream);
 }

@@ -19,10 +19,12 @@ Ports of ``bcd_tpu/ops/solve_filter_pallas.py``:
 built for d = 27 (r = 1) and d = 75 (r = 2), which keeps a column of the
 Jacobi's matrices in a thread's registers. At d = 147 (r = 3) a column
 outgrows the registers: ``solve_filter_pm`` runs ``csrc/solve_filter_smem.cu``
-there, the same function with the two matrices in shared memory; the lane
-``solve_matrices`` has no d = 147 kernel. Larger d is refused: the two
-matrices outgrow a block's shared memory. The kernels' headers give the
-math, the design and what bounds them. ``solve_schedule_core`` is the plain
+there, the same function with the two matrices in shared memory, and at
+d = 243 (r = 4) the same kernel with the rows that do not fit there in a
+global slot of the block; the lane ``solve_matrices`` has no d = 147
+kernel. Larger d is refused where a center could reach the solve
+(``check_solve_path``). The kernels' headers give the math, the design and
+what bounds them. ``solve_schedule_core`` is the plain
 float32 model of every solve kernel's schedule (K2's too), the reference
 they are held to on the card beside the float64 twins.
 
@@ -58,13 +60,15 @@ EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
 # patch dimensions solve_filter_pm has a kernel for: csrc/solve_filter.cu
 # (r = 1, 2; a thread's column of W or Q, d + 1 floats, in registers) and
 # csrc/solve_filter_smem.cu (r = 3; W and Q, 2 (d + 1)^2 floats, in shared
-# memory, 175 KB of a block's 227 KB)
-KERNEL_DIMS = (27, 75, 147)
-SMEM_DIMS = (147,)
+# memory, 175 KB of a block's 227 KB; r = 4: 476 KB, 227 of the 488 rows in
+# shared memory, the others in a global slot of the block)
+KERNEL_DIMS = (27, 75, 147, 243)
+# the d that csrc/solve_filter_smem.cu runs, with each one's launch counter
+SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243"}
 # the lane solve_matrices' kernel (csrc/solve_filter.cu only)
 LANE_KERNEL_DIMS = (27, 75)
 SMEM_BYTES = 232448  # shared memory an H100 block may have
-ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 4")
+ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 5")
 ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
@@ -125,10 +129,23 @@ def check_kernel_dim(d: int) -> None:
         need = 2 * (d + d % 2) ** 2 * 4
         raise NotImplementedError(
             f"patch dimension d = {d}: the CUDA solve kernels are built for "
-            f"d in {KERNEL_DIMS} (patch radius 1, 2, 3); the Jacobi's two "
+            f"d in {KERNEL_DIMS} (patch radius 1 to 4); the Jacobi's two "
             f"working matrices take {need} bytes at this d, more than the "
-            f"{SMEM_BYTES} bytes of shared memory a block may have; see "
-            f"{ROADMAP_LARGE_D}")
+            f"{SMEM_BYTES} bytes of shared memory a block may have (the "
+            f"d = 243 kernel keeps the rows that do not fit there in a "
+            f"global slot, built for that d only); see {ROADMAP_LARGE_D}")
+
+
+def check_solve_path(d: int, n_off: int) -> None:
+    """The CUDA engine's gate, decided from the patch dimension ``d`` and
+    the window's ``n_off`` = (2b + 1)^2 offsets: a center takes the main
+    path, and so the solve kernel, only with n >= d + 1 similar
+    candidates, so with n_off <= d no kernel launches whatever d is (every
+    center takes the mean-patch fallback, as JAX's plain path runs it).
+    Raises ``check_kernel_dim``'s NotImplementedError only where a center
+    could reach a solve kernel the port lacks."""
+    if n_off >= d + 1:
+        check_kernel_dim(d)
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +389,9 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     pixels are solved and the other rows of field are 0. ``sweeps`` is the
     kernel's number of Jacobi sweeps; the twin's exact eigh has none. On
     CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147
-    ``csrc/solve_filter_smem.cu``, and any other d is refused
-    (``check_kernel_dim``).
+    and 243 ``csrc/solve_filter_smem.cu``, and any other d is refused
+    (``check_kernel_dim``) unless no pixel is to be solved (an empty
+    ``rows``: no launch).
     """
     if cand.dim() != 3:
         raise ValueError(f"cand must be (P, O, d), got {tuple(cand.shape)}")
@@ -391,7 +409,6 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     if cand.device.type == "cpu":
         return solve_filter_pm_plain(cand, mask, noise, n, m, min_eigen, npx,
                                      rows)
-    check_kernel_dim(d)
     if rows is None:
         field = torch.empty((p_total, n_off, d), device=cand.device)
         n_rows, rows_i32 = p_total, None
@@ -399,8 +416,9 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
         field = torch.zeros((p_total, n_off, d), device=cand.device)
         rows_i32 = rows.to(device=cand.device, dtype=torch.int32).contiguous()
         n_rows = rows_i32.numel()
-    if n_rows == 0:  # nothing to solve: no launch
+    if n_rows == 0:  # nothing to solve: no launch, whatever d is
         return field
+    check_kernel_dim(d)
     p, lib = _build.ptr, _build.library()
     rows_p = None if rows_i32 is None else p(rows_i32)
     if d in SMEM_DIMS:
@@ -414,8 +432,8 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
             *map(p, tensors), rows_p, float(min_eigen), n_rows, n_off, d,
             int(sweeps), p(scratch), n_blocks, p(field),
             _build.stream_of(cand))
-        _build.LAUNCHES["solve_filter_smem"] += 1
-        _build.check(rc, "solve_filter_smem")
+        _build.LAUNCHES[SMEM_DIMS[d]] += 1
+        _build.check(rc, SMEM_DIMS[d])
         return field
     rc = lib.bcd_solve_filter(
         *map(p, tensors), rows_p, float(min_eigen), n_rows, n_off, d,

@@ -53,7 +53,18 @@ the final line:
    main-path fraction; the kernel's share of its device time, the run
    traced); a 48x48 crop on the card against the port's CPU pipeline,
    bitwise repeatable.
-8. One JSON line of kernel results, the card line, and the final line
+8. The -w 4 path (d = 243, the same kernel with the rows that do not fit
+   in shared memory in a global slot, solve_filter_243) at b = 8, the
+   smallest window that reaches its main path: the kernel against its
+   fp32 model and float64 twin on synthetic stacks and on one real
+   16-tile r = 4, b = 8 batch (in-place rows bit for bit), its time
+   beside its bound; ``bcd -w 4 -b 8`` through the CLI's entry point on a
+   crop of the scene (launches only solve_filter_243, beats the noisy
+   input; the kernel's share of its device time, traced); ``bcd -w 4`` at
+   b = 6 on the whole frame, where no center reaches a solve (launches no
+   solve kernel); a 32x32 crop on the card against the port's CPU
+   pipeline, bitwise repeatable.
+9. One JSON line of kernel results, the card line, and the final line
    ``{"ok": true, "device": {...}}``.
 
 Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
@@ -125,6 +136,27 @@ R3_TWIN_CENTERS = 264
 # the -w 3 run's finest-scale main-path fraction must exceed this (first
 # reading on an H100 0.9171)
 R3_MAIN_FLOOR = 0.8
+# phase 8, d = 243 (csrc/solve_filter_smem.cu with 261 of the 488 rows of
+# W and Q in a global slot): held to phase 7's limits (the same schedule,
+# model and twin), on the same counts of centers
+R4_KERNELS = ("solve_filter_243",)
+# every solve kernel; a run that takes no main path launches none
+SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
+                 "solve_filter_smem", "solve_filter_243")
+# the smallest search radius whose window reaches the main path at r = 4:
+# 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
+# offers 169, b = 7 225)
+R4_SEARCH = 8
+# the r = 4, b = 8 finest-scale main-path fraction must exceed this (first
+# reading on an H100 0.9018)
+R4_MAIN_FLOOR = 0.72
+# the cut -w 4 -b 8 frame: the scene's top-left crop, sides a multiple of
+# 32, sized from the batch time of (b) (0.35 ms a main-path center on an
+# H100) so that phase 8 stays under about 180 s: 56 s for the crop, 165 s
+# for the phase; the whole 1088x1920 frame takes about 14 minutes
+R4_CROP = (256, 512)
+# (e): a crop on the card against the port's CPU pipeline
+R4_CPU_CROP = 32
 # centers of the real r = 2 batch on which the lane solve_matrices, on no
 # engine path, is held to its float64 twin (whose call takes about 3 ms a
 # center on the card)
@@ -524,15 +556,16 @@ def lane_moments(x):
             (mk * x["C"]).sum(0), (x["noise"] * x["n"]).contiguous(), x["n"])
 
 
-def r2_batch(stats, dev, thr, batch=8, radius=2):
+def r2_batch(stats, dev, thr, batch=8, radius=2, search_radius=6):
     """The candidate-stack engine's solve inputs for tile batch ``batch``
-    (16 tiles of 32x32) of a whole image at r = ``radius``, b = 6, built as
-    the engine builds them. Returns (pixel-major stacks cand, mask, noise,
-    n, m of every center, main-path mask)."""
+    (16 tiles of 32x32) of a whole image at r = ``radius``, b =
+    ``search_radius``, built as the engine builds them. Returns
+    (pixel-major stacks cand, mask, noise, n, m of every center, main-path
+    mask)."""
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               candidate_stacks, tile_batches)
 
-    cfg = MonoscaleConfig(patch_radius=radius, search_radius=6)
+    cfg = MonoscaleConfig(patch_radius=radius, search_radius=search_radius)
     height, width = stats[0].shape[:2]
     batches = tile_batches(cfg, *padded(cfg, *stats, dev))
     for _ in range(batch):
@@ -559,14 +592,14 @@ def lanes_of(x):
             "n": x["n"][None].contiguous(), "m": x["m"].T.contiguous()}
 
 
-def r2_main_fraction(stats, dev, thr, radius=2) -> float:
-    """Main-path centers over managed centers of the r = ``radius``, b = 6
-    engine on a whole image: n >= d + 1 similar patches (distance masks
-    only)."""
+def r2_main_fraction(stats, dev, thr, radius=2, search_radius=6) -> float:
+    """Main-path centers over managed centers of the r = ``radius``, b =
+    ``search_radius`` engine on a whole image: n >= d + 1 similar patches
+    (distance masks only)."""
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               _distance_masks, tile_batches)
 
-    cfg = MonoscaleConfig(patch_radius=radius, search_radius=6)
+    cfg = MonoscaleConfig(patch_radius=radius, search_radius=search_radius)
     height, width = stats[0].shape[:2]
     main = managed = 0
     for _, (ly, lx), slabs in tile_batches(cfg, *padded(cfg, *stats, dev)):
@@ -724,81 +757,85 @@ def compare_solve_batch(label, x, main, reps):
 # ---------------------------------------------------------------------------
 
 
-def compare_smem_synthetic(dev, sweeps):
-    """solve_filter_pm at d = 147 on 1024 synthetic pixels of 169
-    candidates: against the fp32 model of its schedule and the float64
-    twin. Returns the max abs err against the twin."""
+def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
+                           name="solve_filter_smem"):
+    """solve_filter_pm at d (147: ``solve_filter_smem``, 243:
+    ``solve_filter_243``) on 1024 synthetic pixels of O candidates: against
+    the fp32 model of its schedule and the float64 twin. Returns the max
+    abs err against the twin."""
     import torch
     from bcd_tpu_torch.ops import solve_filter as ts
 
-    x = stack_inputs(np.random.default_rng(147), 169, 147, 1024, dev)
+    npx = d // 3
+    x = stack_inputs(np.random.default_rng(d), O, d, 1024, dev)
     pm = pm_of(x)
-    field = ts.solve_filter_pm(*pm, 1e-8, npx=49, sweeps=sweeps)
-    need(bool(torch.isfinite(field).all()), "synthetic d=147: non-finite")
-    model = ts.solve_filter_pm_schedule(*pm, 1e-8, 49, sweeps)
-    twin = ts.solve_filter_pm_plain(*pm, 1e-8, 49)
+    field = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=sweeps)
+    need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
+    model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, sweeps)
+    twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
     e_m, e_t = rmse(field.cpu(), model.cpu()), rmse(field.cpu(), twin.cpu())
-    print(f"[7] synthetic d=147 (O=169, 1024 pixels, sweeps {sweeps}): "
-          f"solve_filter_smem vs its fp32 schedule model rms {e_m:.3e} "
+    print(f"{tag} synthetic d={d} (O={O}, 1024 pixels, sweeps {sweeps}): "
+          f"{name} vs its fp32 schedule model rms {e_m:.3e} "
           f"(limit {SMEM_MODEL_RMS:g}), vs float64 twin rms {e_t:.3e} "
           f"(limit {SYNTH_RMS:g}); model vs twin "
           f"{rmse(model.cpu(), twin.cpu()):.3e}", flush=True)
-    need(e_m < SMEM_MODEL_RMS, "synthetic d=147 vs the schedule model")
-    need(e_t < SYNTH_RMS, "synthetic d=147 vs the float64 twin")
+    need(e_m < SMEM_MODEL_RMS, f"synthetic d={d} vs the schedule model")
+    need(e_t < SYNTH_RMS, f"synthetic d={d} vs the float64 twin")
     return float((field - twin).abs().max())
 
 
-def compare_smem_batch(label, x, main, sweeps):
-    """solve_filter_smem on one real r = 3 batch: the engine's in-place call
-    on the main-path rows against the compact one, bit for bit; its field
-    against the fp32 model on at most R3_MODEL_CENTERS centers and against
-    the float64 twin on R3_TWIN_CENTERS. Returns (max_abs_err, ms,
-    plain_ms, bound) on the twin's centers (two a block of a persistent
-    grid on 132 SMs), and prints the whole batch's time beside its
-    bound."""
+def compare_smem_batch(label, x, main, sweeps, tag="[7]",
+                       name="solve_filter_smem"):
+    """``name`` (solve_filter_pm at d = 147 or 243) on one real batch: the
+    engine's in-place call on the main-path rows against the compact one,
+    bit for bit; its field against the fp32 model on at most
+    R3_MODEL_CENTERS centers and against the float64 twin on
+    R3_TWIN_CENTERS. Returns (max_abs_err, ms, plain_ms, bound) on the
+    twin's centers (two a block of a persistent grid on 132 SMs), and the
+    whole batch's ms and main-path centers, printed beside its bound."""
     import torch
     from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
 
     p_all, n_off, d = x["cand"].shape
+    npx = d // 3
     args = [x[k] for k in PM_KEYS]
     idx = main.nonzero()[:, 0]
     need(idx.numel() >= R3_TWIN_CENTERS, f"{label}: too few main-path centers")
-    in_place = ts.solve_filter_pm(*args, 1e-8, npx=49, sweeps=sweeps,
+    in_place = ts.solve_filter_pm(*args, 1e-8, npx=npx, sweeps=sweeps,
                                   rows=idx)
     need(bool(torch.isfinite(in_place).all()), f"{label}: non-finite field")
     xm = {k: v[idx].contiguous() for k, v in x.items()}
     args_m = [xm[k] for k in PM_KEYS]
-    field = ts.solve_filter_pm(*args_m, 1e-8, npx=49, sweeps=sweeps)
+    field = ts.solve_filter_pm(*args_m, 1e-8, npx=npx, sweeps=sweeps)
     rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
     rest[idx] = False
     need(torch.equal(in_place[idx], field)
          and not bool(in_place[rest].any()),
-         f"{label} solve_filter_smem: rows in place differ from the compact "
-         "stack")
+         f"{label} {name}: rows in place differ from the compact stack")
     del in_place
     ms_batch = cuda_ms(lambda: ts.solve_filter_pm(
-        *args, 1e-8, npx=49, sweeps=sweeps, rows=idx), 1)
+        *args, 1e-8, npx=npx, sweeps=sweeps, rows=idx), 1)
     bound_batch = bounds.solve_filter(idx.numel(), n_off, d, sweeps)
     model = ts.solve_filter_pm_schedule(
-        *(v[:R3_MODEL_CENTERS] for v in args_m), 1e-8, 49, sweeps)
+        *(v[:R3_MODEL_CENTERS] for v in args_m), 1e-8, npx, sweeps)
     rel_m = rel_rms(field[:R3_MODEL_CENTERS], model)
     del model
     sub = [v[:R3_TWIN_CENTERS].contiguous() for v in args_m]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
-        *sub, 1e-8, npx=49, sweeps=sweeps)
+        *sub, 1e-8, npx=npx, sweeps=sweeps)
     ref, plain_ms = timed_once(
-        lambda: ts.solve_filter_pm_plain(*sub, 1e-8, npx=49))
+        lambda: ts.solve_filter_pm_plain(*sub, 1e-8, npx=npx))
     got = sf()
     rel = rel_rms(got, ref)
     res = (float((got - ref).abs().max()), cuda_ms(sf, 3), plain_ms,
            bounds.solve_filter(R3_TWIN_CENTERS, n_off, d, sweeps))
-    print(f"[7] {label} solve_filter_smem: {idx.numel()} main-path centers "
+    print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
           f"engine's in-place rows bitwise equal to the compact call; "
           f"{ms_batch:.3f} ms for the batch's main rows, bound "
           f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
-    print(f"[7] {label}: field vs its fp32 schedule model on the first "
+    print(f"{tag} {label}: field vs its fp32 schedule model on the first "
           f"{min(R3_MODEL_CENTERS, idx.numel())} centers rel rms {rel_m:.3e} "
           f"(limit {SMEM_MODEL_BATCH_REL_RMS:g}); vs the float64 twin on the "
           f"first {R3_TWIN_CENTERS} rel rms {rel:.3e} (limit "
@@ -806,9 +843,9 @@ def compare_smem_batch(label, x, main, sweeps):
           f"kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
           f"{res[3][0]:.3f} ms", flush=True)
     need(rel_m < SMEM_MODEL_BATCH_REL_RMS,
-         f"{label} solve_filter_smem vs its schedule model")
-    need(rel < BATCH_REL_RMS, f"{label} solve_filter_smem vs twin")
-    return res
+         f"{label} {name} vs its schedule model")
+    need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
+    return res, ms_batch, idx.numel()
 
 
 def r3_phase(dev, card, stats, clean, scene_path, e_in):
@@ -838,9 +875,9 @@ def r3_phase(dev, card, stats, clean, scene_path, e_in):
           f"main-path fraction {frac3:.4f} (floor {R3_MAIN_FLOOR:g})",
           flush=True)
     need(frac3 > R3_MAIN_FLOOR, "the -w 3 run barely reaches the main path")
-    res = compare_smem_batch("full-size r=3 batch 8",
-                             *r2_batch(pre, dev, thr, radius=3),
-                             sweeps=sweeps)
+    res, _, _ = compare_smem_batch("full-size r=3 batch 8",
+                                   *r2_batch(pre, dev, thr, radius=3),
+                                   sweeps=sweeps)
     res = (max(res[0], e_syn),) + res[1:]
     del pre
 
@@ -859,7 +896,8 @@ def r3_phase(dev, card, stats, clean, scene_path, e_in):
     peak3 = torch.cuda.max_memory_allocated()
     launches3 = dict(_build.LAUNCHES)
     need(rcs == [0], "-w 3 CLI run")
-    smem_us = sum(us for us, _, key in rows if "solve_filter_smem" in key)
+    smem_us = sum(us for us, _, key in rows
+                  if "solve_filter_smem_kernel<147>" in key)
     print(f"[7] python -m bcd_tpu_torch.cli {' '.join(argv3)}: rc 0, "
           f"{cli3_s:.3f} s wall with EXR I/O and the profiler on {card}; "
           f"peak memory {peak3 / 2**20:.1f} MiB; launches {launches3}; "
@@ -895,6 +933,152 @@ def r3_phase(dev, card, stats, clean, scene_path, e_in):
           "on the card", flush=True)
     need(gap < R2_CPU_RMSE, "-w 3 on the card against the CPU pipeline")
     return res, launches3
+
+
+def write_scene(path, color, nb, histo, cov) -> None:
+    """The statistics as the CLI's three EXR files (path, _hist, _cov)."""
+    from bcd_tpu_torch.io import image_io
+
+    image_io.write_exr(color, path)
+    image_io.write_multi_channels_exr(
+        image_io.merge_histogram_and_nb_of_samples(histo, nb),
+        path.replace(".exr", "_hist.exr"))
+    image_io.write_multi_channels_exr(cov, path.replace(".exr", "_cov.exr"))
+
+
+def r4_phase(dev, card, stats, clean, scene_path, e_in):
+    """Phase 8: the -w 4 path on the 1088x1920 scene. Returns the kernels
+    line's entry (max_abs_err, ms, plain_ms, bound) and the cut -w 4 -b 8
+    frame's launch counts."""
+    import torch
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
+    from bcd_tpu_torch.core.pipeline import denoise_pipeline
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops import solve_filter as ts
+    from bcd_tpu_torch.ops.spike_removal import spike_removal
+    from bcd_tpu_torch.params import PipelineParameters
+
+    sweeps = solve_filter_sweeps(243)
+    # (a) synthetic
+    e_syn = compare_smem_synthetic(dev, sweeps, O=289, d=243, tag="[8]",
+                                   name="solve_filter_243")
+    # (b) one real 16-tile batch of the finest scale (after the prefilter)
+    p4 = PipelineParameters()
+    p4.denoiser.monoscale.patch_radius = 4
+    p4.denoiser.monoscale.search_window_radius = R4_SEARCH
+    thr = p4.denoiser.monoscale.histogram_distance_threshold
+    pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
+                        p4.prefiltering.spike_removal_threshold_stdev_factor)
+    frac4 = r2_main_fraction(pre, dev, thr, radius=4, search_radius=R4_SEARCH)
+    print(f"[8] 1088x1920 finest scale at r=4, b={R4_SEARCH}, threshold "
+          f"{thr:g}: main-path fraction {frac4:.4f} (floor "
+          f"{R4_MAIN_FLOOR:g})", flush=True)
+    need(frac4 > R4_MAIN_FLOOR, "the -w 4 -b 8 run barely reaches the main "
+         "path")
+    x, main = r2_batch(pre, dev, thr, radius=4, search_radius=R4_SEARCH)
+    del pre
+    res, batch_ms, batch_main = compare_smem_batch(
+        f"full-size r=4 b={R4_SEARCH} batch 8", x, main, sweeps=sweeps,
+        tag="[8]", name="solve_filter_243")
+    res = (max(res[0], e_syn),) + res[1:]
+    # the Jacobi's share: the same batch at 0 sweeps
+    ms0 = cuda_ms(lambda: ts.solve_filter_pm(
+        *(x[k] for k in PM_KEYS), 1e-8, npx=81, sweeps=0,
+        rows=main.nonzero()[:, 0]), 1)
+    print(f"[8] the same batch at 0 sweeps {ms0:.3f} ms: the Jacobi's "
+          f"{sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
+          f"{1 - ms0 / batch_ms:.3f})", flush=True)
+    del x, main
+
+    # (c) bcd -w 4 -b 8 through the CLI's entry point on a crop, traced
+    ch, cw = R4_CROP
+    crop_path = scene_path.replace(".exr", "_w4crop.exr")
+    write_scene(crop_path, *(x[:ch, :cw] for x in stats))
+    out_path = crop_path.replace(".exr", "_out.exr")
+    argv4 = ["-i", crop_path, "-o", out_path, "-w", "4", "-b",
+             str(R4_SEARCH)]
+    rcs = []
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cli4_s, busy, rows = device_time_table(
+        f"[8] bcd -w 4 -b {R4_SEARCH} on the {ch}x{cw} crop",
+        lambda: rcs.append(cli.main(argv4)))
+    peak4 = torch.cuda.max_memory_allocated()
+    launches4 = dict(_build.LAUNCHES)
+    need(rcs == [0], "-w 4 -b 8 CLI run")
+    k_us = sum(us for us, _, key in rows
+               if "solve_filter_smem_kernel<243>" in key)
+    print(f"[8] python -m bcd_tpu_torch.cli {' '.join(argv4)}: rc 0, "
+          f"{cli4_s:.3f} s wall with EXR I/O and the profiler on {card}; "
+          f"peak memory {peak4 / 2**20:.1f} MiB; launches {launches4}; "
+          f"solve_filter_243 {k_us / 1e6:.4f} s of {busy:.4f} s device "
+          f"time (share {k_us / 1e6 / max(busy, 1e-9):.3f})", flush=True)
+    for name in R4_KERNELS:
+        need(launches4[name] > 0,
+             f"kernel {name} was not launched by the -w 4 -b 8 path")
+    for name in R1_KERNELS + SOLVE_KERNELS:
+        if name not in R4_KERNELS:
+            need(launches4[name] == 0, f"the -w 4 -b 8 path launched {name}")
+    out4 = image_io.load_exr(out_path)
+    clean4 = clean[:ch, :cw]
+    need(out4.shape == clean4.shape and np.isfinite(out4).all(),
+         "-w 4 -b 8 CLI output shape / finiteness")
+    e_out4, e_in4 = rmse(out4, clean4), rmse(stats[0][:ch, :cw], clean4)
+    print(f"[8] rmse vs clean on the crop: -w 4 -b {R4_SEARCH} output "
+          f"{e_out4:.5f}, noisy input {e_in4:.5f}", flush=True)
+    need(e_out4 < e_in4, "the -w 4 -b 8 output is not closer to the clean "
+         "image")
+    full = 1088 * 1920 / (ch * cw)
+    print(f"[8] estimate, not a run: a 1088x1920 -w 4 -b {R4_SEARCH} frame "
+          f"at this crop's rate per pixel {cli4_s * full:.1f} s, its kernel "
+          f"{k_us / 1e6 * full:.1f} s; at batch 8's rate per main-path "
+          f"center and the finest scale's fraction "
+          f"{batch_ms / batch_main * 1088 * 1920 * frac4 / 1e3:.1f} s in the "
+          "kernel at the finest scale", flush=True)
+
+    # (d) the repaired gate: bcd -w 4 at b = 6 on the whole frame, where no
+    # center reaches the solve
+    out_path6 = scene_path.replace(".exr", "_out_w4b6.exr")
+    argv6 = ["-i", scene_path, "-o", out_path6, "-w", "4"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(argv6)
+    wall6 = time.perf_counter() - t0
+    launches6 = dict(_build.LAUNCHES)
+    need(rc == 0, "-w 4 (b = 6) CLI run")
+    need(not any(launches6[k] for k in SOLVE_KERNELS),
+         f"the -w 4 b = 6 run launched a solve kernel: {launches6}")
+    out6 = image_io.load_exr(out_path6)
+    need(out6.shape == clean.shape and np.isfinite(out6).all(),
+         "-w 4 (b = 6) CLI output shape / finiteness")
+    print(f"[8] python -m bcd_tpu_torch.cli {' '.join(argv6)}: rc 0, "
+          f"{wall6:.3f} s wall with EXR I/O; launches {launches6} (no solve: "
+          f"169 offsets < 244); rmse vs clean {rmse(out6, clean):.5f}, noisy "
+          f"input {e_in:.5f}", flush=True)
+
+    # (e) a crop on the card, twice, against the port's CPU pipeline
+    crop = [torch.as_tensor(x[:R4_CPU_CROP, :R4_CPU_CROP], device=dev)
+            for x in stats]
+    _build.reset_launches()
+    got = denoise_pipeline(*crop, dev, p4)
+    need(_build.LAUNCHES["solve_filter_243"] > 0,
+         f"the {R4_CPU_CROP}x{R4_CPU_CROP} crop reaches no solve")
+    need(torch.equal(got, denoise_pipeline(*crop, dev, p4)),
+         "-w 4 -b 8 crop not bitwise repeatable")
+    t0 = time.perf_counter()
+    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p4)
+    cpu_s = time.perf_counter() - t0
+    gap = rmse(got.cpu(), ref)
+    print(f"[8] -w 4 -b {R4_SEARCH} pipeline on a {R4_CPU_CROP}x"
+          f"{R4_CPU_CROP} crop: card vs the port's CPU pipeline (float64 "
+          f"twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit {R2_CPU_RMSE:g}), "
+          f"max abs {float((got.cpu() - ref).abs().max()):.3e}; bitwise "
+          "repeatable on the card", flush=True)
+    need(gap < R2_CPU_RMSE, "-w 4 on the card against the CPU pipeline")
+    return res, launches4
 
 
 def device_time_table(label, run) -> None:
@@ -1435,7 +1619,13 @@ def main() -> int:
         dev, card, stats, clean, paths[""], e_in)
     print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # --- 8. results --------------------------------------------------------
+    # --- 8. the -w 4 path ---------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_243"], launches4 = r4_phase(
+        dev, card, stats, clean, paths[""], e_in)
+    print(f"[8] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- 9. results --------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
                "bcd_tpu/ops/fused_pallas.py:429"),
@@ -1453,10 +1643,14 @@ def main() -> int:
         "solve_filter_147": ("solve_filter_smem",
                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_243": ("solve_filter_243",
+                             "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                             "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
-            "solve_filter_smem": launches3["solve_filter_smem"]}
+            "solve_filter_smem": launches3["solve_filter_smem"],
+            "solve_filter_243": launches4["solve_filter_243"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

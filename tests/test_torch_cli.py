@@ -168,6 +168,26 @@ def test_cli_refuses_use_cuda_value(capsys):
     assert msg in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("flags,refused", [
+    (("-w", "4"), False), (("-w", "4", "-b", "7"), False),
+    (("-w", "4", "-b", "8"), False), (("-w", "5"), False),
+    (("-w", "5", "-b", "9"), False), (("-w", "5", "-b", "10"), True),
+])
+def test_cli_solve_gate_on_cuda(flags, refused, capsys, monkeypatch):
+    """The decision the CLI takes on the card, without one (the device is
+    resolved to CUDA, and nothing reaches it): a patch radius is refused
+    only where a center can reach the solve and no kernel is built for d,
+    before the inputs are read; else the run goes on to read them (here a
+    missing file, exit code 1 with the loader's message)."""
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr",
+                     *flags]) == 1
+    out = capsys.readouterr().out
+    assert ("shared memory" in out and "ROADMAP" in out) == refused
+    assert ("couldn't load input images" in out) == (not refused)
+
+
 def test_cli_default_device_needs_a_card(scene, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
-shared-memory form at d = 147 and the lane-form solve_matrices) against
+shared-memory form at d = 147 and 243 and the lane-form solve_matrices) against
 their plain twins, and the solve kernels against the plain fp32 model of
 their own schedule, on the card. Run on a machine with an NVIDIA Hopper
 card:
@@ -270,10 +270,11 @@ def _rms(a, b):
     return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
 
 
-@pytest.mark.parametrize("O,d", [(49, 27), (169, 75), (169, 147)])
+@pytest.mark.parametrize("O,d", [(49, 27), (169, 75), (169, 147),
+                                 (289, 243)])
 def test_solve_filter_kernel_matches_twin(cuda, O, d):
-    """At the engine's sweeps for d (6 at d = 27 and 75, 8 at d = 147,
-    where the shared-memory kernel runs)."""
+    """At the engine's sweeps for d (6 at d = 27 and 75, 8 at d = 147 and
+    243, where the shared-memory kernel runs)."""
     x = _degenerate(_stack_inputs(np.random.default_rng(d), O, d, 256))
     args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
     ref = solve_filter_plain(*args, 1e-8, npx=d // 3)
@@ -359,12 +360,36 @@ def test_solve_filter_smem_kernel_matches_schedule(cuda):
     assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 49)) < 2e-4
 
 
-@pytest.mark.parametrize("d", [75, 147])
+def test_solve_filter_243_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 243 (csrc/solve_filter_smem.cu with 261 of the
+    488 rows of W and Q in a global slot) against the fp32 model of its
+    schedule, rms SMEM_MODEL_RMS, and against the float64 twin, rms 2e-4,
+    on 64 synthetic pixels of 289 candidates at the engine's 8 sweeps; it
+    launches the d = 243 kernel only."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(243), 289, 243, 64)
+    pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+          x["noise"].T.contiguous(), x["n"][0].contiguous(),
+          x["m"].T.contiguous()]
+    _build.reset_launches()
+    got = solve_filter_pm(*(a.to(cuda) for a in pm), 1e-8, npx=81,
+                          sweeps=solve_filter_sweeps(243)).cpu()
+    assert _build.LAUNCHES["solve_filter_243"] == 1
+    assert _build.LAUNCHES["solve_filter_smem"] == 0
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, 81, 8)) \
+        < SMEM_MODEL_RMS
+    assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 81)) < 2e-4
+
+
+@pytest.mark.parametrize("d", [75, 147, 243])
 def test_solve_filter_pm_rows_in_place(cuda, d):
     """The engine's entry: with ``rows`` the kernel reads those pixels of the
     stacks in place and writes their fields, bit for bit those of the
     compact stacks; the other rows are 0."""
-    x = _stack_inputs(np.random.default_rng(31), 169, d, 64)
+    x = _stack_inputs(np.random.default_rng(31), 289 if d == 243 else 169,
+                      d, 64)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
@@ -428,12 +453,36 @@ def test_wrappers_count_only_launches(cuda):
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
+def test_solve_filter_pm_empty_rows_at_any_d(cuda):
+    """No pixel to solve (a batch where no center reaches the main path):
+    zeros and no launch, also at d = 363, for which no kernel is built."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(1), 9, 363, 3)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    _build.reset_launches()
+    field = solve_filter_pm(*pm, 1e-8, npx=121, sweeps=8,
+                            rows=torch.zeros(0, dtype=torch.long, device=cuda))
+    assert field.shape == (3, 9, 363) and not bool(field.any())
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+
+
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    """d = 243 (patch radius 4): W and Q would outgrow a block's shared
-    memory; refused with the reason, and the lane form at d = 147 too."""
-    d = 243
+    """d = 363 (patch radius 5) with a pixel to solve: W and Q would
+    outgrow what the d = 243 kernel keeps; refused with the reason, and
+    the lane form at d = 147 too."""
+    d = 363
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
+    pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+          x["noise"].T.contiguous(), x["n"][0].contiguous(),
+          x["m"].T.contiguous()]
+    with pytest.raises(NotImplementedError, match="shared memory.*ROADMAP"):
+        solve_filter_pm(*pm, 1e-8, npx=d // 3, sweeps=8,
+                        rows=torch.tensor([1], device=cuda))
     with pytest.raises(NotImplementedError, match="shared memory.*ROADMAP"):
         solve_filter(*(x[k] for k in ("C", "mask", "noise", "n", "m")), 1e-8,
                      npx=d // 3, sweeps=8)
@@ -445,15 +494,43 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """Radius 3 runs on the card now (solve_filter_smem); radius 4, for
-    which no kernel is built, is refused before the inputs are read, with
-    the shared-memory reason, and the twin never runs."""
+    """Radius 3 and 4 run on the card now; radius 5 at b = 10, where a
+    center can reach the solve and no kernel is built for d = 363, is
+    refused before the inputs are read, with the shared-memory reason, and
+    the twin never runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "4"]) == 1
+                     "5", "-b", "10"]) == 1
     out = capsys.readouterr().out
     assert "shared memory" in out and "ROADMAP" in out
+
+
+def test_cli_accepts_radius_4_at_b6_on_cuda(cuda, tmp_path):
+    """``bcd -w 4`` at the default b = 6 (169 offsets, fewer than the 244
+    candidates the main path needs) runs on the card: every center takes
+    the fallback, no solve kernel launches, and the output is the CPU
+    run's within the goldens' rmse 1e-4."""
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+
+    color, nb, histo, cov = _golden_crop(32)
+    image_io.write_exr(color, str(tmp_path / "in.exr"))
+    image_io.write_multi_channels_exr(
+        image_io.merge_histogram_and_nb_of_samples(histo, nb),
+        str(tmp_path / "in_hist.exr"))
+    image_io.write_multi_channels_exr(cov, str(tmp_path / "in_cov.exr"))
+    outs = []
+    for device in ("cuda", "cpu"):
+        _build.reset_launches()
+        out = str(tmp_path / f"out_{device}.exr")
+        assert cli.main(["-i", str(tmp_path / "in.exr"), "-o", out, "-w",
+                         "4", "--device", device]) == 0
+        assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+        outs.append(image_io.load_exr(out))
+    assert np.isfinite(outs[0]).all()
+    assert np.sqrt(np.mean((outs[0] - outs[1]) ** 2)) < 1e-4
 
 
 def test_cli_radius_3_cuda_matches_cpu(cuda, tmp_path):

@@ -185,17 +185,38 @@ def test_solve_wrappers_refuse_bad_inputs():
                           sweeps=6)
 
 
-@pytest.mark.parametrize("d", [27, 75, 147, 243])
+@pytest.mark.parametrize("d", [27, 75, 147, 243, 363])
 def test_kernel_dims(d):
-    """The CUDA solve kernels are built for patch radius 1, 2 (registers)
-    and 3 (shared memory); radius 4 (W and Q would take 476 KB of shared
-    memory) is refused with the reason and its ROADMAP item."""
+    """The CUDA solve kernels are built for patch radius 1, 2 (registers),
+    3 (shared memory) and 4 (shared memory and a global slot); radius 5 (W
+    and Q would take 1.06 MB) is refused with the reason and its ROADMAP
+    item."""
+    assert (d in ts.KERNEL_DIMS) == (d <= 243)
     if d in ts.KERNEL_DIMS:
         ts.check_kernel_dim(d)
     else:
         with pytest.raises(NotImplementedError,
                            match="shared memory.*ROADMAP"):
             ts.check_kernel_dim(d)
+
+
+@pytest.mark.parametrize("r,b,accepted", [
+    (4, 6, True), (4, 7, True), (4, 8, True), (5, 9, True), (5, 10, False),
+])
+def test_solve_path_gate(r, b, accepted):
+    """The CUDA engine's and CLI's gate: a center needs n >= d + 1 similar
+    candidates to reach the solve, so a window of (2b + 1)^2 <= d offsets
+    never launches a solve kernel and runs whatever d is (r = 4 at b <= 7,
+    r = 5 at b <= 9: every center takes the fallback, as in JAX); r = 5 at
+    b = 10 (441 offsets >= 364) would need the d = 363 kernel the port
+    lacks."""
+    d, n_off = 3 * (2 * r + 1) ** 2, (2 * b + 1) ** 2
+    if accepted:
+        ts.check_solve_path(d, n_off)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="shared memory.*patch radius >= 5"):
+            ts.check_solve_path(d, n_off)
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +372,18 @@ def test_schedule_sweeps_at_d147():
     want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
     assert solve_filter_sweeps(d) == 8
     assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 6), want) > 2e-4
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 8), want) < 2e-5
+
+
+def test_schedule_sweeps_at_d243():
+    """Why the engine runs 8 sweeps at d = 243, the smallest count that
+    keeps the fp32 schedule within 2e-5 rms of the float64 twin: on 8
+    pixels of 289 candidates 7 sweeps leave about 1.1e-4, 8 about 5e-6."""
+    npx, d = 81, 243
+    pm = _t(*(a for a in _pm_stacks(np.random.default_rng(21), 289, d, 8)))
+    want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
+    assert solve_filter_sweeps(d) == 8
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 7), want) > 2e-5
     assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 8), want) < 2e-5
 
 
