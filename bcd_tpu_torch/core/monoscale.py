@@ -11,7 +11,7 @@ contributions are overlap-added in one deterministic pass
 - Any other radius: the candidate-stack engine below, the port of JAX's
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
   ``solve_filter_pm``, run only on the main-path centers: on the card the
-  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 and 4.
+  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 5.
 
 Each kernel launches once per batch of tiles, not once per tile. With
 ``collect_stats`` each tile engine also returns its batch's main-path and
@@ -43,9 +43,10 @@ from bcd_tpu_torch.ops.solve_filter import check_solve_path, solve_filter_pm
 # At d = 147 (r = 3) six sweeps leave the fp32 schedule 4.7e-4 rms from the
 # exact solve on synthetic stacks, eight 2.9e-6 (tests/test_torch_solve.py
 # ::test_schedule_sweeps_at_d147); at d = 243 (r = 4) seven leave 1.1e-4,
-# eight 5e-6 (::test_schedule_sweeps_at_d243), so eight again. JAX's r = 3
-# and r = 4 results are its plain path's, with a converged eigh, since its
-# kernel cannot hold d = 147 or 243 in VMEM.
+# eight 5e-6 (::test_schedule_sweeps_at_d243), and at d = 363 (r = 5) seven
+# 1.1e-4, eight 7e-6 (::test_schedule_sweeps_at_d363), so eight again.
+# JAX's r = 3 to 5 results are its plain path's, with a converged eigh,
+# since its kernel cannot hold d = 147 and above in VMEM.
 SOLVE_FILTER_SWEEPS = 6
 SOLVE_FILTER_SWEEPS_R3 = 8
 
@@ -58,8 +59,9 @@ FUSED_TILE_BATCH = 128
 # at r = 2, b = 6, t = 32 a batch of 16 tiles holds a (16384, 169, 75) fp32
 # candidate stack of 831 MB, and the filtered field as much again; at r = 3
 # a (16384, 169, 147) stack of 1.63 GB; at r = 4, b = 8 a (16384, 289, 243)
-# stack of 4.60 GB, and the field as much again (the peak of a -w 4 -b 8
-# frame on the card: PERF.md)
+# stack of 4.60 GB; at r = 5, b = 10 a (16384, 441, 363) stack of 10.5 GB,
+# the field as much again, and the batch peaks at 40364.8 MiB on an 80 GB
+# H100, which batch 16 fits (PERF.md)
 STACK_TILE_BATCH = 16
 
 

@@ -1,11 +1,12 @@
-// solve_filter at patch radius 3 (d = 147) and 4 (d = 243): the per-pixel
-// two-step Bayesian solve and filter of the candidate stacks, with the
-// Jacobi's two working matrices in shared memory (d = 147), or as much of
-// them as fits there and the rest in a global slot of the block (d = 243).
+// solve_filter at patch radius 3 (d = 147), 4 (d = 243) and 5 (d = 363):
+// the per-pixel two-step Bayesian solve and filter of the candidate stacks,
+// with the Jacobi's two working matrices in shared memory (d = 147), or as
+// much of them as fits there and the rest in a global slot of the block
+// (d = 243 and 363).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
-// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147 and 243;
-// it computes what csrc/solve_filter.cu computes at d = 27 and 75. Per
+// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243 and
+// 363; it computes what csrc/solve_filter.cu computes at d = 27 and 75. Per
 // pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
@@ -21,48 +22,56 @@
 // The exact fp32 model of this schedule is ops/solve_filter.py::
 // solve_filter_pm_schedule (its Jacobi, _jacobi_fp32, is a function of d).
 //
-// What bounds it on an H100. About 0.17 GFLOP a pixel at d = 147 and 0.75
-// at d = 243 at the engine's 8 sweeps (ops/bounds.py), three quarters of
-// it the Jacobi: d rounds a sweep, each (d + 1) / 2 pivot inner products
-// and as many row-pair rotations of two (d + 1) x (d + 1) matrices.
-// csrc/solve_filter.cu keeps a column of W or Q in a thread's registers;
-// at d = 147 a column is 148 floats, more than a thread can hold. Here W
-// and Q are rows: at d = 147 all in shared memory (2 x 148 x 148 floats,
-// 175 KB of the 227 KB a block may have), so a round reads and writes both
-// once: 350 KB of shared-memory traffic against 55 K FMAs, about 2,700
-// cycles of an SM's 128 bytes a cycle against 430 of its FMA rate. At
-// d = 243 the two matrices take 476 KB: the first 227 of their 488 rows
-// stay in shared memory, the other 261 (255 KB a block, 34 MB for 132
-// blocks, inside the 50 MB L2) in a global slot of the block, and a round
-// moves 953 KB, more than half of it through L2. The design is the simple
-// one, not tuned (its time beside its bound: PERF.md).
+// What bounds it on an H100. About 0.17 GFLOP a pixel at d = 147, 0.75 at
+// d = 243 and 2.5 at d = 363 at the engine's 8 sweeps (ops/bounds.py),
+// three quarters of it the Jacobi: d rounds a sweep, each (d + 1) / 2
+// pivot inner products and as many row-pair rotations of two
+// (d + 1) x (d + 1) matrices. csrc/solve_filter.cu keeps a column of W or
+// Q in a thread's registers; at d = 147 a column is 148 floats, more than
+// a thread can hold. Here W and Q are rows: at d = 147 all in shared
+// memory (2 x 148 x 148 floats, 175 KB of the 227 KB a block may have), so
+// a round reads and writes both once: 350 KB of shared-memory traffic
+// against 55 K FMAs, about 2,700 cycles of an SM's 128 bytes a cycle
+// against 430 of its FMA rate. At d = 243 the two matrices take 476 KB:
+// the first 227 of their 488 rows stay in shared memory, the other 261
+// (255 KB a block, 34 MB for 132 blocks, inside the 50 MB L2) in a global
+// slot of the block, and a round moves 953 KB, more than half of it
+// through L2. At d = 363 they take 1.06 MB: 148 of the 728 rows (W's
+// first 148) stay in shared memory beside the vectors, which take 16 KB
+// there, and the other 580 (845 KB a block, 111 MB for 132 blocks, twice
+// the L2) sit in the global slot, so a round moves about 2 MB a block,
+// most of it to and from HBM. The design is the simple one, not tuned
+// (its time beside its bound: PERF.md).
 //
 // The design:
-//   - A persistent grid, one 512-thread block an SM, each block looping
-//     over its share of the pixels (`rows`).
+//   - A persistent grid, at most one 512-thread block an SM (the wrapper
+//     picks the count), each block looping over its share of the pixels
+//     (`rows`).
 //   - Each of the 2 (d + 1) rows of W and Q has a fixed home for the whole
 //     pixel, row r in shared memory for r < RS and in the block's global
 //     slot beyond (`Rows`); everything below addresses rows through it, so
-//     the same code runs over either memory.
+//     the same code runs over either memory, whatever share of the rows
+//     shared memory holds (at d = 363, none of Q).
 //   - Re-seating by indirection: a round pairs seats (i, i + HALF); the
 //     rows never move, a seat -> row map (`slot`, two buffers) is permuted
 //     after each round instead. The pair state (diagonal estimates,
 //     fast-Givens row scales) is kept by row.
 //   - A round: eight lanes a pair form the inner products <W[a], Q[b]>
 //     (16-byte loads, a three-step shuffle reduction; a warp takes four
-//     pairs and four more in a second pass, both loaded together), one
-//     lane a pair then forms its angles and row scales (as _jacobi_fp32
-//     does), its record {alpha, beta, rows} and the next seat map; a
-//     barrier; every thread rotates 16-byte units of the rows of W and Q,
-//     one FMA an element; a barrier. At d = 243 a round is bound by the
-//     L2 traffic of the global rows, not by their latency: loading four
-//     units before storing any did not make it faster (PERF.md).
+//     pairs a pass, PASSES passes loaded together: two at d = 147 and 243,
+//     three for the 182 pairs at d = 363), lane k of a group then forms
+//     pass k's pair's angles and row scales (as _jacobi_fp32 does), its
+//     record {alpha, beta, rows} and the next seat map; a barrier; every
+//     thread rotates 16-byte units of the rows of W and Q, one FMA an
+//     element; a barrier. At d = 243 a round is bound by the L2 traffic of
+//     the global rows, not by their latency: loading four units before
+//     storing any did not make it faster (PERF.md).
 //   - The parts of O(d^3) that run once a pixel are block-wide register-
 //     tiled products (4 x 4 outputs a thread, at most NTP tiles a thread at
 //     once, 16-byte operand rows, all of the form sum_k X[k][i] Y[k][j]):
 //     M2, the clamp, H = Cemp A1^T, cov2 = A1 H and the filter. Cemp and H
-//     live in the block's global scratch slot (2 (d + 1)^2 floats a block,
-//     mostly in L2), which the wrapper allocates with the global rows
+//     live in the block's global scratch slot (2 (d + 1)^2 floats a block),
+//     which the wrapper allocates with the global rows
 //     (bcd_solve_filter_smem_scratch_floats sizes it). The Cholesky solves
 //     reuse the space of W and Q once the clamp has read Q: right-looking,
 //     one barrier a column, eps joining each pivot as it is reached (pivots
@@ -94,6 +103,9 @@ struct Smem {
   static constexpr int TRI = Q4 * (Q4 + 1) / 2;  // tiles on and below the diagonal
   static constexpr int THREADS = 512;
   static constexpr int WARPS = THREADS / 32;
+  // a round's pivot products: four pairs a warp a pass, PASSES passes
+  static constexpr int PPASS = 4 * WARPS;
+  static constexpr int PASSES = (HALF + PPASS - 1) / PPASS;
   static constexpr int MAT = DP * DP;
   // tiles a thread accumulates at once in a block-wide product (16 floats
   // each), and in M2's (the candidates are staged again for each pass)
@@ -123,8 +135,10 @@ struct Smem {
   static constexpr int SCRATCH = 2 * MAT + GROWS * DP;
   static_assert(FLOATS == M_OFF + VEC, "the vectors' layout");
   static_assert(DP % 4 == 0 && REC_OFF % 4 == 0, "rows of 16-byte units");
-  static_assert(4 * WARPS <= HALF && HALF <= 8 * WARPS, "a round's pairs in two passes");
-  static_assert(RS >= DP / 2 && BYTES <= 4 * SMEM_FLOATS, "more shared memory than a block may have");
+  // every lane's first pair is a real one, and a group's eight lanes can
+  // form the angles of all its passes' pairs
+  static_assert(PPASS <= HALF && PASSES <= 8, "a round's pairs in one to eight passes");
+  static_assert(BYTES <= 4 * SMEM_FLOATS, "more shared memory than a block may have");
 };
 
 // row r of W (r < DP) or Q (DP + r): in shared memory below RS, else in
@@ -474,39 +488,48 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
         const int* cur = slot + buf * DP;
         int* nxt = slot + (1 - buf) * DP;
         // pivots <W[a], Q[b]> of the pairs (a, b) = (cur[i], cur[i + HALF]):
-        // eight lanes a pair, pairs 4 warp + g and 64 + 4 warp + g, where g
-        // is the lane's group; each lane sums columns 4 (sub + 8 m)
+        // eight lanes a pair, pairs p0 + k PPASS (pass k), p0 = 4 warp + g,
+        // where g is the lane's group; each lane sums columns 4 (sub + 8 m)
+        constexpr int NP = G::PASSES;
         const int g = lane / 8, sub = lane % 8;
-        const int p0 = 4 * warp + g, p1 = 4 * G::WARPS + p0;
-        float s0 = 0.f, s1 = 0.f;
+        const int p0 = 4 * warp + g;
+        float sp[NP];
         {
-          const float4* w0 = reinterpret_cast<const float4*>(W(cur[p0]));
-          const float4* q0 = reinterpret_cast<const float4*>(Q(cur[p0 + HALF]));
-          const bool two = p1 < HALF;
-          const float4* w1 = reinterpret_cast<const float4*>(W(cur[two ? p1 : p0]));
-          const float4* q1 = reinterpret_cast<const float4*>(Q(cur[(two ? p1 : p0) + HALF]));
+          const float4* wv[NP];
+          const float4* qv[NP];
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            const int pk = p0 + k * G::PPASS;
+            const int pc = pk < HALF ? pk : p0;
+            wv[k] = reinterpret_cast<const float4*>(W(cur[pc]));
+            qv[k] = reinterpret_cast<const float4*>(Q(cur[pc + HALF]));
+            sp[k] = 0.f;
+          }
 #pragma unroll
           for (int mm = 0; mm < (Q4 + 7) / 8; ++mm) {
             const int c4 = sub + 8 * mm;
             if (c4 < Q4) {
-              const float4 a = w0[c4], b = q0[c4];
-              s0 = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, s0))));
-              if (two) {
-                const float4 c = w1[c4], e = q1[c4];
-                s1 = fmaf(c.x, e.x, fmaf(c.y, e.y, fmaf(c.z, e.z, fmaf(c.w, e.w, s1))));
+#pragma unroll
+              for (int k = 0; k < NP; ++k) {
+                if (k == 0 || p0 + k * G::PPASS < HALF) {
+                  const float4 a = wv[k][c4], b = qv[k][c4];
+                  sp[k] = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, sp[k]))));
+                }
               }
             }
           }
 #pragma unroll
-          for (int o = 4; o >= 1; o /= 2) {
-            s0 += __shfl_xor_sync(FULL, s0, o);
-            s1 += __shfl_xor_sync(FULL, s1, o);
-          }
+          for (int o = 4; o >= 1; o /= 2)
+#pragma unroll
+            for (int k = 0; k < NP; ++k) sp[k] += __shfl_xor_sync(FULL, sp[k], o);
         }
-        // lane 0 of a group forms pair p0's angles, lane 1 pair p1's
-        const int i = sub == 0 ? p0 : p1;
-        if (sub < 2 && i < HALF) {
-          const float sum = sub == 0 ? s0 : s1;
+        // lane k of a group forms the angles of its pass-k pair
+        const int i = p0 + sub * G::PPASS;
+        if (sub < NP && i < HALF) {
+          float sum = sp[0];
+#pragma unroll
+          for (int k = 1; k < NP; ++k)
+            if (sub == k) sum = sp[k];
           const int ra = cur[i], rb = cur[i + HALF];
           const float app = diag[ra], aqq = diag[rb];
           const float fp_ = fsc[ra], fq = fsc[rb];
@@ -683,6 +706,7 @@ extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (n_blocks < 0) return -1;
   if (d == 147) return n_blocks * Smem<147>::SCRATCH;
   if (d == 243) return n_blocks * Smem<243>::SCRATCH;
+  if (d == 363) return n_blocks * Smem<363>::SCRATCH;
   return -1;
 }
 
@@ -692,10 +716,15 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      int n_rows, int n_off, int d, int sweeps,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
-  if ((d != 147 && d != 243) || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if ((d != 147 && d != 243 && d != 363) || n_blocks <= 0) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
-  return d == 147 ? launch<147>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps,
-                                scratch, n_blocks, field, (cudaStream_t)stream)
-                  : launch<243>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps,
-                                scratch, n_blocks, field, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d == 147)
+    return launch<147>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                       n_blocks, field, st);
+  if (d == 243)
+    return launch<243>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                       n_blocks, field, st);
+  return launch<363>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                     n_blocks, field, st);
 }

@@ -2,9 +2,14 @@
 """Smoke run of the PyTorch port (bcd_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-crop H W
 
-Phases, each printed on its own lines; any failure exits non-zero before
-the final line:
+The second form times one ``bcd -w 5 -b 10 --stats`` run (phase 9's
+radius and search) on the scene's top-left H x W crop through the CLI's
+entry point, after the kernels are built, and runs nothing else.
+
+Phases of the first, each printed on its own lines; any failure exits
+non-zero before the final line:
 
 1. The card (name, count, power limit) and the kernel build: nvcc's
    register, shared-memory and spill report for every kernel; K2's must
@@ -64,7 +69,16 @@ the final line:
    b = 6 on the whole frame, where no center reaches a solve (launches no
    solve kernel); a 32x32 crop on the card against the port's CPU
    pipeline, bitwise repeatable.
-9. One JSON line of kernel results, the card line, and the final line
+9. The -w 5 path (d = 363, the same kernel with 580 of the 728 rows in
+   the global slot, solve_filter_363) at b = 10, the smallest window that
+   reaches its main path, checked as phase 8 checks the -w 4 path: on
+   synthetic stacks against the float64 twin at the engine's 8 sweeps and
+   against its fp32 model at 10, where the schedule has converged; one
+   real 16-tile r = 5, b = 10 batch timed once in place (its in-place rows
+   bit for bit on a subset); ``bcd -w 5 -b 10`` on a crop (launches only
+   solve_filter_363); ``bcd -w 5 -b 9`` on that crop (no solve launch); a
+   32x32 crop against the port's CPU pipeline.
+10. One JSON line of kernel results, the card line, and the final line
    ``{"ok": true, "device": {...}}``.
 
 Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
@@ -142,7 +156,7 @@ R3_MAIN_FLOOR = 0.8
 R4_KERNELS = ("solve_filter_243",)
 # every solve kernel; a run that takes no main path launches none
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
-                 "solve_filter_smem", "solve_filter_243")
+                 "solve_filter_smem", "solve_filter_243", "solve_filter_363")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -157,6 +171,44 @@ R4_MAIN_FLOOR = 0.72
 R4_CROP = (256, 512)
 # (e): a crop on the card against the port's CPU pipeline
 R4_CPU_CROP = 32
+# phase 9, d = 363 (csrc/solve_filter_smem.cu with 580 of the 728 rows of
+# W and Q in a global slot)
+R5_KERNELS = ("solve_filter_363",)
+# the smallest search radius whose window reaches the main path at r = 5:
+# 441 offsets, where n >= d + 1 = 364 similar candidates are needed (b = 9
+# offers 361)
+R5_SEARCH = 10
+# synthetic rows (n of 277 to 348 similar candidates, below d + 1: every
+# pixel rank-deficient): at the engine's 8 sweeps the schedule sits at its
+# convergence edge there, where two fp32 summation orders part by about as
+# much as each sits from the exact solve (the model 1.5e-5 from the twin,
+# the kernel 2.2e-5 from the model on an H100, past the 2e-5 first
+# predicted: PERF.md). So the kernel is held to its model at
+# R5_MODEL_SWEEPS, where the schedule has converged (the model 6e-7 from the
+# twin), within phase 7's SMEM_MODEL_RMS, and at 8 sweeps to the float64
+# twin within SYNTH_RMS; on R5_SYNTH_PIXELS pixels, two a block
+R5_MODEL_SWEEPS = 10
+R5_SYNTH_PIXELS = 264
+# the real r = 5 batch's main-path centers (n >= 364) at 8 sweeps: field vs
+# the fp32 model, relative rms; the synthetic 8-sweep distance (2.2e-5)
+# over the smallest synthetic-to-batch ratio of phases 7 and 8 (4) gives
+# about 5.5e-6, and the limit leaves about 4x over that
+R5_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 5 batch the model runs on, and those of the
+# timed in-place call over the whole batch that are held bit for bit to the
+# compact call (the whole batch takes about a minute on an H100, so it is
+# timed once and not run compact as well)
+R5_MODEL_CENTERS = 528
+R5_BITWISE_CENTERS = 528
+# the r = 5, b = 10 finest-scale main-path fraction must exceed this (first
+# reading on an H100 0.8875)
+R5_MAIN_FLOOR = 0.7
+# the cut -w 5 -b 10 frame: the scene's top-left crop, sides a multiple of
+# 32, sized from the kernel's 3.6 ms a main-path center on an H100 so that
+# phase 9 stays near 240 s; the whole 1088x1920 frame takes over two hours
+R5_CROP = (128, 256)
+# (e): a crop on the card against the port's CPU pipeline
+R5_CPU_CROP = 32
 # centers of the real r = 2 batch on which the lane solve_matrices, on no
 # engine path, is held to its float64 twin (whose call takes about 3 ms a
 # center on the card)
@@ -758,38 +810,72 @@ def compare_solve_batch(label, x, main, reps):
 
 
 def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
-                           name="solve_filter_smem"):
+                           name="solve_filter_smem", pixels=1024,
+                           model_sweeps=None):
     """solve_filter_pm at d (147: ``solve_filter_smem``, 243:
-    ``solve_filter_243``) on 1024 synthetic pixels of O candidates: against
-    the fp32 model of its schedule and the float64 twin. Returns the max
+    ``solve_filter_243``, 363: ``solve_filter_363``) on ``pixels`` synthetic
+    pixels of O candidates: against the float64 twin at ``sweeps``, and
+    against the fp32 model of its schedule at ``model_sweeps`` (default
+    ``sweeps``; where they differ, the model is also read against itself
+    with the candidates reversed at both, with no limit). Returns the max
     abs err against the twin."""
     import torch
     from bcd_tpu_torch.ops import solve_filter as ts
 
     npx = d // 3
-    x = stack_inputs(np.random.default_rng(d), O, d, 1024, dev)
+    model_sweeps = sweeps if model_sweeps is None else model_sweeps
+    x = stack_inputs(np.random.default_rng(d), O, d, pixels, dev)
     pm = pm_of(x)
     field = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=sweeps)
     need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
-    model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, sweeps)
     twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
-    e_m, e_t = rmse(field.cpu(), model.cpu()), rmse(field.cpu(), twin.cpu())
-    print(f"{tag} synthetic d={d} (O={O}, 1024 pixels, sweeps {sweeps}): "
-          f"{name} vs its fp32 schedule model rms {e_m:.3e} "
-          f"(limit {SMEM_MODEL_RMS:g}), vs float64 twin rms {e_t:.3e} "
-          f"(limit {SYNTH_RMS:g}); model vs twin "
-          f"{rmse(model.cpu(), twin.cpu()):.3e}", flush=True)
+    e_t = rmse(field.cpu(), twin.cpu())
+    def order_gap(model, s):
+        # the model against itself with the candidates reversed: the same
+        # schedule with M2 summed in another fp32 order
+        rev = ts.solve_filter_pm_schedule(pm[0].flip(1), pm[1].flip(1),
+                                          *pm[2:], 1e-8, npx, s).flip(1)
+        return rmse(model.cpu(), rev.cpu())
+
+    if model_sweeps != sweeps:
+        model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, sweeps)
+        print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels) at {sweeps} "
+              f"sweeps, no limit: {name} vs its fp32 schedule model rms "
+              f"{rmse(field.cpu(), model.cpu()):.3e}, model vs twin "
+              f"{rmse(model.cpu(), twin.cpu()):.3e}, model vs itself with "
+              f"the candidates reversed {order_gap(model, sweeps):.3e}",
+              flush=True)
+        del model
+        field_m = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=model_sweeps)
+    else:
+        field_m = field
+    model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, model_sweeps)
+    e_m = rmse(field_m.cpu(), model.cpu())
+    if model_sweeps != sweeps:
+        print(f"{tag} synthetic d={d} at {model_sweeps} sweeps, no limit: "
+              f"model vs itself with the candidates reversed "
+              f"{order_gap(model, model_sweeps):.3e}", flush=True)
+    print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels): {name} at "
+          f"{model_sweeps} sweeps vs its fp32 schedule model rms {e_m:.3e} "
+          f"(limit {SMEM_MODEL_RMS:g}), model vs twin "
+          f"{rmse(model.cpu(), twin.cpu()):.3e}; at {sweeps} sweeps vs "
+          f"float64 twin rms {e_t:.3e} (limit {SYNTH_RMS:g})", flush=True)
     need(e_m < SMEM_MODEL_RMS, f"synthetic d={d} vs the schedule model")
     need(e_t < SYNTH_RMS, f"synthetic d={d} vs the float64 twin")
     return float((field - twin).abs().max())
 
 
 def compare_smem_batch(label, x, main, sweeps, tag="[7]",
-                       name="solve_filter_smem"):
-    """``name`` (solve_filter_pm at d = 147 or 243) on one real batch: the
-    engine's in-place call on the main-path rows against the compact one,
-    bit for bit; its field against the fp32 model on at most
-    R3_MODEL_CENTERS centers and against the float64 twin on
+                       name="solve_filter_smem",
+                       model_centers=R3_MODEL_CENTERS,
+                       model_limit=SMEM_MODEL_BATCH_REL_RMS,
+                       bitwise_centers=None, time_once=False):
+    """``name`` (solve_filter_pm at d = 147, 243 or 363) on one real batch:
+    the engine's in-place call on all the main-path rows, timed after a
+    warm-up or, with ``time_once``, once, against the compact call on the
+    first ``bitwise_centers`` of them (or all), bit for bit, and zero on
+    every other row; the compact field against the fp32 model on at most
+    ``model_centers`` centers and against the float64 twin on
     R3_TWIN_CENTERS. Returns (max_abs_err, ms, plain_ms, bound) on the
     twin's centers (two a block of a persistent grid on 132 SMs), and the
     whole batch's ms and main-path centers, printed beside its bound."""
@@ -802,48 +888,49 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     args = [x[k] for k in PM_KEYS]
     idx = main.nonzero()[:, 0]
     need(idx.numel() >= R3_TWIN_CENTERS, f"{label}: too few main-path centers")
-    in_place = ts.solve_filter_pm(*args, 1e-8, npx=npx, sweeps=sweeps,
-                                  rows=idx)
-    need(bool(torch.isfinite(in_place).all()), f"{label}: non-finite field")
-    xm = {k: v[idx].contiguous() for k, v in x.items()}
+    batch = lambda: ts.solve_filter_pm(  # noqa: E731
+        *args, 1e-8, npx=npx, sweeps=sweeps, rows=idx)
+    whole, ms_batch = timed_once(batch) if time_once else (batch(), None)
+    need(bool(torch.isfinite(whole).all()), f"{label}: non-finite field")
+    sub = idx if bitwise_centers is None else idx[:bitwise_centers]
+    xm = {k: v[sub].contiguous() for k, v in x.items()}
     args_m = [xm[k] for k in PM_KEYS]
     field = ts.solve_filter_pm(*args_m, 1e-8, npx=npx, sweeps=sweeps)
     rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
     rest[idx] = False
-    need(torch.equal(in_place[idx], field)
-         and not bool(in_place[rest].any()),
+    need(torch.equal(whole[sub], field) and not bool(whole[rest].any()),
          f"{label} {name}: rows in place differ from the compact stack")
-    del in_place
-    ms_batch = cuda_ms(lambda: ts.solve_filter_pm(
-        *args, 1e-8, npx=npx, sweeps=sweeps, rows=idx), 1)
+    del whole
+    if ms_batch is None:
+        ms_batch = cuda_ms(batch, 1)
     bound_batch = bounds.solve_filter(idx.numel(), n_off, d, sweeps)
     model = ts.solve_filter_pm_schedule(
-        *(v[:R3_MODEL_CENTERS] for v in args_m), 1e-8, npx, sweeps)
-    rel_m = rel_rms(field[:R3_MODEL_CENTERS], model)
+        *(v[:model_centers] for v in args_m), 1e-8, npx, sweeps)
+    rel_m = rel_rms(field[:model_centers], model)
     del model
-    sub = [v[:R3_TWIN_CENTERS].contiguous() for v in args_m]
+    subt = [v[:R3_TWIN_CENTERS].contiguous() for v in args_m]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
-        *sub, 1e-8, npx=npx, sweeps=sweeps)
+        *subt, 1e-8, npx=npx, sweeps=sweeps)
     ref, plain_ms = timed_once(
-        lambda: ts.solve_filter_pm_plain(*sub, 1e-8, npx=npx))
+        lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
     got = sf()
     rel = rel_rms(got, ref)
     res = (float((got - ref).abs().max()), cuda_ms(sf, 3), plain_ms,
            bounds.solve_filter(R3_TWIN_CENTERS, n_off, d, sweeps))
     print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
-          f"engine's in-place rows bitwise equal to the compact call; "
-          f"{ms_batch:.3f} ms for the batch's main rows, bound "
-          f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
+          f"engine's in-place rows bitwise equal to the compact call "
+          f"(on {sub.numel()} of them); {ms_batch:.3f} ms for the batch's "
+          f"main rows, bound {bound_batch[0]:.3f} ms ({bound_batch[1]})",
+          flush=True)
     print(f"{tag} {label}: field vs its fp32 schedule model on the first "
-          f"{min(R3_MODEL_CENTERS, idx.numel())} centers rel rms {rel_m:.3e} "
-          f"(limit {SMEM_MODEL_BATCH_REL_RMS:g}); vs the float64 twin on the "
+          f"{min(model_centers, sub.numel())} centers rel rms {rel_m:.3e} "
+          f"(limit {model_limit:g}); vs the float64 twin on the "
           f"first {R3_TWIN_CENTERS} rel rms {rel:.3e} (limit "
           f"{BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those centers "
           f"kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
           f"{res[3][0]:.3f} ms", flush=True)
-    need(rel_m < SMEM_MODEL_BATCH_REL_RMS,
-         f"{label} {name} vs its schedule model")
+    need(rel_m < model_limit, f"{label} {name} vs its schedule model")
     need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
     return res, ms_batch, idx.numel()
 
@@ -946,10 +1033,36 @@ def write_scene(path, color, nb, histo, cov) -> None:
     image_io.write_multi_channels_exr(cov, path.replace(".exr", "_cov.exr"))
 
 
-def r4_phase(dev, card, stats, clean, scene_path, e_in):
-    """Phase 8: the -w 4 path on the 1088x1920 scene. Returns the kernels
-    line's entry (max_abs_err, ms, plain_ms, bound) and the cut -w 4 -b 8
-    frame's launch counts."""
+def wide_phases():
+    """Phases 8 and 9 by patch radius: the launch counter of the kernel the
+    radius runs, its window's offsets, its search radius (the smallest that
+    reaches the main path), limits and sizes, the keyword arguments of its
+    synthetic and real-batch checks, and whether its batch is timed once."""
+    return {
+        4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
+                floor=R4_MAIN_FLOOR, crop=R4_CROP, cpu_crop=R4_CPU_CROP,
+                synth={}, batch={}, time_once=False,
+                # no solve: -w 4 at the default b = 6 on the whole frame
+                no_solve_b=6, no_solve_on_crop=False),
+        5: dict(tag="[9]", kernels=R5_KERNELS, O=441, search=R5_SEARCH,
+                floor=R5_MAIN_FLOOR, crop=R5_CROP, cpu_crop=R5_CPU_CROP,
+                synth=dict(pixels=R5_SYNTH_PIXELS,
+                           model_sweeps=R5_MODEL_SWEEPS),
+                batch=dict(model_centers=R5_MODEL_CENTERS,
+                           model_limit=R5_MODEL_BATCH_REL_RMS,
+                           bitwise_centers=R5_BITWISE_CENTERS),
+                # the batch is timed once, not after a warm-up
+                time_once=True,
+                # no solve: -w 5 at b = 9 (361 offsets) on the crop
+                no_solve_b=9, no_solve_on_crop=True),
+    }
+
+
+def wide_phase(radius, dev, card, stats, clean, scene_path, e_in):
+    """Phase 8 (radius 4, d = 243) or 9 (radius 5, d = 363): the -w r path
+    on the 1088x1920 scene at the smallest b that reaches its main path.
+    Returns the kernels line's entry (max_abs_err, ms, plain_ms, bound) and
+    the cut frame's launch counts."""
     import torch
     from bcd_tpu_torch import cli
     from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
@@ -960,125 +1073,135 @@ def r4_phase(dev, card, stats, clean, scene_path, e_in):
     from bcd_tpu_torch.ops.spike_removal import spike_removal
     from bcd_tpu_torch.params import PipelineParameters
 
-    sweeps = solve_filter_sweeps(243)
+    c = wide_phases()[radius]
+    tag, b, (name,) = c["tag"], c["search"], c["kernels"]
+    d = 3 * (2 * radius + 1) ** 2
+    npx = d // 3
+    sweeps = solve_filter_sweeps(d)
+    w = ["-w", str(radius), "-b", str(b)]
     # (a) synthetic
-    e_syn = compare_smem_synthetic(dev, sweeps, O=289, d=243, tag="[8]",
-                                   name="solve_filter_243")
+    e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
+                                   name=name, **c["synth"])
     # (b) one real 16-tile batch of the finest scale (after the prefilter)
-    p4 = PipelineParameters()
-    p4.denoiser.monoscale.patch_radius = 4
-    p4.denoiser.monoscale.search_window_radius = R4_SEARCH
-    thr = p4.denoiser.monoscale.histogram_distance_threshold
+    pw = PipelineParameters()
+    pw.denoiser.monoscale.patch_radius = radius
+    pw.denoiser.monoscale.search_window_radius = b
+    thr = pw.denoiser.monoscale.histogram_distance_threshold
     pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
-                        p4.prefiltering.spike_removal_threshold_stdev_factor)
-    frac4 = r2_main_fraction(pre, dev, thr, radius=4, search_radius=R4_SEARCH)
-    print(f"[8] 1088x1920 finest scale at r=4, b={R4_SEARCH}, threshold "
-          f"{thr:g}: main-path fraction {frac4:.4f} (floor "
-          f"{R4_MAIN_FLOOR:g})", flush=True)
-    need(frac4 > R4_MAIN_FLOOR, "the -w 4 -b 8 run barely reaches the main "
+                        pw.prefiltering.spike_removal_threshold_stdev_factor)
+    frac = r2_main_fraction(pre, dev, thr, radius=radius, search_radius=b)
+    print(f"{tag} 1088x1920 finest scale at r={radius}, b={b}, threshold "
+          f"{thr:g}: main-path fraction {frac:.4f} (floor "
+          f"{c['floor']:g})", flush=True)
+    need(frac > c["floor"], f"the {' '.join(w)} run barely reaches the main "
          "path")
-    x, main = r2_batch(pre, dev, thr, radius=4, search_radius=R4_SEARCH)
+    x, main = r2_batch(pre, dev, thr, radius=radius, search_radius=b)
     del pre
     res, batch_ms, batch_main = compare_smem_batch(
-        f"full-size r=4 b={R4_SEARCH} batch 8", x, main, sweeps=sweeps,
-        tag="[8]", name="solve_filter_243")
+        f"full-size r={radius} b={b} batch 8", x, main, sweeps=sweeps,
+        tag=tag, name=name, time_once=c["time_once"], **c["batch"])
     res = (max(res[0], e_syn),) + res[1:]
-    # the Jacobi's share: the same batch at 0 sweeps
-    ms0 = cuda_ms(lambda: ts.solve_filter_pm(
-        *(x[k] for k in PM_KEYS), 1e-8, npx=81, sweeps=0,
-        rows=main.nonzero()[:, 0]), 1)
-    print(f"[8] the same batch at 0 sweeps {ms0:.3f} ms: the Jacobi's "
+    # the Jacobi's share: the same batch at 0 sweeps (once where the batch
+    # was timed once)
+    zero = lambda: ts.solve_filter_pm(  # noqa: E731
+        *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
+        rows=main.nonzero()[:, 0])
+    ms0 = timed_once(zero)[1] if c["time_once"] else cuda_ms(zero, 1)
+    print(f"{tag} the same batch at 0 sweeps {ms0:.3f} ms: the Jacobi's "
           f"{sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
           f"{1 - ms0 / batch_ms:.3f})", flush=True)
     del x, main
 
-    # (c) bcd -w 4 -b 8 through the CLI's entry point on a crop, traced
-    ch, cw = R4_CROP
-    crop_path = scene_path.replace(".exr", "_w4crop.exr")
+    # (c) bcd -w r -b b through the CLI's entry point on a crop, traced
+    ch, cw = c["crop"]
+    crop_path = scene_path.replace(".exr", f"_w{radius}crop.exr")
     write_scene(crop_path, *(x[:ch, :cw] for x in stats))
     out_path = crop_path.replace(".exr", "_out.exr")
-    argv4 = ["-i", crop_path, "-o", out_path, "-w", "4", "-b",
-             str(R4_SEARCH)]
+    argv = ["-i", crop_path, "-o", out_path, *w]
     rcs = []
     _build.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cli4_s, busy, rows = device_time_table(
-        f"[8] bcd -w 4 -b {R4_SEARCH} on the {ch}x{cw} crop",
-        lambda: rcs.append(cli.main(argv4)))
-    peak4 = torch.cuda.max_memory_allocated()
-    launches4 = dict(_build.LAUNCHES)
-    need(rcs == [0], "-w 4 -b 8 CLI run")
+    cli_s, busy, rows = device_time_table(
+        f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop",
+        lambda: rcs.append(cli.main(argv)))
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    need(rcs == [0], f"{' '.join(w)} CLI run")
     k_us = sum(us for us, _, key in rows
-               if "solve_filter_smem_kernel<243>" in key)
-    print(f"[8] python -m bcd_tpu_torch.cli {' '.join(argv4)}: rc 0, "
-          f"{cli4_s:.3f} s wall with EXR I/O and the profiler on {card}; "
-          f"peak memory {peak4 / 2**20:.1f} MiB; launches {launches4}; "
-          f"solve_filter_243 {k_us / 1e6:.4f} s of {busy:.4f} s device "
+               if f"solve_filter_smem_kernel<{d}>" in key)
+    print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv)}: rc 0, "
+          f"{cli_s:.3f} s wall with EXR I/O and the profiler on {card}; "
+          f"peak memory {peak / 2**20:.1f} MiB; launches {launches}; "
+          f"{name} {k_us / 1e6:.4f} s of {busy:.4f} s device "
           f"time (share {k_us / 1e6 / max(busy, 1e-9):.3f})", flush=True)
-    for name in R4_KERNELS:
-        need(launches4[name] > 0,
-             f"kernel {name} was not launched by the -w 4 -b 8 path")
-    for name in R1_KERNELS + SOLVE_KERNELS:
-        if name not in R4_KERNELS:
-            need(launches4[name] == 0, f"the -w 4 -b 8 path launched {name}")
-    out4 = image_io.load_exr(out_path)
-    clean4 = clean[:ch, :cw]
-    need(out4.shape == clean4.shape and np.isfinite(out4).all(),
-         "-w 4 -b 8 CLI output shape / finiteness")
-    e_out4, e_in4 = rmse(out4, clean4), rmse(stats[0][:ch, :cw], clean4)
-    print(f"[8] rmse vs clean on the crop: -w 4 -b {R4_SEARCH} output "
-          f"{e_out4:.5f}, noisy input {e_in4:.5f}", flush=True)
-    need(e_out4 < e_in4, "the -w 4 -b 8 output is not closer to the clean "
-         "image")
+    need(launches[name] > 0,
+         f"kernel {name} was not launched by the {' '.join(w)} path")
+    for other in R1_KERNELS + SOLVE_KERNELS:
+        if other != name:
+            need(launches[other] == 0,
+                 f"the {' '.join(w)} path launched {other}")
+    out = image_io.load_exr(out_path)
+    clean_c = clean[:ch, :cw]
+    need(out.shape == clean_c.shape and np.isfinite(out).all(),
+         f"{' '.join(w)} CLI output shape / finiteness")
+    e_out, e_in_c = rmse(out, clean_c), rmse(stats[0][:ch, :cw], clean_c)
+    print(f"{tag} rmse vs clean on the crop: {' '.join(w)} output "
+          f"{e_out:.5f}, noisy input {e_in_c:.5f}", flush=True)
+    need(e_out < e_in_c, f"the {' '.join(w)} output is not closer to the "
+         "clean image")
     full = 1088 * 1920 / (ch * cw)
-    print(f"[8] estimate, not a run: a 1088x1920 -w 4 -b {R4_SEARCH} frame "
-          f"at this crop's rate per pixel {cli4_s * full:.1f} s, its kernel "
+    print(f"{tag} estimate, not a run: a 1088x1920 {' '.join(w)} frame "
+          f"at this crop's rate per pixel {cli_s * full:.1f} s, its kernel "
           f"{k_us / 1e6 * full:.1f} s; at batch 8's rate per main-path "
           f"center and the finest scale's fraction "
-          f"{batch_ms / batch_main * 1088 * 1920 * frac4 / 1e3:.1f} s in the "
+          f"{batch_ms / batch_main * 1088 * 1920 * frac / 1e3:.1f} s in the "
           "kernel at the finest scale", flush=True)
 
-    # (d) the repaired gate: bcd -w 4 at b = 6 on the whole frame, where no
-    # center reaches the solve
-    out_path6 = scene_path.replace(".exr", "_out_w4b6.exr")
-    argv6 = ["-i", scene_path, "-o", out_path6, "-w", "4"]
+    # (d) the gate: -w r at a b whose window cannot reach the solve, where
+    # no center reaches it
+    b0 = c["no_solve_b"]
+    src = crop_path if c["no_solve_on_crop"] else scene_path
+    out_path0 = src.replace(".exr", f"_out_w{radius}b{b0}.exr")
+    argv0 = ["-i", src, "-o", out_path0, "-w", str(radius), "-b", str(b0)]
     _build.reset_launches()
     t0 = time.perf_counter()
-    rc = cli.main(argv6)
-    wall6 = time.perf_counter() - t0
-    launches6 = dict(_build.LAUNCHES)
-    need(rc == 0, "-w 4 (b = 6) CLI run")
-    need(not any(launches6[k] for k in SOLVE_KERNELS),
-         f"the -w 4 b = 6 run launched a solve kernel: {launches6}")
-    out6 = image_io.load_exr(out_path6)
-    need(out6.shape == clean.shape and np.isfinite(out6).all(),
-         "-w 4 (b = 6) CLI output shape / finiteness")
-    print(f"[8] python -m bcd_tpu_torch.cli {' '.join(argv6)}: rc 0, "
-          f"{wall6:.3f} s wall with EXR I/O; launches {launches6} (no solve: "
-          f"169 offsets < 244); rmse vs clean {rmse(out6, clean):.5f}, noisy "
-          f"input {e_in:.5f}", flush=True)
+    rc = cli.main(argv0)
+    wall0 = time.perf_counter() - t0
+    launches0 = dict(_build.LAUNCHES)
+    need(rc == 0, f"-w {radius} (b = {b0}) CLI run")
+    need(not any(launches0[k] for k in SOLVE_KERNELS),
+         f"the -w {radius} b = {b0} run launched a solve kernel: {launches0}")
+    out0 = image_io.load_exr(out_path0)
+    clean0 = clean_c if c["no_solve_on_crop"] else clean
+    need(out0.shape == clean0.shape and np.isfinite(out0).all(),
+         f"-w {radius} (b = {b0}) CLI output shape / finiteness")
+    print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv0)}: rc 0, "
+          f"{wall0:.3f} s wall with EXR I/O; launches {launches0} (no solve: "
+          f"{(2 * b0 + 1) ** 2} offsets < {d + 1}); rmse vs clean "
+          f"{rmse(out0, clean0):.5f}, noisy input "
+          f"{e_in_c if c['no_solve_on_crop'] else e_in:.5f}", flush=True)
 
     # (e) a crop on the card, twice, against the port's CPU pipeline
-    crop = [torch.as_tensor(x[:R4_CPU_CROP, :R4_CPU_CROP], device=dev)
-            for x in stats]
+    k = c["cpu_crop"]
+    crop = [torch.as_tensor(x[:k, :k], device=dev) for x in stats]
     _build.reset_launches()
-    got = denoise_pipeline(*crop, dev, p4)
-    need(_build.LAUNCHES["solve_filter_243"] > 0,
-         f"the {R4_CPU_CROP}x{R4_CPU_CROP} crop reaches no solve")
-    need(torch.equal(got, denoise_pipeline(*crop, dev, p4)),
-         "-w 4 -b 8 crop not bitwise repeatable")
+    got = denoise_pipeline(*crop, dev, pw)
+    need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
+    need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
+         f"{' '.join(w)} crop not bitwise repeatable")
     t0 = time.perf_counter()
-    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p4)
+    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), pw)
     cpu_s = time.perf_counter() - t0
     gap = rmse(got.cpu(), ref)
-    print(f"[8] -w 4 -b {R4_SEARCH} pipeline on a {R4_CPU_CROP}x"
-          f"{R4_CPU_CROP} crop: card vs the port's CPU pipeline (float64 "
-          f"twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit {R2_CPU_RMSE:g}), "
-          f"max abs {float((got.cpu() - ref).abs().max()):.3e}; bitwise "
-          "repeatable on the card", flush=True)
-    need(gap < R2_CPU_RMSE, "-w 4 on the card against the CPU pipeline")
-    return res, launches4
+    print(f"{tag} {' '.join(w)} pipeline on a {k}x{k} crop: card vs the "
+          f"port's CPU pipeline (float64 twins, {cpu_s:.1f} s) rmse "
+          f"{gap:.3e} (limit {R2_CPU_RMSE:g}), max abs "
+          f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
+          "on the card", flush=True)
+    need(gap < R2_CPU_RMSE, f"-w {radius} on the card against the CPU "
+         "pipeline")
+    return res, launches
 
 
 def device_time_table(label, run) -> None:
@@ -1347,6 +1470,55 @@ def ingest_phase(dev, card, clean) -> None:
     shutil.rmtree(work)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def time_crop(height, width) -> int:
+    """One timed ``bcd -w 5 -b 10 --stats`` run (phase 9's radius and
+    search) through the CLI's entry point on the scene's top-left height x
+    width crop, the kernels built first: wall time with EXR I/O, launches,
+    peak memory, rmse vs clean."""
+    import torch
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+
+    radius, search = 5, wide_phases()[5]["search"]
+    card = card_line()
+    _build.library()
+    clean, stats = full_scene()
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, f"timed_w{radius}b{search}_{height}x{width}.exr")
+    write_scene(path, *(x[:height, :width] for x in stats))
+    out_path = path.replace(".exr", "_out.exr")
+    argv = ["-i", path, "-o", out_path, "-w", str(radius), "-b", str(search),
+            "--stats"]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    need(rc == 0, f"bcd {' '.join(argv)}")
+    out = image_io.load_exr(out_path)
+    clean = clean[:height, :width]
+    need(out.shape == clean.shape and np.isfinite(out).all(),
+         "output shape / finiteness")
+    print(f"[time-crop] python -m bcd_tpu_torch.cli {' '.join(argv)}: rc 0, "
+          f"{wall:.3f} s wall with EXR I/O on {card}; launches "
+          f"{dict(_build.LAUNCHES)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; rmse vs "
+          f"clean {rmse(out, clean):.6f}, noisy input "
+          f"{rmse(stats[0][:height, :width], clean):.6f}", flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1371,13 +1543,14 @@ def main() -> int:
     params = DenoiserParameters(search_window_radius=6)
     cfg = MonoscaleConfig()
 
+    if sys.argv[1:2] == ["--time-crop"]:
+        need(len(sys.argv) == 4, "usage: chip_smoke.py --time-crop H W")
+        return time_crop(int(sys.argv[2]), int(sys.argv[3]))
+
     # --- 1. the card and the build --------------------------------------
     dev = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"[1] device: {kind}, count {count}; card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1621,11 +1794,17 @@ def main() -> int:
 
     # --- 8. the -w 4 path ---------------------------------------------------
     t0 = time.perf_counter()
-    kernels["solve_filter_243"], launches4 = r4_phase(
-        dev, card, stats, clean, paths[""], e_in)
+    kernels["solve_filter_243"], launches4 = wide_phase(
+        4, dev, card, stats, clean, paths[""], e_in)
     print(f"[8] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # --- 9. results --------------------------------------------------------
+    # --- 9. the -w 5 path ---------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_363"], launches5 = wide_phase(
+        5, dev, card, stats, clean, paths[""], e_in)
+    print(f"[9] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
                "bcd_tpu/ops/fused_pallas.py:429"),
@@ -1646,11 +1825,15 @@ def main() -> int:
         "solve_filter_243": ("solve_filter_243",
                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_363": ("solve_filter_363",
+                             "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                             "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
             "solve_filter_smem": launches3["solve_filter_smem"],
-            "solve_filter_243": launches4["solve_filter_243"]}
+            "solve_filter_243": launches4["solve_filter_243"],
+            "solve_filter_363": launches5["solve_filter_363"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

@@ -185,13 +185,13 @@ def test_solve_wrappers_refuse_bad_inputs():
                           sweeps=6)
 
 
-@pytest.mark.parametrize("d", [27, 75, 147, 243, 363])
+@pytest.mark.parametrize("d", [27, 75, 147, 243, 363, 507])
 def test_kernel_dims(d):
     """The CUDA solve kernels are built for patch radius 1, 2 (registers),
-    3 (shared memory) and 4 (shared memory and a global slot); radius 5 (W
-    and Q would take 1.06 MB) is refused with the reason and its ROADMAP
+    3 (shared memory), 4 and 5 (shared memory and a global slot); radius 6
+    (W and Q would take 2.06 MB) is refused with the reason and its ROADMAP
     item."""
-    assert (d in ts.KERNEL_DIMS) == (d <= 243)
+    assert (d in ts.KERNEL_DIMS) == (d <= 363)
     if d in ts.KERNEL_DIMS:
         ts.check_kernel_dim(d)
     else:
@@ -201,21 +201,22 @@ def test_kernel_dims(d):
 
 
 @pytest.mark.parametrize("r,b,accepted", [
-    (4, 6, True), (4, 7, True), (4, 8, True), (5, 9, True), (5, 10, False),
+    (4, 6, True), (4, 7, True), (4, 8, True), (5, 9, True), (5, 10, True),
+    (6, 10, True), (6, 11, False),
 ])
 def test_solve_path_gate(r, b, accepted):
     """The CUDA engine's and CLI's gate: a center needs n >= d + 1 similar
     candidates to reach the solve, so a window of (2b + 1)^2 <= d offsets
     never launches a solve kernel and runs whatever d is (r = 4 at b <= 7,
-    r = 5 at b <= 9: every center takes the fallback, as in JAX); r = 5 at
-    b = 10 (441 offsets >= 364) would need the d = 363 kernel the port
-    lacks."""
+    r = 5 at b <= 9, r = 6 at b <= 10: every center takes the fallback, as
+    in JAX); r = 5 at b = 10 runs the d = 363 kernel; r = 6 at b = 11 (529
+    offsets >= 508) would need the d = 507 kernel the port lacks."""
     d, n_off = 3 * (2 * r + 1) ** 2, (2 * b + 1) ** 2
     if accepted:
         ts.check_solve_path(d, n_off)
     else:
         with pytest.raises(NotImplementedError,
-                           match="shared memory.*patch radius >= 5"):
+                           match="shared memory.*patch radius >= 6"):
             ts.check_solve_path(d, n_off)
 
 
@@ -309,13 +310,14 @@ def test_schedule_degenerate_pixels():
     assert (small[:32, D] == 0).all() and (small[32:64, D] == 1).all()
 
 
-@pytest.mark.parametrize("dp", [28, 76, 148])
+@pytest.mark.parametrize("dp", [28, 76, 148, 244, 364])
 def test_reseat_order_is_one_sweep_cycle(dp):
     """reseat_order is the TPU kernel's re-seating (the concatenation of
     solve_filter_pallas.py:184-187, written out on row labels): a
     permutation that keeps row 0 and moves the other rows along one cycle
     of length dp - 1, the round-robin order of a Brent-Luk sweep, at K2's
-    dp = 28 and solve_filter's dp = 76 (d = 75) and 148 (d = 147)."""
+    dp = 28 and solve_filter's dp = 76, 148, 244 and 364 (d = 75, 147, 243
+    and 363)."""
     order = ts.reseat_order(dp)
     half = dp // 2
     u, dn = np.arange(half), np.arange(half, dp)
@@ -381,6 +383,18 @@ def test_schedule_sweeps_at_d243():
     pixels of 289 candidates 7 sweeps leave about 1.1e-4, 8 about 5e-6."""
     npx, d = 81, 243
     pm = _t(*(a for a in _pm_stacks(np.random.default_rng(21), 289, d, 8)))
+    want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
+    assert solve_filter_sweeps(d) == 8
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 7), want) > 2e-5
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 8), want) < 2e-5
+
+
+def test_schedule_sweeps_at_d363():
+    """Why the engine runs 8 sweeps at d = 363 too, the smallest count that
+    keeps the fp32 schedule within 2e-5 rms of the float64 twin: on 8
+    pixels of 441 candidates 7 sweeps leave about 1.1e-4, 8 about 7e-6."""
+    npx, d = 121, 363
+    pm = _t(*(a for a in _pm_stacks(np.random.default_rng(21), 441, d, 8)))
     want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
     assert solve_filter_sweeps(d) == 8
     assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 7), want) > 2e-5

@@ -3,6 +3,10 @@ patch radius r != 1 path, plain twins on the CPU) against the JAX plain
 engine and the float64 oracle, on a scene where the r = 2 main path runs."""
 
 import functools
+import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ from tests.torch_workers import share_cores
 share_cores()
 
 CPU = torch.device("cpu")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # r = 2 needs n >= d + 1 = 76 similar patches for the main path; b = 5
 # offers 121, and at this threshold 47% of the 20x20 scene's centers take
 # the main path (61% is the most the window truncation at the borders
@@ -54,19 +59,47 @@ def scene20():
     return args
 
 
+# jax_plain's child process: argv = inputs (.npz), output (.npy), radius,
+# b, skip_stride, threshold
+_JAX_PLAIN = """
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from bcd_tpu.core.monoscale import MonoscaleConfig, _denoise_image
+z = np.load(sys.argv[1])
+radius, b, stride = (int(a) for a in sys.argv[3:6])
+cfg = MonoscaleConfig(patch_radius=radius, search_radius=b, tile=8,
+                      skip_stride=stride, eigh_impl="lax")
+np.save(sys.argv[2], np.asarray(_denoise_image(
+    cfg, *(jnp.asarray(z[f"arr_{i}"]) for i in range(4)),
+    jnp.float32(float(sys.argv[6])), jnp.float32(1e-8))))
+"""
+
+
 def jax_plain(args, radius, b, skip_stride=1):
     """JAX's plain XLA engine (``_denoise_image``, tile 8) with its exact
     ``jnp.linalg.eigh`` (``eigh_impl="lax"``), the eigh the port's twins
     use. Its default fixed-schedule Jacobi eigh gives the same result at
-    r = 2 but takes about 40 s a call on a CPU core, against 3 s."""
-    import jax.numpy as jnp
-    from bcd_tpu.core.monoscale import MonoscaleConfig, _denoise_image
+    r = 2 but takes about 40 s a call on a CPU core, against 3 s.
 
-    cfg = MonoscaleConfig(patch_radius=radius, search_radius=b, tile=8,
-                          skip_stride=skip_stride, eigh_impl="lax")
-    return np.asarray(_denoise_image(
-        cfg, *(jnp.asarray(a) for a in args), jnp.float32(R2_THRESHOLD),
-        jnp.float32(1e-8)))
+    It runs in a child process whose OpenBLAS has one thread. The eigh
+    runs in scipy's OpenBLAS, whose threads wait by spinning: two test
+    processes each running it at d = 363 on every core took over ten
+    minutes where one took 42 s (one thread each: 46 s), and at d = 243
+    beside another JAX test it held the whole suite past its time limit.
+    OPENBLAS_NUM_THREADS is read only when the library loads, and a limit
+    set later inside a process (threadpoolctl) did not help."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npy")
+        np.savez(src, *args)
+        env = dict(os.environ, OPENBLAS_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+        subprocess.run(
+            [sys.executable, "-c", _JAX_PLAIN, src, dst, str(radius), str(b),
+             str(skip_stride), repr(R2_THRESHOLD)],
+            cwd=ROOT, env=env, check=True, timeout=900)
+        return np.load(dst)
 
 
 def torch_r2(skip_stride=1, tile=8):
