@@ -11,7 +11,7 @@ contributions are overlap-added in one deterministic pass
 - Any other radius: the candidate-stack engine below, the port of JAX's
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
   ``solve_filter_pm``, run only on the main-path centers: on the card the
-  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 5.
+  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 6.
 
 Each kernel launches once per batch of tiles, not once per tile. With
 ``collect_stats`` each tile engine also returns its batch's main-path and
@@ -44,15 +44,20 @@ from bcd_tpu_torch.ops.solve_filter import check_solve_path, solve_filter_pm
 # exact solve on synthetic stacks, eight 2.9e-6 (tests/test_torch_solve.py
 # ::test_schedule_sweeps_at_d147); at d = 243 (r = 4) seven leave 1.1e-4,
 # eight 5e-6 (::test_schedule_sweeps_at_d243), and at d = 363 (r = 5) seven
-# 1.1e-4, eight 7e-6 (::test_schedule_sweeps_at_d363), so eight again.
-# JAX's r = 3 to 5 results are its plain path's, with a converged eigh,
-# since its kernel cannot hold d = 147 and above in VMEM.
+# 1.1e-4, eight 7e-6 (::test_schedule_sweeps_at_d363), so eight again. At
+# d = 507 (r = 6) eight leave 2.9e-5, past that 2e-5, and nine 2.4e-6
+# (tests/test_torch_sweeps_r6.py), so nine. JAX's r = 3 to 6 results are
+# its plain path's, with a converged eigh, since its kernel cannot hold
+# d = 147 and above in VMEM.
 SOLVE_FILTER_SWEEPS = 6
 SOLVE_FILTER_SWEEPS_R3 = 8
+SOLVE_FILTER_SWEEPS_R6 = 9
 
 
 def solve_filter_sweeps(d: int) -> int:
-    return SOLVE_FILTER_SWEEPS if d <= 75 else SOLVE_FILTER_SWEEPS_R3
+    if d <= 75:
+        return SOLVE_FILTER_SWEEPS
+    return SOLVE_FILTER_SWEEPS_R3 if d < 507 else SOLVE_FILTER_SWEEPS_R6
 
 
 FUSED_TILE_BATCH = 128
@@ -61,8 +66,12 @@ FUSED_TILE_BATCH = 128
 # a (16384, 169, 147) stack of 1.63 GB; at r = 4, b = 8 a (16384, 289, 243)
 # stack of 4.60 GB; at r = 5, b = 10 a (16384, 441, 363) stack of 10.5 GB,
 # the field as much again, and the batch peaks at 40364.8 MiB on an 80 GB
-# H100, which batch 16 fits (PERF.md)
+# H100, which batch 16 fits (PERF.md). At r = 6, b = 11 a 16-tile stack
+# would be (16384, 529, 507), 17.6 GB, and the batch's peak, about four
+# times its stack, would near the card's 80 GB: where a 16-tile stack
+# passes STACK_BYTES the engine takes half as many tiles a batch
 STACK_TILE_BATCH = 16
+STACK_BYTES = 12e9
 
 
 @dataclass(frozen=True)
@@ -74,7 +83,8 @@ class MonoscaleConfig:
     tile: int = 32  # core tile side, in pixels
     solve_sweeps: int = 4  # Jacobi sweeps of K2's eigenvalue clamp
     # tiles per kernel launch; None: FUSED_TILE_BATCH for the fused engine,
-    # STACK_TILE_BATCH for the candidate-stack engine
+    # STACK_TILE_BATCH for the candidate-stack engine, half that where its
+    # fp32 candidate stack would pass STACK_BYTES
     tile_batch: Optional[int] = None
     # solve only every skip_stride-th center on both axes (the deterministic
     # analog of the reference's skip marking, DenoisingUnit.cpp:163-173);
@@ -98,8 +108,14 @@ class MonoscaleConfig:
 
     @property
     def batch(self) -> int:
-        return self.tile_batch or (FUSED_TILE_BATCH if self.fused
-                                   else STACK_TILE_BATCH)
+        if self.tile_batch:
+            return self.tile_batch
+        if self.fused:
+            return FUSED_TILE_BATCH
+        stack = (4 * STACK_TILE_BATCH * self.tile ** 2
+                 * (2 * self.search_radius + 1) ** 2 * self.d)
+        return (STACK_TILE_BATCH // 2 if stack > STACK_BYTES
+                else STACK_TILE_BATCH)
 
     @property
     def halo(self) -> int:

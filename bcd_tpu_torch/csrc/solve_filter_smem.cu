@@ -1,13 +1,13 @@
-// solve_filter at patch radius 3 (d = 147), 4 (d = 243) and 5 (d = 363):
-// the per-pixel two-step Bayesian solve and filter of the candidate stacks,
-// with the Jacobi's two working matrices in shared memory (d = 147), or as
-// much of them as fits there and the rest in a global slot of the block
-// (d = 243 and 363).
+// solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363) and
+// 6 (d = 507): the per-pixel two-step Bayesian solve and filter of the
+// candidate stacks, with the Jacobi's two working matrices in shared memory
+// (d = 147), or as much of them as fits there and the rest in a global
+// slot of the block (d = 243, 363 and 507).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
-// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243 and
-// 363; it computes what csrc/solve_filter.cu computes at d = 27 and 75. Per
-// pixel:
+// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363
+// and 507; it computes what csrc/solve_filter.cu computes at d = 27 and 75.
+// Per pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
 //   Cemp = (M2 - n m m^T) / max(n - 1, 1), BD = block-diagonal noise;
@@ -23,25 +23,30 @@
 // solve_filter_pm_schedule (its Jacobi, _jacobi_fp32, is a function of d).
 //
 // What bounds it on an H100. About 0.17 GFLOP a pixel at d = 147, 0.75 at
-// d = 243 and 2.5 at d = 363 at the engine's 8 sweeps (ops/bounds.py),
-// three quarters of it the Jacobi: d rounds a sweep, each (d + 1) / 2
-// pivot inner products and as many row-pair rotations of two
-// (d + 1) x (d + 1) matrices. csrc/solve_filter.cu keeps a column of W or
-// Q in a thread's registers; at d = 147 a column is 148 floats, more than
-// a thread can hold. Here W and Q are rows: at d = 147 all in shared
-// memory (2 x 148 x 148 floats, 175 KB of the 227 KB a block may have), so
-// a round reads and writes both once: 350 KB of shared-memory traffic
-// against 55 K FMAs, about 2,700 cycles of an SM's 128 bytes a cycle
-// against 430 of its FMA rate. At d = 243 the two matrices take 476 KB:
-// the first 227 of their 488 rows stay in shared memory, the other 261
-// (255 KB a block, 34 MB for 132 blocks, inside the 50 MB L2) in a global
-// slot of the block, and a round moves 953 KB, more than half of it
-// through L2. At d = 363 they take 1.06 MB: 148 of the 728 rows (W's
+// d = 243 and 2.5 at d = 363 at the engine's 8 sweeps, and 7.4 at d = 507
+// at its 9 (ops/bounds.py), three quarters of it the Jacobi: d rounds a
+// sweep, each (d + 1) / 2 pivot inner products and as many row-pair
+// rotations of two (d + 1) x (d + 1) matrices. csrc/solve_filter.cu keeps
+// a column of W or Q in a thread's registers; at d = 147 a column is 148
+// floats, more than a thread can hold. Here W and Q are rows: at d = 147
+// all in shared memory (2 x 148 x 148 floats, 175 KB of the 227 KB a block
+// may have), so a round reads and writes both once: 350 KB of shared-
+// memory traffic against 55 K FMAs, about 2,700 cycles of an SM's 128
+// bytes a cycle against 430 of its FMA rate. At d = 243 the two matrices
+// take 476 KB: the first 227 of their 488 rows stay in shared memory, the
+// other 261 (255 KB a block, 34 MB for 132 blocks, inside the 50 MB L2) in
+// a global slot of the block, and a round moves 953 KB, more than half of
+// it through L2. At d = 363 they take 1.06 MB: 148 of the 728 rows (W's
 // first 148) stay in shared memory beside the vectors, which take 16 KB
 // there, and the other 580 (845 KB a block, 111 MB for 132 blocks, twice
 // the L2) sit in the global slot, so a round moves about 2 MB a block,
-// most of it to and from HBM. The design is the simple one, not tuned
-// (its time beside its bound: PERF.md).
+// most of it to and from HBM. At d = 507 they take 2.06 MB: 103 of the
+// 1,016 rows (W's first 103) stay in shared memory beside 22 KB of
+// vectors, the other 913 (1.86 MB) in the global slot, which with Cemp and
+// H is 3.92 MB a block, 517 MB for 132 blocks, ten times the L2: a round
+// reads and writes about 3.7 MB a block from HBM, and HBM's traffic, not
+// the FMAs, sets a round's least time. The design is the simple one, not
+// tuned (its time beside its bound: PERF.md).
 //
 // The design:
 //   - A persistent grid, at most one 512-thread block an SM (the wrapper
@@ -51,7 +56,7 @@
 //     pixel, row r in shared memory for r < RS and in the block's global
 //     slot beyond (`Rows`); everything below addresses rows through it, so
 //     the same code runs over either memory, whatever share of the rows
-//     shared memory holds (at d = 363, none of Q).
+//     shared memory holds (at d = 363 and 507, none of Q).
 //   - Re-seating by indirection: a round pairs seats (i, i + HALF); the
 //     rows never move, a seat -> row map (`slot`, two buffers) is permuted
 //     after each round instead. The pair state (diagonal estimates,
@@ -59,13 +64,14 @@
 //   - A round: eight lanes a pair form the inner products <W[a], Q[b]>
 //     (16-byte loads, a three-step shuffle reduction; a warp takes four
 //     pairs a pass, PASSES passes loaded together: two at d = 147 and 243,
-//     three for the 182 pairs at d = 363), lane k of a group then forms
-//     pass k's pair's angles and row scales (as _jacobi_fp32 does), its
-//     record {alpha, beta, rows} and the next seat map; a barrier; every
-//     thread rotates 16-byte units of the rows of W and Q, one FMA an
-//     element; a barrier. At d = 243 a round is bound by the L2 traffic of
-//     the global rows, not by their latency: loading four units before
-//     storing any did not make it faster (PERF.md).
+//     three for the 182 pairs at d = 363, four for the 254 at d = 507),
+//     lane k of a group then forms pass k's pair's angles and row scales
+//     (as _jacobi_fp32 does), its record {alpha, beta, rows} and the next
+//     seat map; a barrier; every thread rotates 16-byte units of the rows
+//     of W and Q, one FMA an element; a barrier. At d = 243 a round is
+//     bound by the L2 traffic of the global rows, not by their latency:
+//     loading four units before storing any did not make it faster
+//     (PERF.md).
 //   - The parts of O(d^3) that run once a pixel are block-wide register-
 //     tiled products (4 x 4 outputs a thread, at most NTP tiles a thread at
 //     once, 16-byte operand rows, all of the form sum_k X[k][i] Y[k][j]):
@@ -707,6 +713,7 @@ extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (d == 147) return n_blocks * Smem<147>::SCRATCH;
   if (d == 243) return n_blocks * Smem<243>::SCRATCH;
   if (d == 363) return n_blocks * Smem<363>::SCRATCH;
+  if (d == 507) return n_blocks * Smem<507>::SCRATCH;
   return -1;
 }
 
@@ -716,7 +723,8 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      int n_rows, int n_off, int d, int sweeps,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
-  if ((d != 147 && d != 243 && d != 363) || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if ((d != 147 && d != 243 && d != 363 && d != 507) || n_blocks <= 0)
+    return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (d == 147)
@@ -725,6 +733,9 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
   if (d == 243)
     return launch<243>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                        n_blocks, field, st);
-  return launch<363>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+  if (d == 363)
+    return launch<363>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                       n_blocks, field, st);
+  return launch<507>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                      n_blocks, field, st);
 }

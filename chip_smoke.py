@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch port (bcd_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-crop H W
+    python3 chip_smoke.py --time-crop H W [--radius R]
 
-The second form times one ``bcd -w 5 -b 10 --stats`` run (phase 9's
-radius and search) on the scene's top-left H x W crop through the CLI's
-entry point, after the kernels are built, and runs nothing else.
+The second form times one ``bcd -w R -b B --stats`` run on the scene's
+top-left H x W crop through the CLI's entry point, after the kernels are
+built, and runs nothing else: R is phase 8's, 9's or 10's patch radius (4,
+5 or 6; 5 by default) and B its search radius (8, 10 or 11).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -53,8 +54,9 @@ non-zero before the final line:
    solve_filter_smem) on the same scene: the kernel against the fp32 model
    of its schedule and its float64 twin on synthetic stacks and on one
    real 16-tile r = 3 batch (its in-place rows bit for bit), its time
-   beside its bound; ``bcd -w 3`` through the CLI's entry point (launches
-   only solve_filter_smem, beats the noisy input; wall time, peak memory,
+   beside its bound; ``bcd -w 3`` through the CLI's entry point on the
+   scene's top-left 544x960 (launches only solve_filter_smem, beats the
+   noisy input; wall time, peak memory,
    main-path fraction; the kernel's share of its device time, the run
    traced); a 48x48 crop on the card against the port's CPU pipeline,
    bitwise repeatable.
@@ -66,7 +68,7 @@ non-zero before the final line:
    beside its bound; ``bcd -w 4 -b 8`` through the CLI's entry point on a
    crop of the scene (launches only solve_filter_243, beats the noisy
    input; the kernel's share of its device time, traced); ``bcd -w 4`` at
-   b = 6 on the whole frame, where no center reaches a solve (launches no
+   b = 6 on that crop, where no center reaches a solve (launches no
    solve kernel); a 32x32 crop on the card against the port's CPU
    pipeline, bitwise repeatable.
 9. The -w 5 path (d = 363, the same kernel with 580 of the 728 rows in
@@ -78,8 +80,18 @@ non-zero before the final line:
    bit for bit on a subset); ``bcd -w 5 -b 10`` on a crop (launches only
    solve_filter_363); ``bcd -w 5 -b 9`` on that crop (no solve launch); a
    32x32 crop against the port's CPU pipeline.
-10. One JSON line of kernel results, the card line, and the final line
-   ``{"ok": true, "device": {...}}``.
+10. The -w 6 path (d = 507, the same kernel with 913 of the 1,016 rows in
+   the global slot, solve_filter_507, 9 Jacobi sweeps) at b = 11, the
+   smallest window that reaches its main path, checked as phase 9 checks
+   the -w 5 path: synthetic stacks against the float64 twin at 9 sweeps
+   and against the fp32 model at 11; one real 8-tile r = 6, b = 11 batch
+   (the engine's batch at this d) timed once in place; ``bcd -w 6 -b 11``
+   on a 64x128 crop (launches only solve_filter_507); ``bcd -w 6 -b 10``
+   on that crop (no solve launch); a 48x48 crop (the smallest size here
+   whose centers reach the solve) against the port's CPU pipeline.
+
+Then one JSON line of kernel results, the card line, and the final line
+``{"ok": true, "device": {...}}``.
 
 Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
 """
@@ -150,13 +162,17 @@ R3_TWIN_CENTERS = 264
 # the -w 3 run's finest-scale main-path fraction must exceed this (first
 # reading on an H100 0.9171)
 R3_MAIN_FLOOR = 0.8
+# the traced -w 3 CLI run: the scene's top-left quarter (the whole 1088x1920
+# frame took 87.7 s of phase 7's 152.7 s on an H100; cut for phase 10's time)
+R3_CROP = (544, 960)
 # phase 8, d = 243 (csrc/solve_filter_smem.cu with 261 of the 488 rows of
 # W and Q in a global slot): held to phase 7's limits (the same schedule,
 # model and twin), on the same counts of centers
 R4_KERNELS = ("solve_filter_243",)
 # every solve kernel; a run that takes no main path launches none
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
-                 "solve_filter_smem", "solve_filter_243", "solve_filter_363")
+                 "solve_filter_smem", "solve_filter_243", "solve_filter_363",
+                 "solve_filter_507")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -165,10 +181,10 @@ R4_SEARCH = 8
 # reading on an H100 0.9018)
 R4_MAIN_FLOOR = 0.72
 # the cut -w 4 -b 8 frame: the scene's top-left crop, sides a multiple of
-# 32, sized from the batch time of (b) (0.35 ms a main-path center on an
-# H100) so that phase 8 stays under about 180 s: 56 s for the crop, 165 s
-# for the phase; the whole 1088x1920 frame takes about 14 minutes
-R4_CROP = (256, 512)
+# 32; 256x512 took 56 s of phase 8's 165 s on an H100, cut to a quarter
+# so that phases 1 to 10 stay well inside the run's time limit; the whole
+# 1088x1920 frame takes about 14 minutes
+R4_CROP = (128, 256)
 # (e): a crop on the card against the port's CPU pipeline
 R4_CPU_CROP = 32
 # phase 9, d = 363 (csrc/solve_filter_smem.cu with 580 of the 728 rows of
@@ -204,11 +220,53 @@ R5_BITWISE_CENTERS = 528
 # reading on an H100 0.8875)
 R5_MAIN_FLOOR = 0.7
 # the cut -w 5 -b 10 frame: the scene's top-left crop, sides a multiple of
-# 32, sized from the kernel's 3.6 ms a main-path center on an H100 so that
-# phase 9 stays near 240 s; the whole 1088x1920 frame takes over two hours
-R5_CROP = (128, 256)
+# 32; 128x256 took 102 s of phase 9's 252 s on an H100, cut to a quarter
+# for phase 10's time; the whole 1088x1920 frame takes over two hours
+R5_CROP = (64, 128)
 # (e): a crop on the card against the port's CPU pipeline
 R5_CPU_CROP = 32
+# phase 10, d = 507 (csrc/solve_filter_smem.cu with 913 of the 1,016 rows
+# of W and Q in a global slot), at the engine's 9 sweeps
+R6_KERNELS = ("solve_filter_507",)
+# the smallest search radius whose window reaches the main path at r = 6:
+# 529 offsets, where n >= d + 1 = 508 similar candidates are needed (b = 10
+# offers 441)
+R6_SEARCH = 11
+# synthetic rows (n of 358 to 390 similar candidates, below d + 1: every
+# pixel rank-deficient), as phase 9's: at the engine's 9 sweeps the fp32
+# model sits about 5e-6 from itself with the candidates reversed, so the
+# kernel can sit about as far from its model there; from 10 sweeps on the
+# schedule has converged, and the model's distance from itself reversed
+# falls under 1e-6 (phase 10 (a) prints both). So the kernel is held to
+# its model at R6_MODEL_SWEEPS, two past the engine's as at d = 363, within
+# phase 7's SMEM_MODEL_RMS, more than 10x that converged distance, and at
+# 9 sweeps to the float64 twin within SYNTH_RMS; on R6_SYNTH_PIXELS pixels
+# (the model runs four times here, each its d = 507 rounds one by one)
+R6_MODEL_SWEEPS = 11
+R6_SYNTH_PIXELS = 64
+# the real r = 6 batch's main-path centers (n >= 508) at 9 sweeps: field vs
+# the fp32 model, relative rms. Phase 9's rule, the synthetic distance at
+# the engine's sweeps over 4, gives about 1.3e-6 here (about 5e-6 / 4; at
+# d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
+# convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
+R6_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 6 batch the model runs on, and those of the timed
+# in-place call over the whole batch held bit for bit to the compact call
+# (one and two waves of the kernel's persistent grid on 132 SMs)
+R6_MODEL_CENTERS = 132
+R6_BITWISE_CENTERS = 264
+# the r = 6, b = 11 finest-scale main-path fraction must exceed this (first
+# reading on an H100 0.8192)
+R6_MAIN_FLOOR = 0.65
+# the cut -w 6 -b 11 frame: the scene's top-left crop, sides a multiple of
+# 32; at -s 3 its coarsest scale (16x32) still has centers at r = 6, so
+# every pixel of the output has an estimate (a 48x48 crop's 12x12 has none,
+# and its output there is 0)
+R6_CROP = (64, 128)
+# (e): a crop on the card against the port's CPU pipeline; in a 32x32 crop
+# the patch centers span 20x20, fewer than the 508 candidates of the main
+# path at r = 6, b = 11, so none takes it; in a 48x48 crop some do
+R6_CPU_CROP = 48
 # centers of the real r = 2 batch on which the lane solve_matrices, on no
 # engine path, is held to its float64 twin (whose call takes about 3 ms a
 # center on the card)
@@ -610,10 +668,10 @@ def lane_moments(x):
 
 def r2_batch(stats, dev, thr, batch=8, radius=2, search_radius=6):
     """The candidate-stack engine's solve inputs for tile batch ``batch``
-    (16 tiles of 32x32) of a whole image at r = ``radius``, b =
-    ``search_radius``, built as the engine builds them. Returns
-    (pixel-major stacks cand, mask, noise, n, m of every center, main-path
-    mask)."""
+    (the engine's tiles a batch, 16 or 8 of 32x32) of a whole image at
+    r = ``radius``, b = ``search_radius``, built as the engine builds
+    them. Returns (pixel-major stacks cand, mask, noise, n, m of every
+    center, main-path mask)."""
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               candidate_stacks, tile_batches)
 
@@ -813,7 +871,8 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
                            name="solve_filter_smem", pixels=1024,
                            model_sweeps=None):
     """solve_filter_pm at d (147: ``solve_filter_smem``, 243:
-    ``solve_filter_243``, 363: ``solve_filter_363``) on ``pixels`` synthetic
+    ``solve_filter_243``, 363: ``solve_filter_363``, 507:
+    ``solve_filter_507``) on ``pixels`` synthetic
     pixels of O candidates: against the float64 twin at ``sweeps``, and
     against the fp32 model of its schedule at ``model_sweeps`` (default
     ``sweeps``; where they differ, the model is also read against itself
@@ -870,12 +929,13 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        model_centers=R3_MODEL_CENTERS,
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
                        bitwise_centers=None, time_once=False):
-    """``name`` (solve_filter_pm at d = 147, 243 or 363) on one real batch:
-    the engine's in-place call on all the main-path rows, timed after a
-    warm-up or, with ``time_once``, once, against the compact call on the
-    first ``bitwise_centers`` of them (or all), bit for bit, and zero on
-    every other row; the compact field against the fp32 model on at most
-    ``model_centers`` centers and against the float64 twin on
+    """``name`` (solve_filter_pm at d = 147, 243, 363 or 507) on one real
+    batch: the engine's in-place call on all the main-path rows, timed
+    after a warm-up or, with ``time_once``, once (and so the twin's
+    centers), against the compact call on the first ``bitwise_centers``
+    of them (or all), bit for bit, and zero on every other row; the
+    compact field against the fp32 model on at most ``model_centers``
+    centers and against the float64 twin on
     R3_TWIN_CENTERS. Returns (max_abs_err, ms, plain_ms, bound) on the
     twin's centers (two a block of a persistent grid on 132 SMs), and the
     whole batch's ms and main-path centers, printed beside its bound."""
@@ -913,9 +973,12 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
         *subt, 1e-8, npx=npx, sweeps=sweeps)
     ref, plain_ms = timed_once(
         lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
-    got = sf()
+    if time_once:  # this too: a call takes seconds at d = 507
+        got, ms = timed_once(sf)
+    else:
+        got, ms = sf(), cuda_ms(sf, 3)
     rel = rel_rms(got, ref)
-    res = (float((got - ref).abs().max()), cuda_ms(sf, 3), plain_ms,
+    res = (float((got - ref).abs().max()), ms, plain_ms,
            bounds.solve_filter(R3_TWIN_CENTERS, n_off, d, sweeps))
     print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
@@ -935,10 +998,10 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     return res, ms_batch, idx.numel()
 
 
-def r3_phase(dev, card, stats, clean, scene_path, e_in):
-    """Phase 7: the -w 3 path on the 1088x1920 scene. Returns the kernels
-    line's entry (max_abs_err, ms, plain_ms, bound) and the -w 3 run's
-    launch counts."""
+def r3_phase(dev, card, stats, clean, scene_path):
+    """Phase 7: the -w 3 path on the 1088x1920 scene (its CLI run on a
+    crop). Returns the kernels line's entry (max_abs_err, ms, plain_ms,
+    bound) and the -w 3 run's launch counts."""
     import torch
     from bcd_tpu_torch import cli
     from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
@@ -968,18 +1031,23 @@ def r3_phase(dev, card, stats, clean, scene_path, e_in):
     res = (max(res[0], e_syn),) + res[1:]
     del pre
 
-    # (c) bcd -w 3 through the CLI's entry point, warmed up on a crop: the
-    # frame is run once, traced (the kernel's share of its device time)
+    # (c) bcd -w 3 through the CLI's entry point on the R3_CROP crop, warmed
+    # up on a smaller one: run once, traced (the kernel's share of its
+    # device time)
     dev_stats = [torch.as_tensor(x, device=dev) for x in stats]
     denoise_pipeline(*(x[:64, :64].contiguous() for x in dev_stats), dev, p3)
-    out_path = scene_path.replace(".exr", "_out_w3.exr")
-    argv3 = ["-i", scene_path, "-o", out_path, "-w", "3"]
+    ch, cw = R3_CROP
+    crop_path = scene_path.replace(".exr", "_w3crop.exr")
+    write_scene(crop_path, *(x[:ch, :cw] for x in stats))
+    out_path = crop_path.replace(".exr", "_out.exr")
+    argv3 = ["-i", crop_path, "-o", out_path, "-w", "3"]
     rcs = []
     _build.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cli3_s, busy, rows = device_time_table(
-        "[7] bcd -w 3", lambda: rcs.append(cli.main(argv3)))
+        f"[7] bcd -w 3 on the {ch}x{cw} crop",
+        lambda: rcs.append(cli.main(argv3)))
     peak3 = torch.cuda.max_memory_allocated()
     launches3 = dict(_build.LAUNCHES)
     need(rcs == [0], "-w 3 CLI run")
@@ -996,13 +1064,14 @@ def r3_phase(dev, card, stats, clean, scene_path, e_in):
     for name in R1_KERNELS:
         need(launches3[name] == 0, f"the -w 3 path launched {name}")
     out3 = image_io.load_exr(out_path)
-    need(out3.shape == clean.shape and np.isfinite(out3).all(),
+    clean_c = clean[:ch, :cw]
+    need(out3.shape == clean_c.shape and np.isfinite(out3).all(),
          "-w 3 CLI output shape / finiteness")
-    e_out3 = rmse(out3, clean)
-    print(f"[7] rmse vs clean: -w 3 output {e_out3:.5f}, noisy input "
-          f"{e_in:.5f}; finest-scale main-path fraction {frac3:.4f}",
-          flush=True)
-    need(e_out3 < e_in, "the -w 3 output is not closer to the clean image")
+    e_out3, e_in_c = rmse(out3, clean_c), rmse(stats[0][:ch, :cw], clean_c)
+    print(f"[7] rmse vs clean on the crop: -w 3 output {e_out3:.5f}, noisy "
+          f"input {e_in_c:.5f}; finest-scale main-path fraction of the "
+          f"frame {frac3:.4f}", flush=True)
+    need(e_out3 < e_in_c, "the -w 3 output is not closer to the clean image")
 
     # (d) a 48x48 crop on the card, twice, against the port's CPU pipeline
     crop = [x[:48, :48].contiguous() for x in dev_stats]
@@ -1034,7 +1103,7 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 and 9 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 10 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
     synthetic and real-batch checks, and whether its batch is timed once."""
@@ -1042,8 +1111,8 @@ def wide_phases():
         4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
                 floor=R4_MAIN_FLOOR, crop=R4_CROP, cpu_crop=R4_CPU_CROP,
                 synth={}, batch={}, time_once=False,
-                # no solve: -w 4 at the default b = 6 on the whole frame
-                no_solve_b=6, no_solve_on_crop=False),
+                # no solve: -w 4 at the default b = 6
+                no_solve_b=6),
         5: dict(tag="[9]", kernels=R5_KERNELS, O=441, search=R5_SEARCH,
                 floor=R5_MAIN_FLOOR, crop=R5_CROP, cpu_crop=R5_CPU_CROP,
                 synth=dict(pixels=R5_SYNTH_PIXELS,
@@ -1053,19 +1122,31 @@ def wide_phases():
                            bitwise_centers=R5_BITWISE_CENTERS),
                 # the batch is timed once, not after a warm-up
                 time_once=True,
-                # no solve: -w 5 at b = 9 (361 offsets) on the crop
-                no_solve_b=9, no_solve_on_crop=True),
+                # no solve: -w 5 at b = 9 (361 offsets)
+                no_solve_b=9),
+        6: dict(tag="[10]", kernels=R6_KERNELS, O=529, search=R6_SEARCH,
+                floor=R6_MAIN_FLOOR, crop=R6_CROP, cpu_crop=R6_CPU_CROP,
+                synth=dict(pixels=R6_SYNTH_PIXELS,
+                           model_sweeps=R6_MODEL_SWEEPS),
+                batch=dict(model_centers=R6_MODEL_CENTERS,
+                           model_limit=R6_MODEL_BATCH_REL_RMS,
+                           bitwise_centers=R6_BITWISE_CENTERS),
+                time_once=True,
+                # no solve: -w 6 at b = 10 (441 offsets)
+                no_solve_b=10),
     }
 
 
-def wide_phase(radius, dev, card, stats, clean, scene_path, e_in):
-    """Phase 8 (radius 4, d = 243) or 9 (radius 5, d = 363): the -w r path
-    on the 1088x1920 scene at the smallest b that reaches its main path.
-    Returns the kernels line's entry (max_abs_err, ms, plain_ms, bound) and
-    the cut frame's launch counts."""
+def wide_phase(radius, dev, card, stats, clean, scene_path):
+    """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363) or 10 (radius 6,
+    d = 507): the -w r path on the 1088x1920 scene at the smallest b that
+    reaches its main path. Returns the kernels line's entry (max_abs_err,
+    ms, plain_ms, bound) and the cut frame's launch counts."""
     import torch
     from bcd_tpu_torch import cli
-    from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
+    from bcd_tpu_torch.core.monoscale import (STACK_TILE_BATCH,
+                                              MonoscaleConfig,
+                                              solve_filter_sweeps)
     from bcd_tpu_torch.core.pipeline import denoise_pipeline
     from bcd_tpu_torch.io import image_io
     from bcd_tpu_torch.ops import _build
@@ -1082,7 +1163,11 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, e_in):
     # (a) synthetic
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, **c["synth"])
-    # (b) one real 16-tile batch of the finest scale (after the prefilter)
+    # (b) one real tile batch of the finest scale (after the prefilter): 16
+    # tiles, 8 at r = 6 (core/monoscale.STACK_BYTES), the batch that holds
+    # the tiles of phase 2's 16-tile batch 8
+    n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
+    k_batch = 8 * STACK_TILE_BATCH // n_tiles
     pw = PipelineParameters()
     pw.denoiser.monoscale.patch_radius = radius
     pw.denoiser.monoscale.search_window_radius = b
@@ -1095,11 +1180,13 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, e_in):
           f"{c['floor']:g})", flush=True)
     need(frac > c["floor"], f"the {' '.join(w)} run barely reaches the main "
          "path")
-    x, main = r2_batch(pre, dev, thr, radius=radius, search_radius=b)
+    x, main = r2_batch(pre, dev, thr, batch=k_batch, radius=radius,
+                       search_radius=b)
     del pre
     res, batch_ms, batch_main = compare_smem_batch(
-        f"full-size r={radius} b={b} batch 8", x, main, sweeps=sweeps,
-        tag=tag, name=name, time_once=c["time_once"], **c["batch"])
+        f"full-size r={radius} b={b} {n_tiles}-tile batch {k_batch}", x,
+        main, sweeps=sweeps, tag=tag, name=name, time_once=c["time_once"],
+        **c["batch"])
     res = (max(res[0], e_syn),) + res[1:]
     # the Jacobi's share: the same batch at 0 sweeps (once where the batch
     # was timed once)
@@ -1153,17 +1240,17 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, e_in):
     full = 1088 * 1920 / (ch * cw)
     print(f"{tag} estimate, not a run: a 1088x1920 {' '.join(w)} frame "
           f"at this crop's rate per pixel {cli_s * full:.1f} s, its kernel "
-          f"{k_us / 1e6 * full:.1f} s; at batch 8's rate per main-path "
+          f"{k_us / 1e6 * full:.1f} s; at (b)'s batch's rate per main-path "
           f"center and the finest scale's fraction "
           f"{batch_ms / batch_main * 1088 * 1920 * frac / 1e3:.1f} s in the "
           "kernel at the finest scale", flush=True)
 
-    # (d) the gate: -w r at a b whose window cannot reach the solve, where
-    # no center reaches it
+    # (d) the gate: -w r on the crop at a b whose window cannot reach the
+    # solve, where no center reaches it
     b0 = c["no_solve_b"]
-    src = crop_path if c["no_solve_on_crop"] else scene_path
-    out_path0 = src.replace(".exr", f"_out_w{radius}b{b0}.exr")
-    argv0 = ["-i", src, "-o", out_path0, "-w", str(radius), "-b", str(b0)]
+    out_path0 = crop_path.replace(".exr", f"_out_w{radius}b{b0}.exr")
+    argv0 = ["-i", crop_path, "-o", out_path0, "-w", str(radius), "-b",
+             str(b0)]
     _build.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv0)
@@ -1173,14 +1260,12 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, e_in):
     need(not any(launches0[k] for k in SOLVE_KERNELS),
          f"the -w {radius} b = {b0} run launched a solve kernel: {launches0}")
     out0 = image_io.load_exr(out_path0)
-    clean0 = clean_c if c["no_solve_on_crop"] else clean
-    need(out0.shape == clean0.shape and np.isfinite(out0).all(),
+    need(out0.shape == clean_c.shape and np.isfinite(out0).all(),
          f"-w {radius} (b = {b0}) CLI output shape / finiteness")
     print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv0)}: rc 0, "
           f"{wall0:.3f} s wall with EXR I/O; launches {launches0} (no solve: "
           f"{(2 * b0 + 1) ** 2} offsets < {d + 1}); rmse vs clean "
-          f"{rmse(out0, clean0):.5f}, noisy input "
-          f"{e_in_c if c['no_solve_on_crop'] else e_in:.5f}", flush=True)
+          f"{rmse(out0, clean_c):.5f}, noisy input {e_in_c:.5f}", flush=True)
 
     # (e) a crop on the card, twice, against the port's CPU pipeline
     k = c["cpu_crop"]
@@ -1478,17 +1563,17 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def time_crop(height, width) -> int:
-    """One timed ``bcd -w 5 -b 10 --stats`` run (phase 9's radius and
-    search) through the CLI's entry point on the scene's top-left height x
-    width crop, the kernels built first: wall time with EXR I/O, launches,
-    peak memory, rmse vs clean."""
+def time_crop(height, width, radius=5) -> int:
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's, 9's or 10's
+    radius r and its search radius b) through the CLI's entry point on the
+    scene's top-left height x width crop, the kernels built first: wall
+    time with EXR I/O, launches, peak memory, rmse vs clean."""
     import torch
     from bcd_tpu_torch import cli
     from bcd_tpu_torch.io import image_io
     from bcd_tpu_torch.ops import _build
 
-    radius, search = 5, wide_phases()[5]["search"]
+    search = wide_phases()[radius]["search"]
     card = card_line()
     _build.library()
     clean, stats = full_scene()
@@ -1544,8 +1629,12 @@ def main() -> int:
     cfg = MonoscaleConfig()
 
     if sys.argv[1:2] == ["--time-crop"]:
-        need(len(sys.argv) == 4, "usage: chip_smoke.py --time-crop H W")
-        return time_crop(int(sys.argv[2]), int(sys.argv[3]))
+        need(len(sys.argv) == 4 or (len(sys.argv) == 6
+                                    and sys.argv[4] == "--radius"
+                                    and sys.argv[5] in ("4", "5", "6")),
+             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6]")
+        return time_crop(int(sys.argv[2]), int(sys.argv[3]),
+                         int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
     # --- 1. the card and the build --------------------------------------
     dev = torch.device("cuda", 0)
@@ -1789,20 +1878,26 @@ def main() -> int:
     # --- 7. the -w 3 path ---------------------------------------------------
     t0 = time.perf_counter()
     kernels["solve_filter_147"], launches3 = r3_phase(
-        dev, card, stats, clean, paths[""], e_in)
+        dev, card, stats, clean, paths[""])
     print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 8. the -w 4 path ---------------------------------------------------
     t0 = time.perf_counter()
     kernels["solve_filter_243"], launches4 = wide_phase(
-        4, dev, card, stats, clean, paths[""], e_in)
+        4, dev, card, stats, clean, paths[""])
     print(f"[8] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 9. the -w 5 path ---------------------------------------------------
     t0 = time.perf_counter()
     kernels["solve_filter_363"], launches5 = wide_phase(
-        5, dev, card, stats, clean, paths[""], e_in)
+        5, dev, card, stats, clean, paths[""])
     print(f"[9] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- 10. the -w 6 path --------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_507"], launches6 = wide_phase(
+        6, dev, card, stats, clean, paths[""])
+    print(f"[10] phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- results ------------------------------------------------------------
     meta = {
@@ -1828,12 +1923,16 @@ def main() -> int:
         "solve_filter_363": ("solve_filter_363",
                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_507": ("solve_filter_507",
+                             "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                             "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
             "solve_filter_smem": launches3["solve_filter_smem"],
             "solve_filter_243": launches4["solve_filter_243"],
-            "solve_filter_363": launches5["solve_filter_363"]}
+            "solve_filter_363": launches5["solve_filter_363"],
+            "solve_filter_507": launches6["solve_filter_507"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

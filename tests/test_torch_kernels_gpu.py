@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
-shared-memory form at d = 147, 243 and 363 and the lane-form
+shared-memory form at d = 147, 243, 363 and 507 and the lane-form
 solve_matrices) against their plain twins, and the solve kernels against
 the plain fp32 model of their own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
@@ -271,10 +271,10 @@ def _rms(a, b):
 
 
 @pytest.mark.parametrize("O,d", [(49, 27), (169, 75), (169, 147),
-                                 (289, 243), (441, 363)])
+                                 (289, 243), (441, 363), (529, 507)])
 def test_solve_filter_kernel_matches_twin(cuda, O, d):
     """At the engine's sweeps for d (6 at d = 27 and 75, 8 at d = 147, 243
-    and 363, where the shared-memory kernel runs)."""
+    and 363, where the shared-memory kernel runs, and 9 at d = 507)."""
     x = _degenerate(_stack_inputs(np.random.default_rng(d), O, d, 256))
     args = [x[k] for k in ("C", "mask", "noise", "n", "m")]
     ref = solve_filter_plain(*args, 1e-8, npx=d // 3)
@@ -419,13 +419,47 @@ def test_solve_filter_363_kernel_matches_schedule(cuda):
         < SMEM_MODEL_RMS
 
 
-@pytest.mark.parametrize("d", [75, 147, 243, 363])
+# d = 507, as d = 363: the synthetic pixels are rank-deficient (n < 508),
+# and at the engine's 9 sweeps two fp32 summation orders of the model part
+# by about 5e-6; from 10 sweeps on the schedule has converged (chip_smoke.py,
+# phase 10)
+R6_MODEL_SWEEPS = 11
+
+
+def test_solve_filter_507_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 507 (csrc/solve_filter_smem.cu with 913 of the
+    1,016 rows of W and Q in a global slot) on 64 synthetic pixels of 529
+    candidates: against the fp32 model of its schedule at R6_MODEL_SWEEPS,
+    rms SMEM_MODEL_RMS, and against the float64 twin at the engine's 9
+    sweeps, rms 2e-4; it launches the d = 507 kernel only."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(507), 529, 507, 64)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    _build.reset_launches()
+    got = solve_filter_pm(*pm, 1e-8, npx=169, sweeps=solve_filter_sweeps(507))
+    assert _build.LAUNCHES["solve_filter_507"] == 1
+    assert _build.LAUNCHES["solve_filter_363"] == 0
+    assert _build.LAUNCHES["solve_filter_243"] == 0
+    assert _build.LAUNCHES["solve_filter_smem"] == 0
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 169)) < 2e-4
+    got = solve_filter_pm(*pm, 1e-8, npx=169, sweeps=R6_MODEL_SWEEPS)
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, 169,
+                                              R6_MODEL_SWEEPS)) \
+        < SMEM_MODEL_RMS
+
+
+@pytest.mark.parametrize("d", [75, 147, 243, 363, 507])
 def test_solve_filter_pm_rows_in_place(cuda, d):
     """The engine's entry: with ``rows`` the kernel reads those pixels of the
     stacks in place and writes their fields, bit for bit those of the
     compact stacks; the other rows are 0."""
     x = _stack_inputs(np.random.default_rng(31),
-                      {243: 289, 363: 441}.get(d, 169), d, 64)
+                      {243: 289, 363: 441, 507: 529}.get(d, 169), d, 64)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
@@ -491,26 +525,26 @@ def test_wrappers_count_only_launches(cuda):
 
 def test_solve_filter_pm_empty_rows_at_any_d(cuda):
     """No pixel to solve (a batch where no center reaches the main path):
-    zeros and no launch, also at d = 507, for which no kernel is built."""
+    zeros and no launch, also at d = 675, for which no kernel is built."""
     from bcd_tpu_torch.ops import _build
 
-    x = _stack_inputs(np.random.default_rng(1), 9, 507, 3)
+    x = _stack_inputs(np.random.default_rng(1), 9, 675, 3)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
         x["m"].T.contiguous())]
     _build.reset_launches()
-    field = solve_filter_pm(*pm, 1e-8, npx=169, sweeps=8,
+    field = solve_filter_pm(*pm, 1e-8, npx=225, sweeps=9,
                             rows=torch.zeros(0, dtype=torch.long, device=cuda))
-    assert field.shape == (3, 9, 507) and not bool(field.any())
+    assert field.shape == (3, 9, 675) and not bool(field.any())
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    """d = 507 (patch radius 6) with a pixel to solve: no kernel is built
-    for it (W and Q would take 2.06 MB a pixel); refused with the reason,
+    """d = 675 (patch radius 7) with a pixel to solve: no kernel is built
+    for it (W and Q would take 3.66 MB a pixel); refused with the reason,
     and the lane form at d = 147 too."""
-    d = 507
+    d = 675
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
     pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -530,14 +564,14 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """Radius 3 to 5 run on the card now; radius 6 at b = 11, where a
-    center can reach the solve and no kernel is built for d = 507, is
+    """Radius 3 to 6 run on the card now; radius 7 at b = 13, where a
+    center can reach the solve and no kernel is built for d = 675, is
     refused before the inputs are read, with the shared-memory reason, and
     the twin never runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "6", "-b", "11"]) == 1
+                     "7", "-b", "13"]) == 1
     out = capsys.readouterr().out
     assert "shared memory" in out and "ROADMAP" in out
 

@@ -1,0 +1,34 @@
+"""Why the engine runs 9 Jacobi sweeps at d = 507 (patch radius 6), and
+that no smaller d moves: the fp32 schedule of the solve kernels against
+the float64 twin. A file of its own: the schedule's 4,563 rounds at
+d = 507 take tens of seconds a call on a host's cores."""
+
+import numpy as np
+import pytest
+
+from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
+from bcd_tpu_torch.ops import solve_filter as ts
+from tests.test_torch_solve import _pm_stacks, _rms, _t
+from tests.torch_workers import share_cores
+
+share_cores()
+
+
+def test_schedule_sweeps_at_d507():
+    """The smallest count that keeps the fp32 schedule within 2e-5 rms of
+    the float64 twin, as at d = 147 to 363: on 8 pixels of 529 candidates
+    8 sweeps leave about 2.9e-5, 9 about 2.4e-6."""
+    npx, d = 169, 507
+    pm = _t(*(a for a in _pm_stacks(np.random.default_rng(21), 529, d, 8)))
+    want = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
+    assert solve_filter_sweeps(d) == 9
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 8), want) > 2e-5
+    assert _rms(ts.solve_filter_pm_schedule(*pm, 1e-8, npx, 9), want) < 2e-5
+
+
+@pytest.mark.parametrize("d,sweeps", [(27, 6), (75, 6), (147, 8), (243, 8),
+                                      (363, 8), (507, 9), (675, 9)])
+def test_sweeps_by_patch_dimension(d, sweeps):
+    """The engine's sweeps for each patch radius 1 to 7: 9 from d = 507 on,
+    and d = 27 to 363 keep the counts their results were read at."""
+    assert solve_filter_sweeps(d) == sweeps
