@@ -11,7 +11,7 @@ contributions are overlap-added in one deterministic pass
 - Any other radius: the candidate-stack engine below, the port of JAX's
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
   ``solve_filter_pm``, run only on the main-path centers: on the card the
-  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 6.
+  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 7.
 
 Each kernel launches once per batch of tiles, not once per tile. With
 ``collect_stats`` each tile engine also returns its batch's main-path and
@@ -46,9 +46,11 @@ from bcd_tpu_torch.ops.solve_filter import check_solve_path, solve_filter_pm
 # eight 5e-6 (::test_schedule_sweeps_at_d243), and at d = 363 (r = 5) seven
 # 1.1e-4, eight 7e-6 (::test_schedule_sweeps_at_d363), so eight again. At
 # d = 507 (r = 6) eight leave 2.9e-5, past that 2e-5, and nine 2.4e-6
-# (tests/test_torch_sweeps_r6.py), so nine. JAX's r = 3 to 6 results are
-# its plain path's, with a converged eigh, since its kernel cannot hold
-# d = 147 and above in VMEM.
+# (tests/test_torch_sweeps_r6.py), so nine; at d = 675 (r = 7) eight leave
+# 5.5e-5, nine 5.7e-6 (tests/test_torch_kernels_gpu.py
+# ::test_schedule_sweeps_at_d675, read on an H100), so nine again. JAX's
+# r = 3 to 7 results are its plain path's, with a converged eigh, since its
+# kernel cannot hold d = 147 and above in VMEM.
 SOLVE_FILTER_SWEEPS = 6
 SOLVE_FILTER_SWEEPS_R3 = 8
 SOLVE_FILTER_SWEEPS_R6 = 9
@@ -68,8 +70,12 @@ FUSED_TILE_BATCH = 128
 # the field as much again, and the batch peaks at 40364.8 MiB on an 80 GB
 # H100, which batch 16 fits (PERF.md). At r = 6, b = 11 a 16-tile stack
 # would be (16384, 529, 507), 17.6 GB, and the batch's peak, about four
-# times its stack, would near the card's 80 GB: where a 16-tile stack
-# passes STACK_BYTES the engine takes half as many tiles a batch
+# times its stack, would near the card's 80 GB. So the engine halves its
+# tiles a batch, from STACK_TILE_BATCH, until the fp32 stack fits
+# STACK_BYTES, down to one tile, which it keeps even where one tile's
+# stack is larger (JAX's plain path runs one tile at a time and refuses
+# none): 8 at r = 6, b = 10 and 11; 4 at r = 7, b = 13 (an 8.06 GB stack),
+# r = 6, b = 18 and r = 3, b = 33
 STACK_TILE_BATCH = 16
 STACK_BYTES = 12e9
 
@@ -83,8 +89,8 @@ class MonoscaleConfig:
     tile: int = 32  # core tile side, in pixels
     solve_sweeps: int = 4  # Jacobi sweeps of K2's eigenvalue clamp
     # tiles per kernel launch; None: FUSED_TILE_BATCH for the fused engine,
-    # STACK_TILE_BATCH for the candidate-stack engine, half that where its
-    # fp32 candidate stack would pass STACK_BYTES
+    # STACK_TILE_BATCH for the candidate-stack engine, halved down to one
+    # tile while its fp32 candidate stack would pass STACK_BYTES
     tile_batch: Optional[int] = None
     # solve only every skip_stride-th center on both axes (the deterministic
     # analog of the reference's skip marking, DenoisingUnit.cpp:163-173);
@@ -112,10 +118,12 @@ class MonoscaleConfig:
             return self.tile_batch
         if self.fused:
             return FUSED_TILE_BATCH
-        stack = (4 * STACK_TILE_BATCH * self.tile ** 2
-                 * (2 * self.search_radius + 1) ** 2 * self.d)
-        return (STACK_TILE_BATCH // 2 if stack > STACK_BYTES
-                else STACK_TILE_BATCH)
+        tile_stack = (4 * self.tile ** 2 * (2 * self.search_radius + 1) ** 2
+                      * self.d)
+        batch = STACK_TILE_BATCH
+        while batch > 1 and batch * tile_stack > STACK_BYTES:
+            batch //= 2
+        return batch
 
     @property
     def halo(self) -> int:

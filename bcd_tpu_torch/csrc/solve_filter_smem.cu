@@ -1,13 +1,13 @@
-// solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363) and
-// 6 (d = 507): the per-pixel two-step Bayesian solve and filter of the
-// candidate stacks, with the Jacobi's two working matrices in shared memory
-// (d = 147), or as much of them as fits there and the rest in a global
-// slot of the block (d = 243, 363 and 507).
+// solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363),
+// 6 (d = 507) and 7 (d = 675): the per-pixel two-step Bayesian solve and
+// filter of the candidate stacks, with the Jacobi's two working matrices in
+// shared memory (d = 147), or as much of them as fits there and the rest in
+// a global slot of the block (d = 243, 363, 507 and 675).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
-// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363
-// and 507; it computes what csrc/solve_filter.cu computes at d = 27 and 75.
-// Per pixel:
+// body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363,
+// 507 and 675; it computes what csrc/solve_filter.cu computes at d = 27 and
+// 75. Per pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
 //   Cemp = (M2 - n m m^T) / max(n - 1, 1), BD = block-diagonal noise;
@@ -45,8 +45,15 @@
 // vectors, the other 913 (1.86 MB) in the global slot, which with Cemp and
 // H is 3.92 MB a block, 517 MB for 132 blocks, ten times the L2: a round
 // reads and writes about 3.7 MB a block from HBM, and HBM's traffic, not
-// the FMAs, sets a round's least time. The design is the simple one, not
-// tuned (its time beside its bound: PERF.md).
+// the FMAs, sets a round's least time. At d = 675 they take 3.66 MB: 72 of
+// the 1,352 rows (W's first 72) stay in shared memory beside 35 KB of
+// vectors (the staged Cholesky rows among them), the other 1,280 (3.46 MB)
+// in the global slot, which with Cemp and H is 7.12 MB a block, 939 MB for
+// 132 blocks, 19 times the L2: a round (338 pairs, six pivot passes)
+// reads and writes about 6.9 MB a block in its rotations and reads 1.6 MB
+// more for its pivot products, nearly all of it from HBM, and that traffic
+// again bounds it. The design is the simple one, not tuned (its time
+// beside its bound: PERF.md).
 //
 // The design:
 //   - A persistent grid, at most one 512-thread block an SM (the wrapper
@@ -56,7 +63,7 @@
 //     pixel, row r in shared memory for r < RS and in the block's global
 //     slot beyond (`Rows`); everything below addresses rows through it, so
 //     the same code runs over either memory, whatever share of the rows
-//     shared memory holds (at d = 363 and 507, none of Q).
+//     shared memory holds (at d = 363 to 675, none of Q).
 //   - Re-seating by indirection: a round pairs seats (i, i + HALF); the
 //     rows never move, a seat -> row map (`slot`, two buffers) is permuted
 //     after each round instead. The pair state (diagonal estimates,
@@ -64,7 +71,8 @@
 //   - A round: eight lanes a pair form the inner products <W[a], Q[b]>
 //     (16-byte loads, a three-step shuffle reduction; a warp takes four
 //     pairs a pass, PASSES passes loaded together: two at d = 147 and 243,
-//     three for the 182 pairs at d = 363, four for the 254 at d = 507),
+//     three for the 182 pairs at d = 363, four for the 254 at d = 507,
+//     six for the 338 at d = 675),
 //     lane k of a group then forms pass k's pair's angles and row scales
 //     (as _jacobi_fp32 does), its record {alpha, beta, rows} and the next
 //     seat map; a barrier; every thread rotates 16-byte units of the rows
@@ -82,8 +90,10 @@
 //     reuse the space of W and Q once the clamp has read Q: right-looking,
 //     one barrier a column, eps joining each pivot as it is reached (pivots
 //     floored at 1e-30), the forward substitution taken along, the pivot
-//     row kept in registers (d / 32 columns a lane); the back substitution
-//     right-looking too.
+//     row kept in registers (d / 32 columns a lane) up to d = 507 and
+//     staged in shared memory beyond, where the registers spilled it
+//     (one more barrier a column); the back substitution right-looking
+//     too.
 //
 // Layouts (pixel-major, P pixels; bcd_tpu_torch/ops/solve_filter.py):
 // cand (P, O, d), mask (P, O), noise (P, 6 npx) with the channels
@@ -118,10 +128,19 @@ struct Smem {
   static constexpr int NTP = 3;
   static constexpr int NTP_M2 = 2;
   static constexpr int M2_PASSES = (TRI + NTP_M2 * THREADS - 1) / (NTP_M2 * THREADS);
+  // the Cholesky's pivot row of S and of Y, scaled: in registers, CL
+  // columns a lane in each of two arrays, up to CL = 16 (d = 507); past
+  // that (d = 675: 22 columns) ptxas spilled it inside the elimination
+  // loop, so it is staged in the shared vectors instead. The fields are
+  // the same bit for bit either way; on an H100 the registers were the
+  // faster at d = 147 to 507 and the staged row at d = 675
+  static constexpr int CL = (D + 31) / 32;
+  static constexpr bool PIVOT_SMEM = CL > 16;
   // the vectors: m, the noise, diag, f, neg (then b2), the Cholesky's
-  // 1 / L[j][j], a round's pair records {alpha, beta, top row, bottom row}
-  // and two seat maps (int)
-  static constexpr int VEC = DP + (NOV + 3) / 4 * 4 + 4 * DP + 4 * HALF + 2 * DP;
+  // 1 / L[j][j], a round's pair records {alpha, beta, top row, bottom row},
+  // two seat maps (int) and, with PIVOT_SMEM, the staged pivot rows
+  static constexpr int PIV = PIVOT_SMEM ? 2 * DP : 0;
+  static constexpr int VEC = DP + (NOV + 3) / 4 * 4 + 4 * DP + 4 * HALF + 2 * DP + PIV;
   // rows of W (0 .. DP) and Q (DP .. 2 DP) in shared memory; the others
   // in the block's global slot (Rows)
   static constexpr int RS = (SMEM_FLOATS - VEC) / DP < 2 * DP ? (SMEM_FLOATS - VEC) / DP : 2 * DP;
@@ -135,7 +154,8 @@ struct Smem {
   static constexpr int R_OFF = NEG_OFF + DP;  // the Cholesky's 1 / L[j][j]
   static constexpr int REC_OFF = R_OFF + DP;
   static constexpr int SLOT_OFF = REC_OFF + 4 * HALF;
-  static constexpr int FLOATS = SLOT_OFF + 2 * DP;
+  static constexpr int PIV_OFF = SLOT_OFF + 2 * DP;
+  static constexpr int FLOATS = PIV_OFF + PIV;
   static constexpr int BYTES = FLOATS * (int)sizeof(float);
   // global floats a block: Cemp, H, then the rows not in shared memory
   static constexpr int SCRATCH = 2 * MAT + GROWS * DP;
@@ -272,10 +292,13 @@ __device__ __forceinline__ void tile_product(XRow X, bool xg, YRow Y, bool yg, i
 // Y take L[i][j] = S[j][i] r_j times row j, scaled by r_j. Row j of Y is
 // scaled in place at step j + 1, when nobody reads it. The back
 // substitution goes up, right-looking: at step i row i of X is final, and
-// rows l < i take L[i][l] X[i]. Ends with a block barrier.
+// rows l < i take L[i][l] X[i]. The scaled pivot rows sit in registers
+// (CL columns a lane) or, with PIVOT_SMEM, in `pv` (2 DP floats of shared
+// memory, one more barrier a step); the arithmetic is the same. Ends with
+// a block barrier.
 template <int D, class SRow, class YRow>
 __device__ __forceinline__ void chol_solve(SRow S, YRow Y, const float* nov, float* rv,
-                                           float eps) {
+                                           float* pv, float eps) {
   using G = Smem<D>;
   constexpr int DP = G::DP;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -283,7 +306,7 @@ __device__ __forceinline__ void chol_solve(SRow S, YRow Y, const float* nov, flo
     const int i = e / DP, c = e - i * DP;
     Y(i)[c] = (i < D && c < D) ? bd_at(nov, i, c) : 0.f;
   }
-  constexpr int CL = (D + 31) / 32;  // columns a lane: c = lane + 32 m
+  constexpr int CL = G::CL;  // columns a lane: c = lane + 32 m
 #pragma unroll 1
   for (int j = 0; j < D; ++j) {
     __syncthreads();
@@ -295,24 +318,41 @@ __device__ __forceinline__ void chol_solve(SRow S, YRow Y, const float* nov, flo
       float* yp = Y(j - 1);
       for (int c = lane; c < D; c += 32) yp[c] *= rp;
     }
-    // row j of S (= column j) and of Y, scaled by r_j, in registers
+    // row j of S (= column j) and of Y, scaled by r_j
     const float* yj = Y(j);
-    float sr[CL], yr[CL];
-#pragma unroll
-    for (int mm = 0; mm < CL; ++mm) {
-      const int c = lane + 32 * mm;
-      sr[mm] = c < D ? sj[c] * rj : 0.f;
-      yr[mm] = c < D ? yj[c] * rj : 0.f;
-    }
-    for (int i = j + 1 + warp; i < D; i += G::WARPS) {
-      const float lij = sj[i] * rj;
-      float* si = S(i);
-      float* yi = Y(i);
+    if constexpr (G::PIVOT_SMEM) {
+      for (int c = tid; c < D; c += G::THREADS) {
+        pv[c] = sj[c] * rj;
+        pv[DP + c] = yj[c] * rj;
+      }
+      __syncthreads();
+      for (int i = j + 1 + warp; i < D; i += G::WARPS) {
+        const float lij = pv[i];
+        float* si = S(i);
+        float* yi = Y(i);
+        for (int c = lane; c < D; c += 32) {
+          if (c >= i) si[c] = fmaf(-lij, pv[c], si[c]);
+          yi[c] = fmaf(-lij, pv[DP + c], yi[c]);
+        }
+      }
+    } else {
+      float sr[CL], yr[CL];
 #pragma unroll
       for (int mm = 0; mm < CL; ++mm) {
         const int c = lane + 32 * mm;
-        if (c >= i && c < D) si[c] = fmaf(-lij, sr[mm], si[c]);
-        if (c < D) yi[c] = fmaf(-lij, yr[mm], yi[c]);
+        sr[mm] = c < D ? sj[c] * rj : 0.f;
+        yr[mm] = c < D ? yj[c] * rj : 0.f;
+      }
+      for (int i = j + 1 + warp; i < D; i += G::WARPS) {
+        const float lij = sj[i] * rj;
+        float* si = S(i);
+        float* yi = Y(i);
+#pragma unroll
+        for (int mm = 0; mm < CL; ++mm) {
+          const int c = lane + 32 * mm;
+          if (c >= i && c < D) si[c] = fmaf(-lij, sr[mm], si[c]);
+          if (c < D) yi[c] = fmaf(-lij, yr[mm], yi[c]);
+        }
       }
     }
   }
@@ -335,19 +375,29 @@ __device__ __forceinline__ void chol_solve(SRow S, YRow Y, const float* nov, flo
       for (int c = lane; c < D; c += 32) yn[c] *= rn;
     }
     const float* yi = Y(i);
-    float xr[CL];
-#pragma unroll
-    for (int mm = 0; mm < CL; ++mm) {
-      const int c = lane + 32 * mm;
-      xr[mm] = c < D ? yi[c] * ri : 0.f;
-    }
-    for (int l = warp; l < i; l += G::WARPS) {
-      const float lil = S(l)[i] * rv[l];
-      float* yl = Y(l);
+    if constexpr (G::PIVOT_SMEM) {
+      for (int c = tid; c < D; c += G::THREADS) pv[c] = yi[c] * ri;
+      __syncthreads();
+      for (int l = warp; l < i; l += G::WARPS) {
+        const float lil = S(l)[i] * rv[l];
+        float* yl = Y(l);
+        for (int c = lane; c < D; c += 32) yl[c] = fmaf(-lil, pv[c], yl[c]);
+      }
+    } else {
+      float xr[CL];
 #pragma unroll
       for (int mm = 0; mm < CL; ++mm) {
         const int c = lane + 32 * mm;
-        if (c < D) yl[c] = fmaf(-lil, xr[mm], yl[c]);
+        xr[mm] = c < D ? yi[c] * ri : 0.f;
+      }
+      for (int l = warp; l < i; l += G::WARPS) {
+        const float lil = S(l)[i] * rv[l];
+        float* yl = Y(l);
+#pragma unroll
+        for (int mm = 0; mm < CL; ++mm) {
+          const int c = lane + 32 * mm;
+          if (c < D) yl[c] = fmaf(-lil, xr[mm], yl[c]);
+        }
       }
     }
   }
@@ -379,6 +429,7 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
   float* rv = sm + G::R_OFF;
   float4* rec = reinterpret_cast<float4*>(sm + G::REC_OFF);
   int* slot = reinterpret_cast<int*>(sm + G::SLOT_OFF);
+  float* pv = sm + G::PIV_OFF;
   float* cemp = scratch + (size_t)blockIdx.x * G::SCRATCH;  // global, row stride DP
   float* hmat = cemp + G::MAT;
   const Rows<D> row{sm, hmat + G::MAT};
@@ -620,7 +671,7 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
             }
         });
     __syncthreads();  // every thread has read Q before the solve writes it
-    chol_solve<D>(W, Q, nov, rv, eps);  // Q rows: X1
+    chol_solve<D>(W, Q, nov, rv, pv, eps);  // Q rows: X1
     // A1^T = I - X1 in place; H = Cemp A1^T to the scratch (Cemp is
     // symmetric: H[i][c] = sum_k Cemp[k][i] A1^T[k][c])
     for (int e = tid; e < DP * DP; e += T) {
@@ -652,7 +703,7 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
                         }
                     });
     __syncthreads();  // every thread has read A1^T before the solve writes Q
-    chol_solve<D>(W, Q, nov, rv, eps);  // Q rows: X2
+    chol_solve<D>(W, Q, nov, rv, pv, eps);  // Q rows: X2
     // b2[c] = sum_k X2[k][c] m[k]
     for (int c = tid; c < DP; c += T) {
       float s = 0.f;
@@ -714,6 +765,7 @@ extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (d == 243) return n_blocks * Smem<243>::SCRATCH;
   if (d == 363) return n_blocks * Smem<363>::SCRATCH;
   if (d == 507) return n_blocks * Smem<507>::SCRATCH;
+  if (d == 675) return n_blocks * Smem<675>::SCRATCH;
   return -1;
 }
 
@@ -723,7 +775,7 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      int n_rows, int n_off, int d, int sweeps,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
-  if ((d != 147 && d != 243 && d != 363 && d != 507) || n_blocks <= 0)
+  if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675) || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
@@ -736,6 +788,9 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
   if (d == 363)
     return launch<363>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                        n_blocks, field, st);
-  return launch<507>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+  if (d == 507)
+    return launch<507>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                       n_blocks, field, st);
+  return launch<675>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                      n_blocks, field, st);
 }

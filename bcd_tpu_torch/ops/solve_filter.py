@@ -20,11 +20,11 @@ built for d = 27 (r = 1) and d = 75 (r = 2), which keeps a column of the
 Jacobi's matrices in a thread's registers. At d = 147 (r = 3) a column
 outgrows the registers: ``solve_filter_pm`` runs ``csrc/solve_filter_smem.cu``
 there, the same function with the two matrices in shared memory, and at
-d = 243 (r = 4), d = 363 (r = 5) and d = 507 (r = 6) the same kernel with
-the rows that do not fit there in a global slot of the block (at d = 363
-most of them: 580 of 728; at d = 507, 913 of 1,016, the slot 3.92 MB a
-block with Cemp and H); the lane ``solve_matrices`` has no d = 147
-kernel. Larger d is refused where a center could reach the solve
+d = 243 (r = 4), 363 (r = 5), 507 (r = 6) and 675 (r = 7) the same kernel
+with the rows that do not fit there in a global slot of the block (at
+d = 363 most of them: 580 of 728; at d = 507, 913 of 1,016, the slot
+3.92 MB a block with Cemp and H; at d = 675, 1,278 of 1,352, 7.11 MB); the
+lane ``solve_matrices`` has no d = 147 kernel. Larger d is refused where a center could reach the solve
 (``check_solve_path``). The kernels' headers give the math, the design
 and what bounds them.
 ``solve_schedule_core`` is the plain float32 model of every solve
@@ -65,15 +65,17 @@ EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
 # csrc/solve_filter_smem.cu (r = 3; W and Q, 2 (d + 1)^2 floats, in shared
 # memory, 175 KB of a block's 227 KB; r = 4: 476 KB, 227 of the 488 rows in
 # shared memory, the others in a global slot of the block; r = 5: 1.06 MB,
-# 148 of the 728 rows in shared memory; r = 6: 2.06 MB, 103 of 1,016)
-KERNEL_DIMS = (27, 75, 147, 243, 363, 507)
+# 148 of the 728 rows in shared memory; r = 6: 2.06 MB, 103 of 1,016; r = 7:
+# 3.66 MB, 74 of 1,352)
+KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675)
 # the d that csrc/solve_filter_smem.cu runs, with each one's launch counter
 SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243",
-             363: "solve_filter_363", 507: "solve_filter_507"}
+             363: "solve_filter_363", 507: "solve_filter_507",
+             675: "solve_filter_675"}
 # the lane solve_matrices' kernel (csrc/solve_filter.cu only)
 LANE_KERNEL_DIMS = (27, 75)
 SMEM_BYTES = 232448  # shared memory an H100 block may have
-ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 7")
+ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 8")
 ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
@@ -134,11 +136,11 @@ def check_kernel_dim(d: int) -> None:
         need = 2 * (d + d % 2) ** 2 * 4
         raise NotImplementedError(
             f"patch dimension d = {d}: the CUDA solve kernels are built for "
-            f"d in {KERNEL_DIMS} (patch radius 1 to 6); the Jacobi's two "
+            f"d in {KERNEL_DIMS} (patch radius 1 to 7); the Jacobi's two "
             f"working matrices take {need} bytes at this d, more than the "
             f"{SMEM_BYTES} bytes of shared memory a block may have (the "
-            f"d = 243, 363 and 507 kernels keep the rows that do not fit "
-            f"there in a global slot, built for those d only); see "
+            f"d = 243, 363, 507 and 675 kernels keep the rows that do not "
+            f"fit there in a global slot, built for those d only); see "
             f"{ROADMAP_LARGE_D}")
 
 
@@ -394,8 +396,8 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     = mask * (A2 c + b2). With ``rows`` (int64 pixel indices), only those
     pixels are solved and the other rows of field are 0. ``sweeps`` is the
     kernel's number of Jacobi sweeps; the twin's exact eigh has none. On
-    CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147, 243, 363
-    and 507 ``csrc/solve_filter_smem.cu``, and any other d is refused
+    CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147, 243, 363,
+    507 and 675 ``csrc/solve_filter_smem.cu``, and any other d is refused
     (``check_kernel_dim``) unless no pixel is to be solved (an empty
     ``rows``: no launch).
     """

@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-crop H W [--radius R]
+    python3 chip_smoke.py --batch-rule
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's, 9's or 10's patch radius (4,
-5 or 6; 5 by default) and B its search radius (8, 10 or 11).
+built, and runs nothing else: R is phase 8's, 9's, 10's or 11's patch
+radius (4, 5, 6 or 7; 5 by default) and B its search radius (8, 10, 11 or
+13). The third runs only the first's ``bcd -w 3 -b 33`` run of phase 11
+(the engine's tiles a batch and the peak memory at that window); copied
+into a checkout of an earlier commit, it reads that commit's engine.
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -76,8 +80,9 @@ non-zero before the final line:
    reaches its main path, checked as phase 8 checks the -w 4 path: on
    synthetic stacks against the float64 twin at the engine's 8 sweeps and
    against its fp32 model at 10, where the schedule has converged; one
-   real 16-tile r = 5, b = 10 batch timed once in place (its in-place rows
-   bit for bit on a subset); ``bcd -w 5 -b 10`` on a crop (launches only
+   real 16-tile r = 5, b = 10 batch, a part of it (its first 528 and last
+   264 main-path rows) timed once in place and held bit for bit to the
+   compact call; ``bcd -w 5 -b 10`` on a crop (launches only
    solve_filter_363); ``bcd -w 5 -b 9`` on that crop (no solve launch); a
    32x32 crop against the port's CPU pipeline.
 10. The -w 6 path (d = 507, the same kernel with 913 of the 1,016 rows in
@@ -85,10 +90,22 @@ non-zero before the final line:
    smallest window that reaches its main path, checked as phase 9 checks
    the -w 5 path: synthetic stacks against the float64 twin at 9 sweeps
    and against the fp32 model at 11; one real 8-tile r = 6, b = 11 batch
-   (the engine's batch at this d) timed once in place; ``bcd -w 6 -b 11``
-   on a 64x128 crop (launches only solve_filter_507); ``bcd -w 6 -b 10``
-   on that crop (no solve launch); a 48x48 crop (the smallest size here
-   whose centers reach the solve) against the port's CPU pipeline.
+   (the engine's batch at this d), a part of it timed once in place (its
+   first and last 264 main-path rows, the last past element 2^31 of the
+   stack, bit for bit against the compact call); ``bcd -w 6 -b 11`` on a
+   64x128 crop (launches only solve_filter_507); ``bcd -w 6 -b 10`` on
+   that crop (no solve launch); a 48x48 crop (the smallest size here whose
+   centers reach the solve) against the port's CPU pipeline.
+11. The -w 7 path (d = 675, the same kernel with 1,280 of the 1,352 rows
+   in the global slot and the Cholesky's pivot rows in shared memory,
+   solve_filter_675, 9 sweeps) at b = 13, checked as phase 10 checks the
+   -w 6 path: synthetic stacks against the float64 twin at 9 sweeps and
+   the fp32 model at 11; one real 4-tile r = 7, b = 13 batch, its first
+   and last 264 main-path rows timed once in place; ``bcd -w 7 -b 13`` on
+   a 64x64 crop (launches only solve_filter_675; peak memory);
+   ``bcd -w 7 -b 12`` on that crop (no solve launch); a 40x40 crop against
+   the port's CPU pipeline. Then ``bcd -w 3 -b 33`` on a 64x128 crop: the
+   engine's batch rule, 4 tiles a batch there, and its peak memory.
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -172,7 +189,7 @@ R4_KERNELS = ("solve_filter_243",)
 # every solve kernel; a run that takes no main path launches none
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
-                 "solve_filter_507")
+                 "solve_filter_507", "solve_filter_675")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -210,10 +227,11 @@ R5_SYNTH_PIXELS = 264
 # over the smallest synthetic-to-batch ratio of phases 7 and 8 (4) gives
 # about 5.5e-6, and the limit leaves about 4x over that
 R5_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 5 batch the model runs on, and those of the
-# timed in-place call over the whole batch that are held bit for bit to the
-# compact call (the whole batch takes about a minute on an H100, so it is
-# timed once and not run compact as well)
+# centers of the real r = 5 batch the model runs on, and the first main-
+# path rows of the timed in-place call held bit for bit to the compact call
+# (with the last R3_TWIN_CENTERS). The whole 16-tile batch took 58.2 s on an
+# H100 (PERF.md): since phase 11 it is timed once on those 792 rows, a
+# part, to keep phases 1-11 well inside the run's time limit
 R5_MODEL_CENTERS = 528
 R5_BITWISE_CENTERS = 528
 # the r = 5, b = 10 finest-scale main-path fraction must exceed this (first
@@ -250,11 +268,17 @@ R6_SYNTH_PIXELS = 64
 # d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
 # convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
 R6_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 6 batch the model runs on, and those of the timed
-# in-place call over the whole batch held bit for bit to the compact call
-# (one and two waves of the kernel's persistent grid on 132 SMs)
+# centers of the real r = 6 batch the model runs on, and the first and the
+# last main-path rows of the batch that the timed in-place call solves and
+# holds bit for bit to the compact call (one and two waves of the kernel's
+# persistent grid on 132 SMs). The whole 8-tile batch took 98.4 s on an
+# H100, most of phase 10 (PERF.md): it is timed on those 528 rows, a part,
+# to leave phase 11 room in the run's time limit. Its last rows lie past
+# element 2^31 of the (8192, 529, 507) stack.
 R6_MODEL_CENTERS = 132
 R6_BITWISE_CENTERS = 264
+# the 8-tile batch's main-path fraction (8,192 of 8,192 centers on an H100)
+R6_BATCH_FLOOR = 0.8
 # the r = 6, b = 11 finest-scale main-path fraction must exceed this (first
 # reading on an H100 0.8192)
 R6_MAIN_FLOOR = 0.65
@@ -267,6 +291,48 @@ R6_CROP = (64, 128)
 # the patch centers span 20x20, fewer than the 508 candidates of the main
 # path at r = 6, b = 11, so none takes it; in a 48x48 crop some do
 R6_CPU_CROP = 48
+# phase 11, d = 675 (csrc/solve_filter_smem.cu with 1,280 of the 1,352 rows
+# of W and Q in a global slot), at the engine's 9 sweeps
+R7_KERNELS = ("solve_filter_675",)
+# the smallest search radius whose window reaches the main path at r = 7:
+# 729 offsets, where n >= d + 1 = 676 similar candidates are needed (b = 12
+# offers 625)
+R7_SEARCH = 13
+# synthetic rows (n of 494 to 531, every pixel rank-deficient), as phase
+# 10's: at 9 sweeps the model sits 6.8e-6 from itself with the candidates
+# reversed and the kernel 6.1e-6 from the model; at 11, 9.2e-7 and 8.8e-7
+# (phase 11 (a) prints them; H100). So the kernel is held to its model at
+# R7_MODEL_SWEEPS, two past the engine's, within SMEM_MODEL_RMS, and at 9
+# to the float64 twin within SYNTH_RMS, on R7_SYNTH_PIXELS pixels
+R7_MODEL_SWEEPS = 11
+R7_SYNTH_PIXELS = 64
+# the real r = 7 batch at 9 sweeps against the fp32 model: phase 10's limit
+# (its reading 1.1e-6, 18x under it; d = 675 at 9 sweeps sits about as near
+# convergence as d = 507 at 9 on the synthetic rows)
+R7_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 7 batch the model runs on, and the first and the
+# last main-path rows held bit for bit to the compact call. The 4-tile
+# batch (about 4,000 main-path centers at about 31 ms a center on an H100,
+# about two minutes) is timed on those 528 rows in place, four waves of
+# the persistent grid, a part of it
+R7_MODEL_CENTERS = 132
+R7_BITWISE_CENTERS = 264
+# the r = 7, b = 13 finest-scale main-path fraction of the frame and of the
+# 4-tile batch must exceed these (stated before the first reading: at r = 6
+# the frame read 0.8192 and its batch 1.0)
+R7_MAIN_FLOOR = 0.6
+R7_BATCH_FLOOR = 0.8
+# the cut -w 7 -b 13 frame: the scene's top-left 64x64, one 4-tile batch at
+# the finest scale (the batch's peak memory), where all 676 centers whose
+# window keeps 676 offsets take the main path (about 21 s of the kernel);
+# its 16x16 coarsest scale keeps 2x2 centers, whose patches cover it
+R7_CROP = (64, 64)
+# (e): in a 40x40 crop 4 centers reach the solve (their windows lose one
+# row and one column); in a 32x32 crop none
+R7_CPU_CROP = 40
+# the repaired batch rule, read cheaply: bcd -w 3 -b 33 on the scene's
+# top-left 64x128 (8 tiles at the finest scale; 4 a batch, 16 before)
+BATCH_RULE_CROP = (64, 128)
 # centers of the real r = 2 batch on which the lane solve_matrices, on no
 # engine path, is held to its float64 twin (whose call takes about 3 ms a
 # center on the card)
@@ -668,7 +734,7 @@ def lane_moments(x):
 
 def r2_batch(stats, dev, thr, batch=8, radius=2, search_radius=6):
     """The candidate-stack engine's solve inputs for tile batch ``batch``
-    (the engine's tiles a batch, 16 or 8 of 32x32) of a whole image at
+    (the engine's tiles a batch, 16, 8 or 4 of 32x32) of a whole image at
     r = ``radius``, b = ``search_radius``, built as the engine builds
     them. Returns (pixel-major stacks cand, mask, noise, n, m of every
     center, main-path mask)."""
@@ -928,17 +994,22 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        name="solve_filter_smem",
                        model_centers=R3_MODEL_CENTERS,
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
-                       bitwise_centers=None, time_once=False):
-    """``name`` (solve_filter_pm at d = 147, 243, 363 or 507) on one real
-    batch: the engine's in-place call on all the main-path rows, timed
+                       bitwise_centers=None, tail_centers=None, part=False,
+                       time_once=False):
+    """``name`` (solve_filter_pm at d = 147, 243, 363, 507 or 675) on one
+    real batch: the engine's in-place call on the main-path rows, timed
     after a warm-up or, with ``time_once``, once (and so the twin's
     centers), against the compact call on the first ``bitwise_centers``
-    of them (or all), bit for bit, and zero on every other row; the
-    compact field against the fp32 model on at most ``model_centers``
-    centers and against the float64 twin on
+    of them (or all) and on the last ``tail_centers`` (the rows at the
+    stack's highest offsets), bit for bit, and zero on every other row.
+    The in-place call solves every main-path row, or with ``part`` only
+    those first and last rows (a part of a batch too costly to time
+    whole). The compact field against the fp32 model on at most
+    ``model_centers`` centers and against the float64 twin on
     R3_TWIN_CENTERS. Returns (max_abs_err, ms, plain_ms, bound) on the
-    twin's centers (two a block of a persistent grid on 132 SMs), and the
-    whole batch's ms and main-path centers, printed beside its bound."""
+    twin's centers (two a block of a persistent grid on 132 SMs), the in-
+    place call's ms and its rows (printed beside its bound), and the
+    batch's main-path centers."""
     import torch
     from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
@@ -948,22 +1019,31 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     args = [x[k] for k in PM_KEYS]
     idx = main.nonzero()[:, 0]
     need(idx.numel() >= R3_TWIN_CENTERS, f"{label}: too few main-path centers")
+    sub = idx if bitwise_centers is None else idx[:bitwise_centers]
+    tail = idx[idx.numel() - (tail_centers or 0):]
+    rows = torch.cat([sub, tail]).unique() if part else idx
     batch = lambda: ts.solve_filter_pm(  # noqa: E731
-        *args, 1e-8, npx=npx, sweeps=sweeps, rows=idx)
+        *args, 1e-8, npx=npx, sweeps=sweeps, rows=rows)
     whole, ms_batch = timed_once(batch) if time_once else (batch(), None)
     need(bool(torch.isfinite(whole).all()), f"{label}: non-finite field")
-    sub = idx if bitwise_centers is None else idx[:bitwise_centers]
-    xm = {k: v[sub].contiguous() for k, v in x.items()}
-    args_m = [xm[k] for k in PM_KEYS]
-    field = ts.solve_filter_pm(*args_m, 1e-8, npx=npx, sweeps=sweeps)
     rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
-    rest[idx] = False
-    need(torch.equal(whole[sub], field) and not bool(whole[rest].any()),
-         f"{label} {name}: rows in place differ from the compact stack")
+    rest[rows] = False
+    need(not bool(whole[rest].any()),
+         f"{label} {name}: rows not solved in place are not zero")
+    # the compact calls, the first rows last: their stacks and field (one
+    # call, timed once) serve the model and the twin below
+    for part_rows in ((tail, sub) if tail.numel() else (sub,)):
+        args_m = [x[k][part_rows].contiguous() for k in PM_KEYS]
+        field, ms_sub = timed_once(lambda: ts.solve_filter_pm(
+            *args_m, 1e-8, npx=npx, sweeps=sweeps))
+        need(torch.equal(whole[part_rows], field),
+             f"{label} {name}: rows in place differ from the compact stack "
+             f"(rows {int(part_rows[0])} to {int(part_rows[-1])}, last "
+             f"element {(int(part_rows[-1]) + 1) * n_off * d - 1})")
     del whole
     if ms_batch is None:
         ms_batch = cuda_ms(batch, 1)
-    bound_batch = bounds.solve_filter(idx.numel(), n_off, d, sweeps)
+    bound_batch = bounds.solve_filter(rows.numel(), n_off, d, sweeps)
     model = ts.solve_filter_pm_schedule(
         *(v[:model_centers] for v in args_m), 1e-8, npx, sweeps)
     rel_m = rel_rms(field[:model_centers], model)
@@ -973,7 +1053,9 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
         *subt, 1e-8, npx=npx, sweeps=sweeps)
     ref, plain_ms = timed_once(
         lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
-    if time_once:  # this too: a call takes seconds at d = 507
+    if time_once and sub.numel() == R3_TWIN_CENTERS:  # the call above
+        got, ms = field, ms_sub
+    elif time_once:  # this too: a call takes seconds at d = 507
         got, ms = timed_once(sf)
     else:
         got, ms = sf(), cuda_ms(sf, 3)
@@ -983,9 +1065,12 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
           f"engine's in-place rows bitwise equal to the compact call "
-          f"(on {sub.numel()} of them); {ms_batch:.3f} ms for the batch's "
-          f"main rows, bound {bound_batch[0]:.3f} ms ({bound_batch[1]})",
-          flush=True)
+          f"(on the first {sub.numel()}"
+          f"{f' and the last {tail.numel()}' if tail.numel() else ''}, up "
+          f"to element {(int(idx[-1]) + 1) * n_off * d - 1} of the stack); "
+          f"{ms_batch:.3f} ms for {rows.numel()} main rows in place"
+          f"{' (a part of the batch)' if part else ''}, bound "
+          f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
     print(f"{tag} {label}: field vs its fp32 schedule model on the first "
           f"{min(model_centers, sub.numel())} centers rel rms {rel_m:.3e} "
           f"(limit {model_limit:g}); vs the float64 twin on the "
@@ -995,7 +1080,7 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
           f"{res[3][0]:.3f} ms", flush=True)
     need(rel_m < model_limit, f"{label} {name} vs its schedule model")
     need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
-    return res, ms_batch, idx.numel()
+    return res, ms_batch, rows, idx.numel()
 
 
 def r3_phase(dev, card, stats, clean, scene_path):
@@ -1025,7 +1110,7 @@ def r3_phase(dev, card, stats, clean, scene_path):
           f"main-path fraction {frac3:.4f} (floor {R3_MAIN_FLOOR:g})",
           flush=True)
     need(frac3 > R3_MAIN_FLOOR, "the -w 3 run barely reaches the main path")
-    res, _, _ = compare_smem_batch("full-size r=3 batch 8",
+    res, *_ = compare_smem_batch("full-size r=3 batch 8",
                                    *r2_batch(pre, dev, thr, radius=3),
                                    sweeps=sweeps)
     res = (max(res[0], e_syn),) + res[1:]
@@ -1103,45 +1188,64 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 to 10 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 11 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
-    synthetic and real-batch checks, and whether its batch is timed once."""
+    synthetic and real-batch checks, and whether its batch is timed once.
+    From d = 363 on the last R3_TWIN_CENTERS main rows of the batch are
+    held in place to the compact call as well as the first."""
     return {
         4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
-                floor=R4_MAIN_FLOOR, crop=R4_CROP, cpu_crop=R4_CPU_CROP,
-                synth={}, batch={}, time_once=False,
+                floor=R4_MAIN_FLOOR, batch_floor=0.0, crop=R4_CROP,
+                cpu_crop=R4_CPU_CROP, synth={}, batch={}, time_once=False,
                 # no solve: -w 4 at the default b = 6
                 no_solve_b=6),
         5: dict(tag="[9]", kernels=R5_KERNELS, O=441, search=R5_SEARCH,
-                floor=R5_MAIN_FLOOR, crop=R5_CROP, cpu_crop=R5_CPU_CROP,
+                floor=R5_MAIN_FLOOR, batch_floor=0.0, crop=R5_CROP,
+                cpu_crop=R5_CPU_CROP,
                 synth=dict(pixels=R5_SYNTH_PIXELS,
                            model_sweeps=R5_MODEL_SWEEPS),
                 batch=dict(model_centers=R5_MODEL_CENTERS,
                            model_limit=R5_MODEL_BATCH_REL_RMS,
-                           bitwise_centers=R5_BITWISE_CENTERS),
+                           bitwise_centers=R5_BITWISE_CENTERS,
+                           tail_centers=R3_TWIN_CENTERS, part=True),
                 # the batch is timed once, not after a warm-up
                 time_once=True,
                 # no solve: -w 5 at b = 9 (361 offsets)
                 no_solve_b=9),
         6: dict(tag="[10]", kernels=R6_KERNELS, O=529, search=R6_SEARCH,
-                floor=R6_MAIN_FLOOR, crop=R6_CROP, cpu_crop=R6_CPU_CROP,
+                floor=R6_MAIN_FLOOR, batch_floor=R6_BATCH_FLOOR,
+                crop=R6_CROP, cpu_crop=R6_CPU_CROP,
                 synth=dict(pixels=R6_SYNTH_PIXELS,
                            model_sweeps=R6_MODEL_SWEEPS),
                 batch=dict(model_centers=R6_MODEL_CENTERS,
                            model_limit=R6_MODEL_BATCH_REL_RMS,
-                           bitwise_centers=R6_BITWISE_CENTERS),
+                           bitwise_centers=R6_BITWISE_CENTERS,
+                           tail_centers=R3_TWIN_CENTERS, part=True),
                 time_once=True,
                 # no solve: -w 6 at b = 10 (441 offsets)
                 no_solve_b=10),
+        7: dict(tag="[11]", kernels=R7_KERNELS, O=729, search=R7_SEARCH,
+                floor=R7_MAIN_FLOOR, batch_floor=R7_BATCH_FLOOR,
+                crop=R7_CROP, cpu_crop=R7_CPU_CROP,
+                synth=dict(pixels=R7_SYNTH_PIXELS,
+                           model_sweeps=R7_MODEL_SWEEPS),
+                batch=dict(model_centers=R7_MODEL_CENTERS,
+                           model_limit=R7_MODEL_BATCH_REL_RMS,
+                           bitwise_centers=R7_BITWISE_CENTERS,
+                           tail_centers=R3_TWIN_CENTERS, part=True),
+                time_once=True,
+                # no solve: -w 7 at b = 12 (625 offsets)
+                no_solve_b=12),
     }
 
 
 def wide_phase(radius, dev, card, stats, clean, scene_path):
-    """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363) or 10 (radius 6,
-    d = 507): the -w r path on the 1088x1920 scene at the smallest b that
-    reaches its main path. Returns the kernels line's entry (max_abs_err,
-    ms, plain_ms, bound) and the cut frame's launch counts."""
+    """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363), 10 (radius 6,
+    d = 507) or 11 (radius 7, d = 675): the -w r path on the 1088x1920
+    scene at the smallest b that reaches its main path. Returns the kernels
+    line's entry (max_abs_err, ms, plain_ms, bound) and the cut frame's
+    launch counts."""
     import torch
     from bcd_tpu_torch import cli
     from bcd_tpu_torch.core.monoscale import (STACK_TILE_BATCH,
@@ -1164,8 +1268,8 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, **c["synth"])
     # (b) one real tile batch of the finest scale (after the prefilter): 16
-    # tiles, 8 at r = 6 (core/monoscale.STACK_BYTES), the batch that holds
-    # the tiles of phase 2's 16-tile batch 8
+    # tiles, 8 at r = 6 and 4 at r = 7 (core/monoscale.STACK_BYTES), the
+    # batch that holds the tiles of phase 2's 16-tile batch 8
     n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
     k_batch = 8 * STACK_TILE_BATCH // n_tiles
     pw = PipelineParameters()
@@ -1183,19 +1287,24 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     x, main = r2_batch(pre, dev, thr, batch=k_batch, radius=radius,
                        search_radius=b)
     del pre
-    res, batch_ms, batch_main = compare_smem_batch(
+    batch_frac = float(main.sum()) / main.numel()
+    print(f"{tag} {n_tiles}-tile batch {k_batch}: main-path fraction "
+          f"{batch_frac:.4f} (floor {c['batch_floor']:g})", flush=True)
+    need(batch_frac > c["batch_floor"], f"the {n_tiles}-tile batch "
+         f"{k_batch} barely reaches the main path")
+    res, batch_ms, timed_rows, _ = compare_smem_batch(
         f"full-size r={radius} b={b} {n_tiles}-tile batch {k_batch}", x,
         main, sweeps=sweeps, tag=tag, name=name, time_once=c["time_once"],
         **c["batch"])
     res = (max(res[0], e_syn),) + res[1:]
-    # the Jacobi's share: the same batch at 0 sweeps (once where the batch
-    # was timed once)
+    # the Jacobi's share: the same rows at 0 sweeps (once where they were
+    # timed once)
     zero = lambda: ts.solve_filter_pm(  # noqa: E731
-        *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
-        rows=main.nonzero()[:, 0])
+        *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0, rows=timed_rows)
     ms0 = timed_once(zero)[1] if c["time_once"] else cuda_ms(zero, 1)
-    print(f"{tag} the same batch at 0 sweeps {ms0:.3f} ms: the Jacobi's "
-          f"{sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
+    print(f"{tag} the same {timed_rows.numel()} rows at 0 sweeps "
+          f"{ms0:.3f} ms: "
+          f"the Jacobi's {sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
           f"{1 - ms0 / batch_ms:.3f})", flush=True)
     del x, main
 
@@ -1240,10 +1349,10 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     full = 1088 * 1920 / (ch * cw)
     print(f"{tag} estimate, not a run: a 1088x1920 {' '.join(w)} frame "
           f"at this crop's rate per pixel {cli_s * full:.1f} s, its kernel "
-          f"{k_us / 1e6 * full:.1f} s; at (b)'s batch's rate per main-path "
+          f"{k_us / 1e6 * full:.1f} s; at (b)'s rate per main-path "
           f"center and the finest scale's fraction "
-          f"{batch_ms / batch_main * 1088 * 1920 * frac / 1e3:.1f} s in the "
-          "kernel at the finest scale", flush=True)
+          f"{batch_ms / timed_rows.numel() * 1088 * 1920 * frac / 1e3:.1f}"
+          " s in the kernel at the finest scale", flush=True)
 
     # (d) the gate: -w r on the crop at a b whose window cannot reach the
     # solve, where no center reaches it
@@ -1287,6 +1396,47 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     need(gap < R2_CPU_RMSE, f"-w {radius} on the card against the CPU "
          "pipeline")
     return res, launches
+
+
+def batch_rule_run(card, stats, clean, scene_path) -> None:
+    """``bcd -w 3 -b 33`` through the CLI's entry point on the
+    BATCH_RULE_CROP crop: the engine's tiles a batch at this window (4: a
+    16-tile fp32 stack would be 43.2 GB, an 8-tile one 21.6), wall time and
+    peak memory. It must run and beat the noisy input."""
+    import torch
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.core.monoscale import MonoscaleConfig
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+
+    ch, cw = BATCH_RULE_CROP
+    crop_path = scene_path.replace(".exr", "_w3b33crop.exr")
+    write_scene(crop_path, *(x[:ch, :cw] for x in stats))
+    out_path = crop_path.replace(".exr", "_out.exr")
+    argv = ["-i", crop_path, "-o", out_path, "-w", "3", "-b", "33"]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0, rc = time.perf_counter(), None
+    try:
+        rc = cli.main(argv)
+    finally:  # printed also where the run raises (out of card memory)
+        print(f"[11] python -m bcd_tpu_torch.cli {' '.join(argv)}: rc {rc}, "
+              f"{MonoscaleConfig(patch_radius=3, search_radius=33).batch} "
+              f"tiles a batch, {time.perf_counter() - t0:.3f} s wall with "
+              f"EXR I/O on {card}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+              f"launches { {k: v for k, v in _build.LAUNCHES.items() if v} }",
+              flush=True)
+    need(rc == 0, "-w 3 -b 33 CLI run")
+    out, clean_c = image_io.load_exr(out_path), clean[:ch, :cw]
+    need(out.shape == clean_c.shape and np.isfinite(out).all(),
+         "-w 3 -b 33 CLI output shape / finiteness")
+    e_out, e_in = rmse(out, clean_c), rmse(stats[0][:ch, :cw], clean_c)
+    print(f"[11] -w 3 -b 33 rmse vs clean on the crop: output {e_out:.5f}, "
+          f"noisy input {e_in:.5f}", flush=True)
+    need(e_out < e_in, "the -w 3 -b 33 output is not closer to the clean "
+         "image")
 
 
 def device_time_table(label, run) -> None:
@@ -1564,7 +1714,7 @@ def card_line() -> str:
 
 
 def time_crop(height, width, radius=5) -> int:
-    """One timed ``bcd -w r -b b --stats`` run (phase 8's, 9's or 10's
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's, 9's, 10's or 11's
     radius r and its search radius b) through the CLI's entry point on the
     scene's top-left height x width crop, the kernels built first: wall
     time with EXR I/O, launches, peak memory, rmse vs clean."""
@@ -1628,11 +1778,19 @@ def main() -> int:
     params = DenoiserParameters(search_window_radius=6)
     cfg = MonoscaleConfig()
 
+    if sys.argv[1:] == ["--batch-rule"]:
+        card = card_line()
+        _build.library()
+        clean, stats = full_scene()
+        os.makedirs(WORK, exist_ok=True)
+        batch_rule_run(card, stats, clean, os.path.join(WORK, "scene.exr"))
+        print(card, flush=True)
+        return 0
     if sys.argv[1:2] == ["--time-crop"]:
         need(len(sys.argv) == 4 or (len(sys.argv) == 6
                                     and sys.argv[4] == "--radius"
-                                    and sys.argv[5] in ("4", "5", "6")),
-             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6]")
+                                    and sys.argv[5] in ("4", "5", "6", "7")),
+             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6|7]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -1899,6 +2057,13 @@ def main() -> int:
         6, dev, card, stats, clean, paths[""])
     print(f"[10] phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- 11. the -w 7 path, and the batch rule ------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_675"], launches7 = wide_phase(
+        7, dev, card, stats, clean, paths[""])
+    batch_rule_run(card, stats, clean, paths[""])
+    print(f"[11] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
@@ -1926,13 +2091,17 @@ def main() -> int:
         "solve_filter_507": ("solve_filter_507",
                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_675": ("solve_filter_675",
+                             "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                             "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
             "solve_filter_smem": launches3["solve_filter_smem"],
             "solve_filter_243": launches4["solve_filter_243"],
             "solve_filter_363": launches5["solve_filter_363"],
-            "solve_filter_507": launches6["solve_filter_507"]}
+            "solve_filter_507": launches6["solve_filter_507"],
+            "solve_filter_675": launches7["solve_filter_675"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

@@ -207,28 +207,36 @@ def test_candidate_stacks_are_kernel_ready(tile):
             assert s[k].dtype == torch.float32 and s[k].is_contiguous(), k
 
 
-def test_tile_batch_leaves_the_image_bitwise():
+@pytest.mark.parametrize("tile_batch", [8, 4, 1])
+def test_tile_batch_leaves_the_image_bitwise(tile_batch):
     """The engine's tiles a batch change how many centers each launch
-    solves, not their results: 8 tiles a batch (two batches of the 20x20
-    scene's 9 tiles) give the image of 16 (one batch) bit for bit."""
+    solves, not their results: 8, 4 or 1 tiles a batch (two, three or nine
+    batches of the 20x20 scene's 9 tiles) give the image of 16 (one batch)
+    bit for bit."""
     outs = [to_numpy(tmono.denoise_image(
         tmono.MonoscaleConfig(patch_radius=2, search_radius=5, tile=8,
                               tile_batch=n),
-        *to_device(*scene20(), CPU), R2_THRESHOLD, 1e-8)) for n in (8, 16)]
+        *to_device(*scene20(), CPU), R2_THRESHOLD, 1e-8))
+        for n in (tile_batch, 16)]
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("r,b,tile,tile_batch,batch", [
     (1, 6, 32, None, 128), (2, 6, 32, None, 16), (5, 10, 32, None, 16),
     (6, 10, 32, None, 8), (6, 11, 32, None, 8), (6, 11, 8, None, 16),
-    (6, 11, 32, 16, 16),
+    (6, 11, 32, 16, 16), (7, 13, 32, None, 4), (6, 18, 32, None, 4),
+    (3, 33, 32, None, 4), (7, 30, 32, None, 1), (7, 33, 32, None, 1),
 ])
 def test_stack_batch_by_bytes(r, b, tile, tile_batch, batch):
-    """The candidate-stack engine takes 16 tiles a batch, and 8 where a
-    16-tile fp32 candidate stack would pass STACK_BYTES (12 GB): at r = 6
-    from b = 10 on 32x32 tiles (a (16384, 441, 507) stack is 14.6 GB),
-    not at r = 5, b = 10 (10.5 GB) nor on 8x8 tiles; an explicit
-    ``tile_batch`` wins, and the fused r = 1 engine keeps its 128."""
+    """The candidate-stack engine takes 16 tiles a batch, halved while the
+    fp32 candidate stack would pass STACK_BYTES (12 GB), down to one tile:
+    8 at r = 6 from b = 10 on 32x32 tiles (a (16384, 441, 507) stack is
+    14.6 GB), not at r = 5, b = 10 (10.5 GB) nor on 8x8 tiles; 4 at r = 7,
+    b = 13 (an 8-tile (8192, 729, 675) stack is 16.1 GB, 4 tiles 8.06 GB),
+    r = 6, b = 18 and r = 3, b = 33; 1 at r = 7, b = 30 (10.3 GB a tile),
+    and still 1 at b = 33, where one tile's 12.4 GB passes the limit (JAX
+    refuses none). An explicit ``tile_batch`` wins, and the fused r = 1
+    engine keeps its 128."""
     cfg = tmono.MonoscaleConfig(patch_radius=r, search_radius=b, tile=tile,
                                 tile_batch=tile_batch)
     assert cfg.batch == batch
