@@ -23,7 +23,7 @@ there, the same function with the two matrices in shared memory, and at
 d = 243 (r = 4), 363 (r = 5), 507 (r = 6) and 675 (r = 7) the same kernel
 with the rows that do not fit there in a global slot of the block (at
 d = 363 most of them: 580 of 728; at d = 507, 913 of 1,016, the slot
-3.92 MB a block with Cemp and H; at d = 675, 1,278 of 1,352, 7.11 MB); the
+3.92 MB a block with Cemp and H; at d = 675, 1,280 of 1,352, 7.12 MB); the
 lane ``solve_matrices`` has no d = 147 kernel. Larger d is refused where a center could reach the solve
 (``check_solve_path``). The kernels' headers give the math, the design
 and what bounds them.
@@ -66,7 +66,7 @@ EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
 # memory, 175 KB of a block's 227 KB; r = 4: 476 KB, 227 of the 488 rows in
 # shared memory, the others in a global slot of the block; r = 5: 1.06 MB,
 # 148 of the 728 rows in shared memory; r = 6: 2.06 MB, 103 of 1,016; r = 7:
-# 3.66 MB, 74 of 1,352)
+# 3.66 MB, 72 of 1,352)
 KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675)
 # the d that csrc/solve_filter_smem.cu runs, with each one's launch counter
 SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243",

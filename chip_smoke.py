@@ -3,15 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-crop H W [--radius R]
-    python3 chip_smoke.py --batch-rule
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
 built, and runs nothing else: R is phase 8's, 9's, 10's or 11's patch
 radius (4, 5, 6 or 7; 5 by default) and B its search radius (8, 10, 11 or
-13). The third runs only the first's ``bcd -w 3 -b 33`` run of phase 11
-(the engine's tiles a batch and the peak memory at that window); copied
-into a checkout of an earlier commit, it reads that commit's engine.
+13).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -59,7 +56,7 @@ non-zero before the final line:
    of its schedule and its float64 twin on synthetic stacks and on one
    real 16-tile r = 3 batch (its in-place rows bit for bit), its time
    beside its bound; ``bcd -w 3`` through the CLI's entry point on the
-   scene's top-left 544x960 (launches only solve_filter_smem, beats the
+   scene's top-left 256x480 (launches only solve_filter_smem, beats the
    noisy input; wall time, peak memory,
    main-path fraction; the kernel's share of its device time, the run
    traced); a 48x48 crop on the card against the port's CPU pipeline,
@@ -80,9 +77,10 @@ non-zero before the final line:
    reaches its main path, checked as phase 8 checks the -w 4 path: on
    synthetic stacks against the float64 twin at the engine's 8 sweeps and
    against its fp32 model at 10, where the schedule has converged; one
-   real 16-tile r = 5, b = 10 batch, a part of it (its first 528 and last
-   264 main-path rows) timed once in place and held bit for bit to the
-   compact call; ``bcd -w 5 -b 10`` on a crop (launches only
+   real 16-tile r = 5, b = 10 batch timed once in place (its first 528
+   and last 264 main-path rows held bit for bit to the compact call, the
+   last past element 2^31 of the stack); ``bcd -w 5 -b 10`` on a crop
+   (launches only
    solve_filter_363); ``bcd -w 5 -b 9`` on that crop (no solve launch); a
    32x32 crop against the port's CPU pipeline.
 10. The -w 6 path (d = 507, the same kernel with 913 of the 1,016 rows in
@@ -93,7 +91,7 @@ non-zero before the final line:
    (the engine's batch at this d), a part of it timed once in place (its
    first and last 264 main-path rows, the last past element 2^31 of the
    stack, bit for bit against the compact call); ``bcd -w 6 -b 11`` on a
-   64x128 crop (launches only solve_filter_507); ``bcd -w 6 -b 10`` on
+   64x64 crop (launches only solve_filter_507); ``bcd -w 6 -b 10`` on
    that crop (no solve launch); a 48x48 crop (the smallest size here whose
    centers reach the solve) against the port's CPU pipeline.
 11. The -w 7 path (d = 675, the same kernel with 1,280 of the 1,352 rows
@@ -179,9 +177,10 @@ R3_TWIN_CENTERS = 264
 # the -w 3 run's finest-scale main-path fraction must exceed this (first
 # reading on an H100 0.9171)
 R3_MAIN_FLOOR = 0.8
-# the traced -w 3 CLI run: the scene's top-left quarter (the whole 1088x1920
-# frame took 87.7 s of phase 7's 152.7 s on an H100; cut for phase 10's time)
-R3_CROP = (544, 960)
+# the traced -w 3 CLI run: the scene's top-left 256x480 (the whole 1088x1920
+# frame took 87.7 s of phase 7's 152.7 s on an H100, a 544x960 crop 23.5 s;
+# cut for phase 10's and then phase 11's time)
+R3_CROP = (256, 480)
 # phase 8, d = 243 (csrc/solve_filter_smem.cu with 261 of the 488 rows of
 # W and Q in a global slot): held to phase 7's limits (the same schedule,
 # model and twin), on the same counts of centers
@@ -228,10 +227,10 @@ R5_SYNTH_PIXELS = 264
 # about 5.5e-6, and the limit leaves about 4x over that
 R5_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 5 batch the model runs on, and the first main-
-# path rows of the timed in-place call held bit for bit to the compact call
-# (with the last R3_TWIN_CENTERS). The whole 16-tile batch took 58.2 s on an
-# H100 (PERF.md): since phase 11 it is timed once on those 792 rows, a
-# part, to keep phases 1-11 well inside the run's time limit
+# path rows of the timed in-place call over the whole batch held bit for
+# bit to the compact call (with the last R3_TWIN_CENTERS, past element 2^31
+# of the stack; the whole batch takes about a minute on an H100, so it is
+# timed once and not run compact as well)
 R5_MODEL_CENTERS = 528
 R5_BITWISE_CENTERS = 528
 # the r = 5, b = 10 finest-scale main-path fraction must exceed this (first
@@ -283,10 +282,11 @@ R6_BATCH_FLOOR = 0.8
 # reading on an H100 0.8192)
 R6_MAIN_FLOOR = 0.65
 # the cut -w 6 -b 11 frame: the scene's top-left crop, sides a multiple of
-# 32; at -s 3 its coarsest scale (16x32) still has centers at r = 6, so
+# 32; at -s 3 its coarsest scale (16x16) still has centers at r = 6, so
 # every pixel of the output has an estimate (a 48x48 crop's 12x12 has none,
-# and its output there is 0)
-R6_CROP = (64, 128)
+# and its output there is 0). 64x128 took 34.4 s on an H100, cut to 64x64
+# (the finest scale's 4 tiles in one batch) for phase 11's time
+R6_CROP = (64, 64)
 # (e): a crop on the card against the port's CPU pipeline; in a 32x32 crop
 # the patch centers span 20x20, fewer than the 508 candidates of the main
 # path at r = 6, b = 11, so none takes it; in a 48x48 crop some do
@@ -1208,7 +1208,7 @@ def wide_phases():
                 batch=dict(model_centers=R5_MODEL_CENTERS,
                            model_limit=R5_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R5_BITWISE_CENTERS,
-                           tail_centers=R3_TWIN_CENTERS, part=True),
+                           tail_centers=R3_TWIN_CENTERS),
                 # the batch is timed once, not after a warm-up
                 time_once=True,
                 # no solve: -w 5 at b = 9 (361 offsets)
@@ -1778,14 +1778,6 @@ def main() -> int:
     params = DenoiserParameters(search_window_radius=6)
     cfg = MonoscaleConfig()
 
-    if sys.argv[1:] == ["--batch-rule"]:
-        card = card_line()
-        _build.library()
-        clean, stats = full_scene()
-        os.makedirs(WORK, exist_ok=True)
-        batch_rule_run(card, stats, clean, os.path.join(WORK, "scene.exr"))
-        print(card, flush=True)
-        return 0
     if sys.argv[1:2] == ["--time-crop"]:
         need(len(sys.argv) == 4 or (len(sys.argv) == 6
                                     and sys.argv[4] == "--radius"

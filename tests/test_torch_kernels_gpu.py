@@ -463,7 +463,7 @@ R7_MODEL_SWEEPS = 11
 
 
 def test_solve_filter_675_kernel_matches_schedule(cuda):
-    """solve_filter_pm at d = 675 (csrc/solve_filter_smem.cu with 1,278 of
+    """solve_filter_pm at d = 675 (csrc/solve_filter_smem.cu with 1,280 of
     the 1,352 rows of W and Q in a global slot) on 64 synthetic pixels of
     729 candidates: against the fp32 model of its schedule at
     R7_MODEL_SWEEPS, rms SMEM_MODEL_RMS, and against the float64 twin at
