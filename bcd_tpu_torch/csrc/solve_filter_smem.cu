@@ -1,13 +1,13 @@
 // solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363),
-// 6 (d = 507) and 7 (d = 675): the per-pixel two-step Bayesian solve and
-// filter of the candidate stacks, with the Jacobi's two working matrices in
-// shared memory (d = 147), or as much of them as fits there and the rest in
-// a global slot of the block (d = 243, 363, 507 and 675).
+// 6 (d = 507), 7 (d = 675) and 8 (d = 867): the per-pixel two-step Bayesian
+// solve and filter of the candidate stacks, with the Jacobi's two working
+// matrices in shared memory (d = 147), or as much of them as fits there and
+// the rest in a global slot of the block (d = 243 to 867).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
 // body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363,
-// 507 and 675; it computes what csrc/solve_filter.cu computes at d = 27 and
-// 75. Per pixel:
+// 507, 675 and 867; it computes what csrc/solve_filter.cu computes at d = 27
+// and 75. Per pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
 //   Cemp = (M2 - n m m^T) / max(n - 1, 1), BD = block-diagonal noise;
@@ -52,8 +52,13 @@
 // 132 blocks, 19 times the L2: a round (338 pairs, six pivot passes)
 // reads and writes about 6.9 MB a block in its rotations and reads 1.6 MB
 // more for its pivot products, nearly all of it from HBM, and that traffic
-// again bounds it. The design is the simple one, not tuned (its time
-// beside its bound: PERF.md).
+// again bounds it. At d = 867 they take 6.03 MB: 53 of the 1,736 rows
+// (W's first 53) stay in shared memory beside 45 KB of vectors (229,152 of
+// the 232,448 bytes), the other 1,683 (5.84 MB) in the global slot, which
+// with Cemp and H is 11.9 MB a block, 1.57 GB for 132 blocks, 31 times the
+// L2: a round (434 pairs, seven pivot passes) moves about twice d = 675's
+// bytes, and HBM's traffic bounds it as there. The design is the simple
+// one, not tuned (its time beside its bound: PERF.md).
 //
 // The design:
 //   - A persistent grid, at most one 512-thread block an SM (the wrapper
@@ -72,7 +77,7 @@
 //     (16-byte loads, a three-step shuffle reduction; a warp takes four
 //     pairs a pass, PASSES passes loaded together: two at d = 147 and 243,
 //     three for the 182 pairs at d = 363, four for the 254 at d = 507,
-//     six for the 338 at d = 675),
+//     six for the 338 at d = 675, seven for the 434 at d = 867),
 //     lane k of a group then forms pass k's pair's angles and row scales
 //     (as _jacobi_fp32 does), its record {alpha, beta, rows} and the next
 //     seat map; a barrier; every thread rotates 16-byte units of the rows
@@ -92,8 +97,8 @@
 //     floored at 1e-30), the forward substitution taken along, the pivot
 //     row kept in registers (d / 32 columns a lane) up to d = 507 and
 //     staged in shared memory beyond, where the registers spilled it
-//     (one more barrier a column); the back substitution right-looking
-//     too.
+//     (one more barrier a column; 28 columns a lane at d = 867); the back
+//     substitution right-looking too.
 //
 // Layouts (pixel-major, P pixels; bcd_tpu_torch/ops/solve_filter.py):
 // cand (P, O, d), mask (P, O), noise (P, 6 npx) with the channels
@@ -131,9 +136,10 @@ struct Smem {
   // the Cholesky's pivot row of S and of Y, scaled: in registers, CL
   // columns a lane in each of two arrays, up to CL = 16 (d = 507); past
   // that (d = 675: 22 columns) ptxas spilled it inside the elimination
-  // loop, so it is staged in the shared vectors instead. The fields are
-  // the same bit for bit either way; on an H100 the registers were the
-  // faster at d = 147 to 507 and the staged row at d = 675
+  // loop, so it is staged in the shared vectors instead (d = 675 and 867,
+  // 28 columns). The fields are the same bit for bit either way; on an
+  // H100 the registers were the faster at d = 147 to 507 and the staged
+  // row at d = 675
   static constexpr int CL = (D + 31) / 32;
   static constexpr bool PIVOT_SMEM = CL > 16;
   // the vectors: m, the noise, diag, f, neg (then b2), the Cholesky's
@@ -766,6 +772,7 @@ extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (d == 363) return n_blocks * Smem<363>::SCRATCH;
   if (d == 507) return n_blocks * Smem<507>::SCRATCH;
   if (d == 675) return n_blocks * Smem<675>::SCRATCH;
+  if (d == 867) return n_blocks * Smem<867>::SCRATCH;
   return -1;
 }
 
@@ -775,7 +782,8 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      int n_rows, int n_off, int d, int sweeps,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
-  if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675) || n_blocks <= 0)
+  if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675 && d != 867) ||
+      n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
@@ -791,6 +799,9 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
   if (d == 507)
     return launch<507>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                        n_blocks, field, st);
-  return launch<675>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+  if (d == 675)
+    return launch<675>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                       n_blocks, field, st);
+  return launch<867>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                      n_blocks, field, st);
 }

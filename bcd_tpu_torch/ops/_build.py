@@ -36,13 +36,14 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# solve_filter_smem, solve_filter_243, solve_filter_363, solve_filter_507 and
-# solve_filter_675 are csrc/solve_filter_smem.cu at d = 147, 243, 363, 507
-# and 675
+# solve_filter_smem, solve_filter_243, solve_filter_363, solve_filter_507,
+# solve_filter_675 and solve_filter_867 are csrc/solve_filter_smem.cu at
+# d = 147, 243, 363, 507, 675 and 867
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
-            "solve_filter_507": 0, "solve_filter_675": 0}
+            "solve_filter_507": 0, "solve_filter_675": 0,
+            "solve_filter_867": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

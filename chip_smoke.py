@@ -6,9 +6,9 @@
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's, 9's, 10's or 11's patch
-radius (4, 5, 6 or 7; 5 by default) and B its search radius (8, 10, 11 or
-13).
+built, and runs nothing else: R is phase 8's, 9's, 10's, 11's or 12's
+patch radius (4, 5, 6, 7 or 8; 5 by default) and B its search radius (8,
+10, 11, 13 or 15).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -59,7 +59,7 @@ non-zero before the final line:
    scene's top-left 256x480 (launches only solve_filter_smem, beats the
    noisy input; wall time, peak memory,
    main-path fraction; the kernel's share of its device time, the run
-   traced); a 48x48 crop on the card against the port's CPU pipeline,
+   traced); a 32x32 crop on the card against the port's CPU pipeline,
    bitwise repeatable.
 8. The -w 4 path (d = 243, the same kernel with the rows that do not fit
    in shared memory in a global slot, solve_filter_243) at b = 8, the
@@ -77,9 +77,10 @@ non-zero before the final line:
    reaches its main path, checked as phase 8 checks the -w 4 path: on
    synthetic stacks against the float64 twin at the engine's 8 sweeps and
    against its fp32 model at 10, where the schedule has converged; one
-   real 16-tile r = 5, b = 10 batch timed once in place (its first 528
-   and last 264 main-path rows held bit for bit to the compact call, the
-   last past element 2^31 of the stack); ``bcd -w 5 -b 10`` on a crop
+   real 16-tile r = 5, b = 10 batch, a part of it timed once in place (its
+   first 528 and last 264 main-path rows, held bit for bit to the compact
+   call, the last past element 2^31 of the stack); ``bcd -w 5 -b 10`` on a
+   crop
    (launches only
    solve_filter_363); ``bcd -w 5 -b 9`` on that crop (no solve launch); a
    32x32 crop against the port's CPU pipeline.
@@ -92,7 +93,7 @@ non-zero before the final line:
    first and last 264 main-path rows, the last past element 2^31 of the
    stack, bit for bit against the compact call); ``bcd -w 6 -b 11`` on a
    64x64 crop (launches only solve_filter_507); ``bcd -w 6 -b 10`` on
-   that crop (no solve launch); a 48x48 crop (the smallest size here whose
+   that crop (no solve launch); a 40x40 crop (the smallest size here whose
    centers reach the solve) against the port's CPU pipeline.
 11. The -w 7 path (d = 675, the same kernel with 1,280 of the 1,352 rows
    in the global slot and the Cholesky's pivot rows in shared memory,
@@ -104,6 +105,15 @@ non-zero before the final line:
    ``bcd -w 7 -b 12`` on that crop (no solve launch); a 40x40 crop against
    the port's CPU pipeline. Then ``bcd -w 3 -b 33`` on a 64x128 crop: the
    engine's batch rule, 4 tiles a batch there, and its peak memory.
+12. The -w 8 path (d = 867, the same kernel with 1,683 of the 1,736 rows
+   in the global slot, solve_filter_867) at b = 15, checked as phase 11
+   checks the -w 7 path: synthetic stacks against the float64 twin at the
+   engine's sweeps and the fp32 model two sweeps past them; one real
+   2-tile r = 8, b = 15 batch, its first and last 264 main-path rows timed
+   once in place; ``bcd -w 8 -b 15 -s 2`` on a 64x64 crop (launches only
+   solve_filter_867; peak memory; two scales, since at three the 16x16
+   coarsest scale holds no 17x17 patch); ``bcd -w 8 -b 14 -s 2`` on that
+   crop (no solve launch); a 46x46 crop against the port's CPU pipeline.
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -145,6 +155,13 @@ SOLVE_SWEEPS = 6
 # synthetic solves against their float64 twins: JAX's own kernel-vs-
 # reference bound (tests/test_solve_filter_pallas.py:34)
 SYNTH_RMS = 2e-4
+# phase 9's synthetic readings with no limit (the model at the engine's
+# sweeps, and against itself with the candidates reversed at both counts,
+# which show why the kernel is held to its model two sweeps past the
+# engine's) take its first SYNTH_DIAG_PIXELS pixels; phases 10 and 11
+# read them too until phase 12 needed the run's time (their readings:
+# the R6_ and R7_ notes below)
+SYNTH_DIAG_PIXELS = 8
 # solve_filter and the lane solve_matrices against the plain fp32 model of
 # their schedule (ops/solve_filter.solve_schedule_core): synthetic stacks
 # (about 2e-6 at d = 75 on an H100), and the filtered field of the real
@@ -181,6 +198,10 @@ R3_MAIN_FLOOR = 0.8
 # frame took 87.7 s of phase 7's 152.7 s on an H100, a 544x960 crop 23.5 s;
 # cut for phase 10's and then phase 11's time)
 R3_CROP = (256, 480)
+# (d): a crop on the card against the port's CPU pipeline; one 32x32 tile,
+# where 252 centers reach the solve (48x48, four tiles, until phase 12
+# needed the run's time)
+R3_CPU_CROP = 32
 # phase 8, d = 243 (csrc/solve_filter_smem.cu with 261 of the 488 rows of
 # W and Q in a global slot): held to phase 7's limits (the same schedule,
 # model and twin), on the same counts of centers
@@ -188,7 +209,7 @@ R4_KERNELS = ("solve_filter_243",)
 # every solve kernel; a run that takes no main path launches none
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
-                 "solve_filter_507", "solve_filter_675")
+                 "solve_filter_507", "solve_filter_675", "solve_filter_867")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -218,20 +239,23 @@ R5_SEARCH = 10
 # predicted: PERF.md). So the kernel is held to its model at
 # R5_MODEL_SWEEPS, where the schedule has converged (the model 6e-7 from the
 # twin), within phase 7's SMEM_MODEL_RMS, and at 8 sweeps to the float64
-# twin within SYNTH_RMS; on R5_SYNTH_PIXELS pixels, two a block
+# twin within SYNTH_RMS; on R5_SYNTH_PIXELS pixels, one a block (264, two
+# a block, until phase 12 needed the run's time)
 R5_MODEL_SWEEPS = 10
-R5_SYNTH_PIXELS = 264
+R5_SYNTH_PIXELS = 132
 # the real r = 5 batch's main-path centers (n >= 364) at 8 sweeps: field vs
 # the fp32 model, relative rms; the synthetic 8-sweep distance (2.2e-5)
 # over the smallest synthetic-to-batch ratio of phases 7 and 8 (4) gives
 # about 5.5e-6, and the limit leaves about 4x over that
 R5_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 5 batch the model runs on, and the first main-
-# path rows of the timed in-place call over the whole batch held bit for
-# bit to the compact call (with the last R3_TWIN_CENTERS, past element 2^31
-# of the stack; the whole batch takes about a minute on an H100, so it is
-# timed once and not run compact as well)
-R5_MODEL_CENTERS = 528
+# path rows of the batch that the timed in-place call solves and holds bit
+# for bit to the compact call, with the last R3_TWIN_CENTERS, past element
+# 2^31 of the stack. The whole 16-tile batch took 57979.203 ms on an H100
+# (PERF.md); since phase 12 it is timed on those 792 rows, a part, as
+# phases 10 to 12 time theirs, for the run's time limit; the model on 264
+# of them (528 until then)
+R5_MODEL_CENTERS = 264
 R5_BITWISE_CENTERS = 528
 # the r = 5, b = 10 finest-scale main-path fraction must exceed this (first
 # reading on an H100 0.8875)
@@ -254,13 +278,14 @@ R6_SEARCH = 11
 # model sits about 5e-6 from itself with the candidates reversed, so the
 # kernel can sit about as far from its model there; from 10 sweeps on the
 # schedule has converged, and the model's distance from itself reversed
-# falls under 1e-6 (phase 10 (a) prints both). So the kernel is held to
-# its model at R6_MODEL_SWEEPS, two past the engine's as at d = 363, within
-# phase 7's SMEM_MODEL_RMS, more than 10x that converged distance, and at
-# 9 sweeps to the float64 twin within SYNTH_RMS; on R6_SYNTH_PIXELS pixels
-# (the model runs four times here, each its d = 507 rounds one by one)
+# falls under 1e-6 (phase 10 (a) printed both until phase 12: 4.3e-6 and
+# 8.0e-7 on an H100). So the kernel is held to its model at
+# R6_MODEL_SWEEPS, two past the engine's as at d = 363, within phase 7's
+# SMEM_MODEL_RMS, more than 10x that converged distance, and at 9 sweeps
+# to the float64 twin within SYNTH_RMS; on R6_SYNTH_PIXELS pixels (64
+# until phase 12 needed the run's time)
 R6_MODEL_SWEEPS = 11
-R6_SYNTH_PIXELS = 64
+R6_SYNTH_PIXELS = 32
 # the real r = 6 batch's main-path centers (n >= 508) at 9 sweeps: field vs
 # the fp32 model, relative rms. Phase 9's rule, the synthetic distance at
 # the engine's sweeps over 4, gives about 1.3e-6 here (about 5e-6 / 4; at
@@ -289,8 +314,10 @@ R6_MAIN_FLOOR = 0.65
 R6_CROP = (64, 64)
 # (e): a crop on the card against the port's CPU pipeline; in a 32x32 crop
 # the patch centers span 20x20, fewer than the 508 candidates of the main
-# path at r = 6, b = 11, so none takes it; in a 48x48 crop some do
-R6_CPU_CROP = 48
+# path at r = 6, b = 11, so none takes it; in a 40x40 crop 36 do (48x48,
+# 196 of them, until phase 12: the CPU pipeline's eigh on each made it the
+# slower)
+R6_CPU_CROP = 40
 # phase 11, d = 675 (csrc/solve_filter_smem.cu with 1,280 of the 1,352 rows
 # of W and Q in a global slot), at the engine's 9 sweeps
 R7_KERNELS = ("solve_filter_675",)
@@ -301,11 +328,12 @@ R7_SEARCH = 13
 # synthetic rows (n of 494 to 531, every pixel rank-deficient), as phase
 # 10's: at 9 sweeps the model sits 6.8e-6 from itself with the candidates
 # reversed and the kernel 6.1e-6 from the model; at 11, 9.2e-7 and 8.8e-7
-# (phase 11 (a) prints them; H100). So the kernel is held to its model at
-# R7_MODEL_SWEEPS, two past the engine's, within SMEM_MODEL_RMS, and at 9
-# to the float64 twin within SYNTH_RMS, on R7_SYNTH_PIXELS pixels
+# (phase 11 (a) printed them until phase 12; H100). So the kernel is held
+# to its model at R7_MODEL_SWEEPS, two past the engine's, within
+# SMEM_MODEL_RMS, and at 9 to the float64 twin within SYNTH_RMS, on
+# R7_SYNTH_PIXELS pixels (64 until phase 12 needed the run's time)
 R7_MODEL_SWEEPS = 11
-R7_SYNTH_PIXELS = 64
+R7_SYNTH_PIXELS = 32
 # the real r = 7 batch at 9 sweeps against the fp32 model: phase 10's limit
 # (its reading 1.1e-6, 18x under it; d = 675 at 9 sweeps sits about as near
 # convergence as d = 507 at 9 on the synthetic rows)
@@ -330,6 +358,44 @@ R7_CROP = (64, 64)
 # (e): in a 40x40 crop 4 centers reach the solve (their windows lose one
 # row and one column); in a 32x32 crop none
 R7_CPU_CROP = 40
+# phase 12, d = 867 (csrc/solve_filter_smem.cu with 1,683 of the 1,736 rows
+# of W and Q in a global slot), at the engine's sweeps
+R8_KERNELS = ("solve_filter_867",)
+# the smallest search radius whose window reaches the main path at r = 8:
+# 961 offsets, where n >= d + 1 = 868 similar candidates are needed (b = 14
+# offers 841)
+R8_SEARCH = 15
+# synthetic rows (every pixel rank-deficient), held as phase 11's: at 9
+# sweeps the model sat 1.0e-5 from itself with the candidates reversed and
+# the kernel 1.0e-5 from the model; at 11, 1.0e-6 and 9.8e-7 (H100, the
+# first run of phase 12, 64 pixels). So the kernel is held to its model
+# two sweeps past the engine's within SMEM_MODEL_RMS, and at the engine's
+# to the float64 twin within SYNTH_RMS, on R8_SYNTH_PIXELS pixels
+R8_MODEL_SWEEPS = 11
+R8_SYNTH_PIXELS = 64
+# the real r = 8 batch against the fp32 model: phase 11's limit
+R8_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 8 batch the model runs on, and the first and the
+# last main-path rows held bit for bit to the compact call. The 2-tile
+# batch (about 2,000 main-path centers at about 65 ms a center, about two
+# minutes) is timed on those 528 rows in place, four waves of the
+# persistent grid, a part of it
+R8_MODEL_CENTERS = 132
+R8_BITWISE_CENTERS = 264
+# the r = 8, b = 15 finest-scale main-path fraction of the frame and of the
+# 2-tile batch must exceed these (stated before the first reading: at r = 7
+# the frame read 0.8064 and its batch 1.0)
+R8_MAIN_FLOOR = 0.6
+R8_BATCH_FLOOR = 0.8
+# the cut -w 8 -b 15 frame: the scene's top-left 64x64 (the finest scale's
+# 4 tiles in two 2-tile batches), at two scales: at three its 16x16
+# coarsest scale holds no 17x17 patch, so that scale's estimate is 0
+# everywhere and the merge loses the image's low frequencies
+R8_CROP = (64, 64)
+R8_SCALES = 2
+# (e): in a 46x46 crop 12 centers reach the solve, all in the finest
+# scale's first batch (their windows keep 900 offsets); in a 44x44 none
+R8_CPU_CROP = 46
 # the repaired batch rule, read cheaply: bcd -w 3 -b 33 on the scene's
 # top-left 64x128 (8 tiles at the finest scale; 4 a batch, 16 before)
 BATCH_RULE_CROP = (64, 128)
@@ -700,9 +766,9 @@ def compare_kernels(label, inputs, params, cfg, reps):
 
 def stack_inputs(rng, O, d, P, device):
     """Random candidate stacks in JAX's lane layout (the synthetic inputs
-    of tests/test_solve_filter_pallas.py::make_inputs) and their raw
-    moments: dict of C (O, d, P), mask (O, P), noise (6 npx, P), n (1, P),
-    m (d, P), m2 (d, d, P), msum (d, P), nov (6 npx, P)."""
+    of tests/test_solve_filter_pallas.py::make_inputs): dict of C (O, d, P),
+    mask (O, P), noise (6 npx, P), n (1, P), m (d, P). The lane form's
+    moments are ``lane_moments``'s, formed on the card."""
     import torch
 
     npx = d // 3
@@ -715,10 +781,7 @@ def stack_inputs(rng, O, d, P, device):
     noise[:, 0:3] = 0.05 + 0.1 * rng.random((npx, 3, P))
     noise[:, 3:6] = 0.01 * rng.standard_normal((npx, 3, P))
     noise = noise.reshape(6 * npx, P)
-    mk = mask[:, None, :]
-    x = dict(C=C, mask=mask, noise=noise, n=n, m=m,
-             m2=np.einsum("okp,olp->klp", mk * C, C), msum=(mk * C).sum(0),
-             nov=noise * n)
+    x = dict(C=C, mask=mask, noise=noise, n=n, m=m)
     return {k: torch.tensor(np.ascontiguousarray(v, np.float32),
                             device=device) for k, v in x.items()}
 
@@ -771,11 +834,15 @@ def lanes_of(x):
 def r2_main_fraction(stats, dev, thr, radius=2, search_radius=6) -> float:
     """Main-path centers over managed centers of the r = ``radius``, b =
     ``search_radius`` engine on a whole image: n >= d + 1 similar patches
-    (distance masks only)."""
-    from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
+    (distance masks only, so STACK_TILE_BATCH tiles a batch at every r:
+    the masks are a tile's own, and at the engine's 2 tiles a batch of
+    r = 8 the launches of the window loop took a minute)."""
+    from bcd_tpu_torch.core.monoscale import (STACK_TILE_BATCH,
+                                              MonoscaleConfig,
                                               _distance_masks, tile_batches)
 
-    cfg = MonoscaleConfig(patch_radius=radius, search_radius=search_radius)
+    cfg = MonoscaleConfig(patch_radius=radius, search_radius=search_radius,
+                          tile_batch=STACK_TILE_BATCH)
     height, width = stats[0].shape[:2]
     main = managed = 0
     for _, (ly, lx), slabs in tile_batches(cfg, *padded(cfg, *stats, dev)):
@@ -935,15 +1002,15 @@ def compare_solve_batch(label, x, main, reps):
 
 def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
                            name="solve_filter_smem", pixels=1024,
-                           model_sweeps=None):
-    """solve_filter_pm at d (147: ``solve_filter_smem``, 243:
-    ``solve_filter_243``, 363: ``solve_filter_363``, 507:
-    ``solve_filter_507``) on ``pixels`` synthetic
+                           model_sweeps=None, diag=False):
+    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 867:
+    ``solve_filter_<d>``) on ``pixels`` synthetic
     pixels of O candidates: against the float64 twin at ``sweeps``, and
     against the fp32 model of its schedule at ``model_sweeps`` (default
-    ``sweeps``; where they differ, the model is also read against itself
-    with the candidates reversed at both, with no limit). Returns the max
-    abs err against the twin."""
+    ``sweeps``; where they differ and ``diag`` is set, the model is also
+    read at ``sweeps`` and against itself with the candidates reversed at
+    both, with no limit, on the first SYNTH_DIAG_PIXELS pixels). Returns
+    the max abs err against the twin."""
     import torch
     from bcd_tpu_torch.ops import solve_filter as ts
 
@@ -955,35 +1022,46 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
     need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
     twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
     e_t = rmse(field.cpu(), twin.cpu())
-    def order_gap(model, s):
-        # the model against itself with the candidates reversed: the same
-        # schedule with M2 summed in another fp32 order
-        rev = ts.solve_filter_pm_schedule(pm[0].flip(1), pm[1].flip(1),
-                                          *pm[2:], 1e-8, npx, s).flip(1)
-        return rmse(model.cpu(), rev.cpu())
+    k = SYNTH_DIAG_PIXELS
+    pk = [v[:k] for v in pm]
 
-    if model_sweeps != sweeps:
-        model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, sweeps)
-        print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels) at {sweeps} "
-              f"sweeps, no limit: {name} vs its fp32 schedule model rms "
-              f"{rmse(field.cpu(), model.cpu()):.3e}, model vs twin "
-              f"{rmse(model.cpu(), twin.cpu()):.3e}, model vs itself with "
-              f"the candidates reversed {order_gap(model, sweeps):.3e}",
-              flush=True)
+    def order_gap(model, s):
+        # the model against itself with the candidates reversed, on the
+        # first k pixels: the same schedule with M2 summed in another fp32
+        # order
+        rev = ts.solve_filter_pm_schedule(pk[0].flip(1), pk[1].flip(1),
+                                          *pk[2:], 1e-8, npx, s).flip(1)
+        return rmse(model[:k].cpu(), rev.cpu())
+
+    diag = diag and model_sweeps != sweeps
+    if diag:
+        t0 = time.perf_counter()
+        model = ts.solve_filter_pm_schedule(*pk, 1e-8, npx, sweeps)
+        print(f"{tag} synthetic d={d} (O={O}, the first {k} pixels) at "
+              f"{sweeps} sweeps, no limit: {name} vs its fp32 schedule model "
+              f"rms {rmse(field[:k].cpu(), model.cpu()):.3e}, model vs twin "
+              f"{rmse(model.cpu(), twin[:k].cpu()):.3e}, model vs itself "
+              f"with the candidates reversed {order_gap(model, sweeps):.3e} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
         del model
+    if model_sweeps != sweeps:
         field_m = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=model_sweeps)
     else:
         field_m = field
+    t0 = time.perf_counter()
     model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, model_sweeps)
     e_m = rmse(field_m.cpu(), model.cpu())
-    if model_sweeps != sweeps:
+    model_s = time.perf_counter() - t0
+    if diag:
+        t0 = time.perf_counter()
         print(f"{tag} synthetic d={d} at {model_sweeps} sweeps, no limit: "
               f"model vs itself with the candidates reversed "
-              f"{order_gap(model, model_sweeps):.3e}", flush=True)
+              f"{order_gap(model, model_sweeps):.3e} on the first {k} "
+              f"pixels ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels): {name} at "
           f"{model_sweeps} sweeps vs its fp32 schedule model rms {e_m:.3e} "
-          f"(limit {SMEM_MODEL_RMS:g}), model vs twin "
-          f"{rmse(model.cpu(), twin.cpu()):.3e}; at {sweeps} sweeps vs "
+          f"(limit {SMEM_MODEL_RMS:g}; the model {model_s:.1f} s), model vs "
+          f"twin {rmse(model.cpu(), twin.cpu()):.3e}; at {sweeps} sweeps vs "
           f"float64 twin rms {e_t:.3e} (limit {SYNTH_RMS:g})", flush=True)
     need(e_m < SMEM_MODEL_RMS, f"synthetic d={d} vs the schedule model")
     need(e_t < SYNTH_RMS, f"synthetic d={d} vs the float64 twin")
@@ -996,7 +1074,7 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
                        bitwise_centers=None, tail_centers=None, part=False,
                        time_once=False):
-    """``name`` (solve_filter_pm at d = 147, 243, 363, 507 or 675) on one
+    """``name`` (solve_filter_pm at d = 147 to 867) on one
     real batch: the engine's in-place call on the main-path rows, timed
     after a warm-up or, with ``time_once``, once (and so the twin's
     centers), against the compact call on the first ``bitwise_centers``
@@ -1044,9 +1122,11 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     if ms_batch is None:
         ms_batch = cuda_ms(batch, 1)
     bound_batch = bounds.solve_filter(rows.numel(), n_off, d, sweeps)
+    t0 = time.perf_counter()
     model = ts.solve_filter_pm_schedule(
         *(v[:model_centers] for v in args_m), 1e-8, npx, sweeps)
     rel_m = rel_rms(field[:model_centers], model)
+    model_s = time.perf_counter() - t0
     del model
     subt = [v[:R3_TWIN_CENTERS].contiguous() for v in args_m]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
@@ -1073,7 +1153,8 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
           f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
     print(f"{tag} {label}: field vs its fp32 schedule model on the first "
           f"{min(model_centers, sub.numel())} centers rel rms {rel_m:.3e} "
-          f"(limit {model_limit:g}); vs the float64 twin on the "
+          f"(limit {model_limit:g}; the model {model_s:.1f} s); vs the "
+          f"float64 twin on the "
           f"first {R3_TWIN_CENTERS} rel rms {rel:.3e} (limit "
           f"{BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those centers "
           f"kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
@@ -1158,8 +1239,9 @@ def r3_phase(dev, card, stats, clean, scene_path):
           f"frame {frac3:.4f}", flush=True)
     need(e_out3 < e_in_c, "the -w 3 output is not closer to the clean image")
 
-    # (d) a 48x48 crop on the card, twice, against the port's CPU pipeline
-    crop = [x[:48, :48].contiguous() for x in dev_stats]
+    # (d) a crop on the card, twice, against the port's CPU pipeline
+    k = R3_CPU_CROP
+    crop = [x[:k, :k].contiguous() for x in dev_stats]
     got = denoise_pipeline(*crop, dev, p3)
     need(torch.equal(got, denoise_pipeline(*crop, dev, p3)),
          "-w 3 crop not bitwise repeatable")
@@ -1167,7 +1249,7 @@ def r3_phase(dev, card, stats, clean, scene_path):
     ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p3)
     cpu_s = time.perf_counter() - t0
     gap = rmse(got.cpu(), ref)
-    print(f"[7] -w 3 pipeline on a 48x48 crop (b=6): card vs the port's CPU "
+    print(f"[7] -w 3 pipeline on a {k}x{k} crop (b=6): card vs the port's CPU "
           f"pipeline (float64 twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit "
           f"{R2_CPU_RMSE:g}), max abs "
           f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
@@ -1188,12 +1270,13 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 to 11 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 12 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
     synthetic and real-batch checks, and whether its batch is timed once.
     From d = 363 on the last R3_TWIN_CENTERS main rows of the batch are
-    held in place to the compact call as well as the first."""
+    held in place to the compact call as well as the first. ``scales``,
+    where given, is the ``-s`` of the crop's CLI runs (else the default)."""
     return {
         4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
                 floor=R4_MAIN_FLOOR, batch_floor=0.0, crop=R4_CROP,
@@ -1204,11 +1287,11 @@ def wide_phases():
                 floor=R5_MAIN_FLOOR, batch_floor=0.0, crop=R5_CROP,
                 cpu_crop=R5_CPU_CROP,
                 synth=dict(pixels=R5_SYNTH_PIXELS,
-                           model_sweeps=R5_MODEL_SWEEPS),
+                           model_sweeps=R5_MODEL_SWEEPS, diag=True),
                 batch=dict(model_centers=R5_MODEL_CENTERS,
                            model_limit=R5_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R5_BITWISE_CENTERS,
-                           tail_centers=R3_TWIN_CENTERS),
+                           tail_centers=R3_TWIN_CENTERS, part=True),
                 # the batch is timed once, not after a warm-up
                 time_once=True,
                 # no solve: -w 5 at b = 9 (361 offsets)
@@ -1237,15 +1320,28 @@ def wide_phases():
                 time_once=True,
                 # no solve: -w 7 at b = 12 (625 offsets)
                 no_solve_b=12),
+        8: dict(tag="[12]", kernels=R8_KERNELS, O=961, search=R8_SEARCH,
+                floor=R8_MAIN_FLOOR, batch_floor=R8_BATCH_FLOOR,
+                crop=R8_CROP, cpu_crop=R8_CPU_CROP, scales=R8_SCALES,
+                synth=dict(pixels=R8_SYNTH_PIXELS,
+                           model_sweeps=R8_MODEL_SWEEPS),
+                batch=dict(model_centers=R8_MODEL_CENTERS,
+                           model_limit=R8_MODEL_BATCH_REL_RMS,
+                           bitwise_centers=R8_BITWISE_CENTERS,
+                           tail_centers=R3_TWIN_CENTERS, part=True),
+                time_once=True,
+                # no solve: -w 8 at b = 14 (841 offsets)
+                no_solve_b=14),
     }
 
 
 def wide_phase(radius, dev, card, stats, clean, scene_path):
     """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363), 10 (radius 6,
-    d = 507) or 11 (radius 7, d = 675): the -w r path on the 1088x1920
-    scene at the smallest b that reaches its main path. Returns the kernels
-    line's entry (max_abs_err, ms, plain_ms, bound) and the cut frame's
-    launch counts."""
+    d = 507), 11 (radius 7, d = 675) or 12 (radius 8, d = 867): the -w r
+    path on the 1088x1920 scene at the smallest b that reaches its main
+    path, each step's time printed. Returns the kernels line's entry
+    (max_abs_err, ms, plain_ms, bound) and the cut frame's launch
+    counts."""
     import torch
     from bcd_tpu_torch import cli
     from bcd_tpu_torch.core.monoscale import (STACK_TILE_BATCH,
@@ -1264,12 +1360,22 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     npx = d // 3
     sweeps = solve_filter_sweeps(d)
     w = ["-w", str(radius), "-b", str(b)]
+    scales = ["-s", str(c["scales"])] if c.get("scales") else []
+    t_step = [time.perf_counter()]
+
+    def step_done(step):
+        now = time.perf_counter()
+        print(f"{tag} ({step}) in {now - t_step[0]:.1f} s", flush=True)
+        t_step[0] = now
+
     # (a) synthetic
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, **c["synth"])
+    step_done("a")
     # (b) one real tile batch of the finest scale (after the prefilter): 16
-    # tiles, 8 at r = 6 and 4 at r = 7 (core/monoscale.STACK_BYTES), the
-    # batch that holds the tiles of phase 2's 16-tile batch 8
+    # tiles, 8 at r = 6, 4 at r = 7 and 2 at r = 8
+    # (core/monoscale.STACK_BYTES), the batch that holds the tiles of phase
+    # 2's 16-tile batch 8
     n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
     k_batch = 8 * STACK_TILE_BATCH // n_tiles
     pw = PipelineParameters()
@@ -1278,10 +1384,11 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     thr = pw.denoiser.monoscale.histogram_distance_threshold
     pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
                         pw.prefiltering.spike_removal_threshold_stdev_factor)
+    t0 = time.perf_counter()
     frac = r2_main_fraction(pre, dev, thr, radius=radius, search_radius=b)
     print(f"{tag} 1088x1920 finest scale at r={radius}, b={b}, threshold "
           f"{thr:g}: main-path fraction {frac:.4f} (floor "
-          f"{c['floor']:g})", flush=True)
+          f"{c['floor']:g}; {time.perf_counter() - t0:.1f} s)", flush=True)
     need(frac > c["floor"], f"the {' '.join(w)} run barely reaches the main "
          "path")
     x, main = r2_batch(pre, dev, thr, batch=k_batch, radius=radius,
@@ -1307,13 +1414,14 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
           f"the Jacobi's {sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
           f"{1 - ms0 / batch_ms:.3f})", flush=True)
     del x, main
+    step_done("b")
 
     # (c) bcd -w r -b b through the CLI's entry point on a crop, traced
     ch, cw = c["crop"]
     crop_path = scene_path.replace(".exr", f"_w{radius}crop.exr")
     write_scene(crop_path, *(x[:ch, :cw] for x in stats))
     out_path = crop_path.replace(".exr", "_out.exr")
-    argv = ["-i", crop_path, "-o", out_path, *w]
+    argv = ["-i", crop_path, "-o", out_path, *w, *scales]
     rcs = []
     _build.reset_launches()
     torch.cuda.synchronize()
@@ -1353,13 +1461,14 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
           f"center and the finest scale's fraction "
           f"{batch_ms / timed_rows.numel() * 1088 * 1920 * frac / 1e3:.1f}"
           " s in the kernel at the finest scale", flush=True)
+    step_done("c")
 
     # (d) the gate: -w r on the crop at a b whose window cannot reach the
     # solve, where no center reaches it
     b0 = c["no_solve_b"]
     out_path0 = crop_path.replace(".exr", f"_out_w{radius}b{b0}.exr")
     argv0 = ["-i", crop_path, "-o", out_path0, "-w", str(radius), "-b",
-             str(b0)]
+             str(b0), *scales]
     _build.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv0)
@@ -1375,6 +1484,7 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
           f"{wall0:.3f} s wall with EXR I/O; launches {launches0} (no solve: "
           f"{(2 * b0 + 1) ** 2} offsets < {d + 1}); rmse vs clean "
           f"{rmse(out0, clean_c):.5f}, noisy input {e_in_c:.5f}", flush=True)
+    step_done("d")
 
     # (e) a crop on the card, twice, against the port's CPU pipeline
     k = c["cpu_crop"]
@@ -1395,6 +1505,7 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
           "on the card", flush=True)
     need(gap < R2_CPU_RMSE, f"-w {radius} on the card against the CPU "
          "pipeline")
+    step_done("e")
     return res, launches
 
 
@@ -1714,8 +1825,8 @@ def card_line() -> str:
 
 
 def time_crop(height, width, radius=5) -> int:
-    """One timed ``bcd -w r -b b --stats`` run (phase 8's, 9's, 10's or 11's
-    radius r and its search radius b) through the CLI's entry point on the
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 12's radius r
+    and its search radius b) through the CLI's entry point on the
     scene's top-left height x width crop, the kernels built first: wall
     time with EXR I/O, launches, peak memory, rmse vs clean."""
     import torch
@@ -1781,8 +1892,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--time-crop"]:
         need(len(sys.argv) == 4 or (len(sys.argv) == 6
                                     and sys.argv[4] == "--radius"
-                                    and sys.argv[5] in ("4", "5", "6", "7")),
-             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6|7]")
+                                    and sys.argv[5] in ("4", "5", "6", "7",
+                                                        "8")),
+             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6|7|8]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -2056,6 +2168,12 @@ def main() -> int:
     batch_rule_run(card, stats, clean, paths[""])
     print(f"[11] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- 12. the -w 8 path --------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_867"], launches8 = wide_phase(
+        8, dev, card, stats, clean, paths[""])
+    print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
@@ -2086,6 +2204,9 @@ def main() -> int:
         "solve_filter_675": ("solve_filter_675",
                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_867": ("solve_filter_867",
+                             "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                             "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
@@ -2093,7 +2214,8 @@ def main() -> int:
             "solve_filter_243": launches4["solve_filter_243"],
             "solve_filter_363": launches5["solve_filter_363"],
             "solve_filter_507": launches6["solve_filter_507"],
-            "solve_filter_675": launches7["solve_filter_675"]}
+            "solve_filter_675": launches7["solve_filter_675"],
+            "solve_filter_867": launches8["solve_filter_867"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

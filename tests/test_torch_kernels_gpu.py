@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
-shared-memory form at d = 147, 243, 363, 507 and 675 and the lane-form
+shared-memory form at d = 147, 243, 363, 507, 675 and 867 and the lane-form
 solve_matrices) against their plain twins, and the solve kernels against
 the plain fp32 model of their own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
@@ -506,13 +506,63 @@ def test_schedule_sweeps_at_d675(cuda):
         < 2e-5
 
 
-@pytest.mark.parametrize("d", [75, 147, 243, 363, 507, 675])
+# d = 867, as d = 675: the model two sweeps past the engine's
+R8_MODEL_SWEEPS = solve_filter_sweeps(867) + 2
+
+
+def test_solve_filter_867_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 867 (csrc/solve_filter_smem.cu with 1,683 of
+    the 1,736 rows of W and Q in a global slot) on 64 synthetic pixels of
+    961 candidates: against the fp32 model of its schedule at
+    R8_MODEL_SWEEPS, rms SMEM_MODEL_RMS, and against the float64 twin at
+    the engine's sweeps, rms 2e-4; it launches the d = 867 kernel only."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(867), 961, 867, 64)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    _build.reset_launches()
+    got = solve_filter_pm(*pm, 1e-8, npx=289, sweeps=solve_filter_sweeps(867))
+    assert _build.LAUNCHES["solve_filter_867"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 289)) < 2e-4
+    got = solve_filter_pm(*pm, 1e-8, npx=289, sweeps=R8_MODEL_SWEEPS)
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, 289,
+                                              R8_MODEL_SWEEPS)) \
+        < SMEM_MODEL_RMS
+
+
+def test_schedule_sweeps_at_d867(cuda):
+    """Why the engine runs solve_filter_sweeps(867) sweeps at d = 867: the
+    smallest count that keeps the fp32 schedule within 2e-5 rms of the
+    float64 twin, as at d = 147 to 675, on 8 synthetic pixels of 961
+    candidates. Read on the card (on a host's cores the model would take
+    about 20 minutes)."""
+    x = _stack_inputs(np.random.default_rng(21), 961, 867, 8)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    want = solve_filter_pm_plain(*pm, 1e-8, 289)
+    sweeps = solve_filter_sweeps(867)
+    rms = [_rms(solve_filter_pm_schedule(*pm, 1e-8, 289, s), want)
+           for s in (sweeps - 1, sweeps)]
+    print(f"d = 867: {sweeps - 1} sweeps {rms[0]:.3e}, {sweeps} {rms[1]:.3e} "
+          "rms from the float64 twin")
+    assert rms[0] > 2e-5 and rms[1] < 2e-5
+
+
+@pytest.mark.parametrize("d", [75, 147, 243, 363, 507, 675, 867])
 def test_solve_filter_pm_rows_in_place(cuda, d):
     """The engine's entry: with ``rows`` the kernel reads those pixels of the
     stacks in place and writes their fields, bit for bit those of the
     compact stacks; the other rows are 0."""
     x = _stack_inputs(np.random.default_rng(31),
-                      {243: 289, 363: 441, 507: 529, 675: 729}.get(d, 169),
+                      {243: 289, 363: 441, 507: 529, 675: 729,
+                       867: 961}.get(d, 169),
                       d, 64)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -579,26 +629,26 @@ def test_wrappers_count_only_launches(cuda):
 
 def test_solve_filter_pm_empty_rows_at_any_d(cuda):
     """No pixel to solve (a batch where no center reaches the main path):
-    zeros and no launch, also at d = 867, for which no kernel is built."""
+    zeros and no launch, also at d = 1083, for which no kernel is built."""
     from bcd_tpu_torch.ops import _build
 
-    x = _stack_inputs(np.random.default_rng(1), 9, 867, 3)
+    x = _stack_inputs(np.random.default_rng(1), 9, 1083, 3)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
         x["m"].T.contiguous())]
     _build.reset_launches()
-    field = solve_filter_pm(*pm, 1e-8, npx=289, sweeps=9,
+    field = solve_filter_pm(*pm, 1e-8, npx=361, sweeps=9,
                             rows=torch.zeros(0, dtype=torch.long, device=cuda))
-    assert field.shape == (3, 9, 867) and not bool(field.any())
+    assert field.shape == (3, 9, 1083) and not bool(field.any())
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    """d = 867 (patch radius 8) with a pixel to solve: no kernel is built
-    for it (W and Q would take 6.02 MB a pixel); refused with the reason,
+    """d = 1083 (patch radius 9) with a pixel to solve: no kernel is built
+    for it (W and Q would take 9.40 MB a pixel); refused with the reason,
     and the lane form at d = 147 too."""
-    d = 867
+    d = 1083
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
     pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -618,16 +668,16 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """Radius 3 to 7 run on the card now; radius 8 at b = 15, where a
-    center can reach the solve and no kernel is built for d = 867, is
-    refused before the inputs are read, with the shared-memory reason, and
-    the twin never runs."""
+    """Radius 3 to 8 run on the card now; radius 9 at b = 16, where a
+    center can reach the solve and no kernel is built for d = 1083, is
+    refused before the inputs are read, with the shared-memory reason and
+    the ROADMAP item, and the twin never runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "8", "-b", "15"]) == 1
+                     "9", "-b", "16"]) == 1
     out = capsys.readouterr().out
-    assert "shared memory" in out and "ROADMAP" in out
+    assert "shared memory" in out and "ROADMAP.md Queue 2" in out
 
 
 def test_cli_accepts_radius_4_at_b6_on_cuda(cuda, tmp_path):
@@ -644,6 +694,14 @@ def test_cli_accepts_radius_6_at_b10_on_cuda(cuda, tmp_path):
     for d = 507: every center takes the fallback, no solve kernel
     launches, and the output is the CPU run's within rmse 1e-4."""
     _cli_fallback_only_matches_cpu(tmp_path, ["-w", "6", "-b", "10"])
+
+
+def test_cli_accepts_radius_9_at_b15_on_cuda(cuda, tmp_path):
+    """``bcd -w 9 -b 15`` (961 offsets, fewer than the 1,084 candidates the
+    d = 1083 main path needs) runs on the card though no kernel is built
+    for d = 1083: no solve kernel launches, and the output is the CPU
+    run's within rmse 1e-4."""
+    _cli_fallback_only_matches_cpu(tmp_path, ["-w", "9", "-b", "15"])
 
 
 def _cli_fallback_only_matches_cpu(tmp_path, flags):

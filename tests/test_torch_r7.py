@@ -62,30 +62,30 @@ np.savez(sys.argv[2], np.asarray(out_sum), np.asarray(count))
 """
 
 
-def tile_slabs(cfg, index):
-    """The halo-padded slabs of tile ``index`` of the 40x40 scene, as the
-    port's engine cuts them, and its core origin (ly, lx)."""
+def tile_slabs(cfg, index, scene=scene40):
+    """The halo-padded slabs of tile ``index`` of ``scene()`` (the 40x40
+    scene), as the port's engine cuts them, and its core origin (ly, lx)."""
     one = tmono.MonoscaleConfig(patch_radius=cfg.patch_radius,
                                 search_radius=cfg.search_radius,
                                 tile=cfg.tile, tile_batch=1)
     for idx, (ly, lx), slabs in tmono.tile_batches(
-            one, *_padded(one, scene40())):
+            one, *_padded(one, scene())):
         if int(idx[0]) == index:
             return slabs, int(ly[0]), int(lx[0])
     raise IndexError(index)
 
 
-def main_fraction(cfg, slabs, ly, lx):
+def main_fraction(cfg, slabs, ly, lx, scene=scene40):
     """Main-path centers over managed centers of the tile."""
-    height, width = scene40()[0].shape[:2]
+    height, width = scene()[0].shape[:2]
     yx = [torch.tensor([v]) for v in (ly, lx)]
     s = tmono.candidate_stacks(cfg, *slabs, *yx, *yx, height, width, height,
                                width, R2_THRESHOLD)
     return float(s["main"].sum()) / float((s["main"] | s["fb"]).sum())
 
 
-def jax_tile(cfg, slabs, ly, lx):
-    height, width = scene40()[0].shape[:2]
+def jax_tile(cfg, slabs, ly, lx, scene=scene40):
+    height, width = scene()[0].shape[:2]
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
         np.savez(src, *(s[0].numpy() for s in slabs))
@@ -100,8 +100,8 @@ def jax_tile(cfg, slabs, ly, lx):
         return z["arr_0"], z["arr_1"]
 
 
-def torch_tile(cfg, slabs, ly, lx):
-    height, width = scene40()[0].shape[:2]
+def torch_tile(cfg, slabs, ly, lx, scene=scene40):
+    height, width = scene()[0].shape[:2]
     yx = [torch.tensor([v]) for v in (ly, lx)]
     out_sum, count = tmono.denoise_tiles(
         cfg, *slabs, *yx, *yx, height, width, height, width, R2_THRESHOLD,
