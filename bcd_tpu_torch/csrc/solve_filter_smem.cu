@@ -1,13 +1,14 @@
 // solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363),
-// 6 (d = 507), 7 (d = 675) and 8 (d = 867): the per-pixel two-step Bayesian
-// solve and filter of the candidate stacks, with the Jacobi's two working
-// matrices in shared memory (d = 147), or as much of them as fits there and
-// the rest in a global slot of the block (d = 243 to 867).
+// 6 (d = 507), 7 (d = 675), 8 (d = 867) and 9 (d = 1083): the per-pixel
+// two-step Bayesian solve and filter of the candidate stacks, with the
+// Jacobi's two working matrices in shared memory (d = 147), or as much of
+// them as fits there and the rest in a global slot of the block (d = 243
+// to 1083).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
 // body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363,
-// 507, 675 and 867; it computes what csrc/solve_filter.cu computes at d = 27
-// and 75. Per pixel:
+// 507, 675, 867 and 1083; it computes what csrc/solve_filter.cu computes at
+// d = 27 and 75. Per pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
 //   Cemp = (M2 - n m m^T) / max(n - 1, 1), BD = block-diagonal noise;
@@ -57,7 +58,12 @@
 // the 232,448 bytes), the other 1,683 (5.84 MB) in the global slot, which
 // with Cemp and H is 11.9 MB a block, 1.57 GB for 132 blocks, 31 times the
 // L2: a round (434 pairs, seven pivot passes) moves about twice d = 675's
-// bytes, and HBM's traffic bounds it as there. The design is the simple
+// bytes, and HBM's traffic bounds it as there. At d = 1083 they take
+// 9.40 MB: 40 of the 2,168 rows (W's first 40) stay in shared memory beside
+// 56 KB of vectors (229,808 of the 232,448 bytes), the other 2,128
+// (9.23 MB) in the global slot, which with Cemp and H is 18.6 MB a block,
+// 2.46 GB for 132 blocks, 49 times the L2: a round (542 pairs, nine pivot
+// passes) moves about 1.56 times d = 867's bytes. The design is the simple
 // one, not tuned (its time beside its bound: PERF.md).
 //
 // The design:
@@ -76,11 +82,13 @@
 //   - A round: eight lanes a pair form the inner products <W[a], Q[b]>
 //     (16-byte loads, a three-step shuffle reduction; a warp takes four
 //     pairs a pass, PASSES passes loaded together: two at d = 147 and 243,
-//     three for the 182 pairs at d = 363, four for the 254 at d = 507,
-//     six for the 338 at d = 675, seven for the 434 at d = 867),
-//     lane k of a group then forms pass k's pair's angles and row scales
-//     (as _jacobi_fp32 does), its record {alpha, beta, rows} and the next
-//     seat map; a barrier; every thread rotates 16-byte units of the rows
+//     three for the 182 pairs at d = 363, four for the 254 at d = 507, six
+//     for the 338 at d = 675, seven for the 434 at d = 867, nine for the
+//     542 at d = 1083), lane k of a group then forms the angles and row
+//     scales of its pass-k pair and, from nine passes on, of its
+//     pass-(k + 8) pair (as _jacobi_fp32 does), each pair's record
+//     {alpha, beta, rows} and the next seat map; a barrier; every thread
+//     rotates 16-byte units of the rows
 //     of W and Q, one FMA an element; a barrier. At d = 243 a round is
 //     bound by the L2 traffic of the global rows, not by their latency:
 //     loading four units before storing any did not make it faster
@@ -97,8 +105,8 @@
 //     floored at 1e-30), the forward substitution taken along, the pivot
 //     row kept in registers (d / 32 columns a lane) up to d = 507 and
 //     staged in shared memory beyond, where the registers spilled it
-//     (one more barrier a column; 28 columns a lane at d = 867); the back
-//     substitution right-looking too.
+//     (one more barrier a column; 28 columns a lane at d = 867, 34 at
+//     d = 1083); the back substitution right-looking too.
 //
 // Layouts (pixel-major, P pixels; bcd_tpu_torch/ops/solve_filter.py):
 // cand (P, O, d), mask (P, O), noise (P, 6 npx) with the channels
@@ -136,10 +144,10 @@ struct Smem {
   // the Cholesky's pivot row of S and of Y, scaled: in registers, CL
   // columns a lane in each of two arrays, up to CL = 16 (d = 507); past
   // that (d = 675: 22 columns) ptxas spilled it inside the elimination
-  // loop, so it is staged in the shared vectors instead (d = 675 and 867,
-  // 28 columns). The fields are the same bit for bit either way; on an
-  // H100 the registers were the faster at d = 147 to 507 and the staged
-  // row at d = 675
+  // loop, so it is staged in the shared vectors instead (d = 675 to 1083;
+  // 28 columns at 867, 34 at 1083). The fields are the same bit for bit
+  // either way; on an H100 the registers were the faster at d = 147 to 507
+  // and the staged row at d = 675 and 867
   static constexpr int CL = (D + 31) / 32;
   static constexpr bool PIVOT_SMEM = CL > 16;
   // the vectors: m, the noise, diag, f, neg (then b2), the Cholesky's
@@ -167,9 +175,10 @@ struct Smem {
   static constexpr int SCRATCH = 2 * MAT + GROWS * DP;
   static_assert(FLOATS == M_OFF + VEC, "the vectors' layout");
   static_assert(DP % 4 == 0 && REC_OFF % 4 == 0, "rows of 16-byte units");
-  // every lane's first pair is a real one, and a group's eight lanes can
-  // form the angles of all its passes' pairs
-  static_assert(PPASS <= HALF && PASSES <= 8, "a round's pairs in one to eight passes");
+  // every lane's first pair is a real one, and a group's eight lanes form
+  // the angles of all its passes' pairs, a lane those of at most two
+  // passes (k and k + 8): up to d = 2,048, patch radius 12
+  static_assert(PPASS <= HALF && PASSES <= 16, "a round's pairs in one to sixteen passes");
   static_assert(BYTES <= 4 * SMEM_FLOATS, "more shared memory than a block may have");
 };
 
@@ -586,35 +595,75 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
 #pragma unroll
             for (int k = 0; k < NP; ++k) sp[k] += __shfl_xor_sync(FULL, sp[k], o);
         }
-        // lane k of a group forms the angles of its pass-k pair
-        const int i = p0 + sub * G::PPASS;
-        if (sub < NP && i < HALF) {
-          float sum = sp[0];
+        // lane k of a group forms the angles of its pass-k pair and, from
+        // nine passes on (d = 1083), of its pass-(k + 8) pair: a round's
+        // pairs are disjoint, so one lane's two pairs write disjoint diag,
+        // fsc, rec and nxt entries. Up to eight passes the step is the one
+        // the smaller d were timed with, so they compile to the same code
+        if constexpr (NP <= 8) {
+          const int i = p0 + sub * G::PPASS;
+          if (sub < NP && i < HALF) {
+            float sum = sp[0];
 #pragma unroll
-          for (int k = 1; k < NP; ++k)
-            if (sub == k) sum = sp[k];
-          const int ra = cur[i], rb = cur[i + HALF];
-          const float app = diag[ra], aqq = diag[rb];
-          const float fp_ = fsc[ra], fq = fsc[rb];
-          const float apq = sum * (fp_ * fq);
-          const bool small = fabsf(apq) < 1e-30f;
-          const float tau = (aqq - app) / (small ? 1.f : 2.f * apq);
-          float tt = copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
-          if (tau == 0.f) tt = 1.f;
-          if (small) tt = 0.f;
-          const float cs = 1.f / sqrtf(1.f + tt * tt);
-          const float sn = tt * cs;
-          const float inv_cf = 1.f / (cs * fp_ * fq);
-          const float tapq = tt * apq;
-          rec[i] = make_float4(small ? 0.f : -sn * fq * fq * inv_cf,
-                               small ? 0.f : sn * fp_ * fp_ * inv_cf, __int_as_float(ra),
-                               __int_as_float(rb));
-          diag[ra] = app - tapq;
-          diag[rb] = aqq + tapq;
-          fsc[ra] = cs * fp_;
-          fsc[rb] = cs * fq;
-          nxt[to_seat<DP>(i)] = ra;
-          nxt[to_seat<DP>(i + HALF)] = rb;
+            for (int k = 1; k < NP; ++k)
+              if (sub == k) sum = sp[k];
+            const int ra = cur[i], rb = cur[i + HALF];
+            const float app = diag[ra], aqq = diag[rb];
+            const float fp_ = fsc[ra], fq = fsc[rb];
+            const float apq = sum * (fp_ * fq);
+            const bool small = fabsf(apq) < 1e-30f;
+            const float tau = (aqq - app) / (small ? 1.f : 2.f * apq);
+            float tt = copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
+            if (tau == 0.f) tt = 1.f;
+            if (small) tt = 0.f;
+            const float cs = 1.f / sqrtf(1.f + tt * tt);
+            const float sn = tt * cs;
+            const float inv_cf = 1.f / (cs * fp_ * fq);
+            const float tapq = tt * apq;
+            rec[i] = make_float4(small ? 0.f : -sn * fq * fq * inv_cf,
+                                 small ? 0.f : sn * fp_ * fp_ * inv_cf, __int_as_float(ra),
+                                 __int_as_float(rb));
+            diag[ra] = app - tapq;
+            diag[rb] = aqq + tapq;
+            fsc[ra] = cs * fp_;
+            fsc[rb] = cs * fq;
+            nxt[to_seat<DP>(i)] = ra;
+            nxt[to_seat<DP>(i + HALF)] = rb;
+          }
+        } else {
+#pragma unroll
+          for (int t8 = 0; t8 < (NP + 7) / 8; ++t8) {
+            const int k = sub + 8 * t8;
+            const int i = p0 + k * G::PPASS;
+            if (k < NP && i < HALF) {
+              float sum = sp[0];
+#pragma unroll
+              for (int kk = 1; kk < NP; ++kk)
+                if (k == kk) sum = sp[kk];
+              const int ra = cur[i], rb = cur[i + HALF];
+              const float app = diag[ra], aqq = diag[rb];
+              const float fp_ = fsc[ra], fq = fsc[rb];
+              const float apq = sum * (fp_ * fq);
+              const bool small = fabsf(apq) < 1e-30f;
+              const float tau = (aqq - app) / (small ? 1.f : 2.f * apq);
+              float tt = copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
+              if (tau == 0.f) tt = 1.f;
+              if (small) tt = 0.f;
+              const float cs = 1.f / sqrtf(1.f + tt * tt);
+              const float sn = tt * cs;
+              const float inv_cf = 1.f / (cs * fp_ * fq);
+              const float tapq = tt * apq;
+              rec[i] = make_float4(small ? 0.f : -sn * fq * fq * inv_cf,
+                                   small ? 0.f : sn * fp_ * fp_ * inv_cf, __int_as_float(ra),
+                                   __int_as_float(rb));
+              diag[ra] = app - tapq;
+              diag[rb] = aqq + tapq;
+              fsc[ra] = cs * fp_;
+              fsc[rb] = cs * fq;
+              nxt[to_seat<DP>(i)] = ra;
+              nxt[to_seat<DP>(i + HALF)] = rb;
+            }
+          }
         }
         __syncthreads();
         // fast-Givens rows: top' = top + alpha bot, bot' = beta top + bot,
@@ -773,6 +822,7 @@ extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (d == 507) return n_blocks * Smem<507>::SCRATCH;
   if (d == 675) return n_blocks * Smem<675>::SCRATCH;
   if (d == 867) return n_blocks * Smem<867>::SCRATCH;
+  if (d == 1083) return n_blocks * Smem<1083>::SCRATCH;
   return -1;
 }
 
@@ -782,7 +832,8 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      int n_rows, int n_off, int d, int sweeps,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
-  if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675 && d != 867) ||
+  if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675 && d != 867 &&
+       d != 1083) ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
@@ -802,6 +853,9 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
   if (d == 675)
     return launch<675>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                        n_blocks, field, st);
-  return launch<867>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
-                     n_blocks, field, st);
+  if (d == 867)
+    return launch<867>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                       n_blocks, field, st);
+  return launch<1083>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                      n_blocks, field, st);
 }

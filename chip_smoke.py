@@ -6,9 +6,9 @@
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's, 9's, 10's, 11's or 12's
-patch radius (4, 5, 6, 7 or 8; 5 by default) and B its search radius (8,
-10, 11, 13 or 15).
+built, and runs nothing else: R is phase 8's, 9's, 10's, 11's, 12's or
+13's patch radius (4, 5, 6, 7, 8 or 9; 5 by default) and B its search
+radius (8, 10, 11, 13, 15 or 16).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -90,7 +90,7 @@ non-zero before the final line:
    the -w 5 path: synthetic stacks against the float64 twin at 9 sweeps
    and against the fp32 model at 11; one real 8-tile r = 6, b = 11 batch
    (the engine's batch at this d), a part of it timed once in place (its
-   first and last 264 main-path rows, the last past element 2^31 of the
+   first and last 132 main-path rows, the last past element 2^31 of the
    stack, bit for bit against the compact call); ``bcd -w 6 -b 11`` on a
    64x64 crop (launches only solve_filter_507); ``bcd -w 6 -b 10`` on
    that crop (no solve launch); a 40x40 crop (the smallest size here whose
@@ -100,7 +100,7 @@ non-zero before the final line:
    solve_filter_675, 9 sweeps) at b = 13, checked as phase 10 checks the
    -w 6 path: synthetic stacks against the float64 twin at 9 sweeps and
    the fp32 model at 11; one real 4-tile r = 7, b = 13 batch, its first
-   and last 264 main-path rows timed once in place; ``bcd -w 7 -b 13`` on
+   and last 132 main-path rows timed once in place; ``bcd -w 7 -b 13`` on
    a 64x64 crop (launches only solve_filter_675; peak memory);
    ``bcd -w 7 -b 12`` on that crop (no solve launch); a 40x40 crop against
    the port's CPU pipeline. Then ``bcd -w 3 -b 33`` on a 64x128 crop: the
@@ -109,11 +109,26 @@ non-zero before the final line:
    in the global slot, solve_filter_867) at b = 15, checked as phase 11
    checks the -w 7 path: synthetic stacks against the float64 twin at the
    engine's sweeps and the fp32 model two sweeps past them; one real
-   2-tile r = 8, b = 15 batch, its first and last 264 main-path rows timed
-   once in place; ``bcd -w 8 -b 15 -s 2`` on a 64x64 crop (launches only
-   solve_filter_867; peak memory; two scales, since at three the 16x16
-   coarsest scale holds no 17x17 patch); ``bcd -w 8 -b 14 -s 2`` on that
-   crop (no solve launch); a 46x46 crop against the port's CPU pipeline.
+   2-tile r = 8, b = 15 batch, its first and last 132 main-path rows timed
+   once in place; ``bcd -w 8 -b 15 -s 2`` on a 46x46 crop (launches only
+   solve_filter_867; peak memory; two scales, since at three a 64x64
+   crop's 16x16 coarsest scale holds no 17x17 patch); ``bcd -w 8 -b 14
+   -s 2`` on that crop (no solve launch); that crop against the port's
+   CPU pipeline.
+13. The -w 9 path (d = 1083, the same kernel with 2,128 of the 2,168 rows
+   in the global slot and nine pivot passes a round, a lane of a group
+   forming the angles of two passes, solve_filter_1083, 10 sweeps) at
+   b = 16, checked as phase 12 checks the -w 8 path: one wave of
+   synthetic stacks against the float64 twin at the engine's sweeps and
+   the fp32 model two sweeps past them; one real 2-tile r = 9, b = 16
+   batch, its first and last 66 main-path rows (one wave) timed once in
+   place, the last past element 2^31 of the stack; ``bcd -w 9 -b 16 -s 2``
+   on a 52x52 crop (launches only solve_filter_1083; peak memory);
+   ``bcd -w 9 -b 15 -s 2`` on that crop (no solve launch); that crop
+   against the port's CPU pipeline.
+
+From phase 8 on, (e)'s reference, the port's CPU pipeline on the crop,
+runs on the host's cores from the phase's start, beside the card's work.
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -124,6 +139,7 @@ Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -209,7 +225,8 @@ R4_KERNELS = ("solve_filter_243",)
 # every solve kernel; a run that takes no main path launches none
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
-                 "solve_filter_507", "solve_filter_675", "solve_filter_867")
+                 "solve_filter_507", "solve_filter_675", "solve_filter_867",
+                 "solve_filter_1083")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -294,13 +311,14 @@ R6_SYNTH_PIXELS = 32
 R6_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 6 batch the model runs on, and the first and the
 # last main-path rows of the batch that the timed in-place call solves and
-# holds bit for bit to the compact call (one and two waves of the kernel's
-# persistent grid on 132 SMs). The whole 8-tile batch took 98.4 s on an
-# H100, most of phase 10 (PERF.md): it is timed on those 528 rows, a part,
-# to leave phase 11 room in the run's time limit. Its last rows lie past
+# holds bit for bit to the compact call on the same rows (a wave of the
+# kernel's persistent grid on 132 SMs each, so the twin's 264 centers are
+# the compact call's). The whole 8-tile batch took 98.4 s on an H100, most
+# of phase 10 (PERF.md): it is timed on a part, its first and last 264
+# rows until phase 13 needed the run's time. Its last rows lie past
 # element 2^31 of the (8192, 529, 507) stack.
 R6_MODEL_CENTERS = 132
-R6_BITWISE_CENTERS = 264
+R6_BITWISE_CENTERS = 132
 # the 8-tile batch's main-path fraction (8,192 of 8,192 centers on an H100)
 R6_BATCH_FLOOR = 0.8
 # the r = 6, b = 11 finest-scale main-path fraction must exceed this (first
@@ -341,10 +359,11 @@ R7_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 7 batch the model runs on, and the first and the
 # last main-path rows held bit for bit to the compact call. The 4-tile
 # batch (about 4,000 main-path centers at about 31 ms a center on an H100,
-# about two minutes) is timed on those 528 rows in place, four waves of
-# the persistent grid, a part of it
-R7_MODEL_CENTERS = 132
-R7_BITWISE_CENTERS = 264
+# about two minutes) is timed on those 264 rows in place, two waves of
+# the persistent grid, a part of it (528 rows, the model on 132 centers,
+# until phase 13 needed the run's time)
+R7_MODEL_CENTERS = 32
+R7_BITWISE_CENTERS = 132
 # the r = 7, b = 13 finest-scale main-path fraction of the frame and of the
 # 4-tile batch must exceed these (stated before the first reading: at r = 6
 # the frame read 0.8192 and its batch 1.0)
@@ -370,32 +389,75 @@ R8_SEARCH = 15
 # the kernel 1.0e-5 from the model; at 11, 1.0e-6 and 9.8e-7 (H100, the
 # first run of phase 12, 64 pixels). So the kernel is held to its model
 # two sweeps past the engine's within SMEM_MODEL_RMS, and at the engine's
-# to the float64 twin within SYNTH_RMS, on R8_SYNTH_PIXELS pixels
+# to the float64 twin within SYNTH_RMS, on R8_SYNTH_PIXELS pixels (64
+# until phase 13 needed the run's time)
 R8_MODEL_SWEEPS = 11
-R8_SYNTH_PIXELS = 64
+R8_SYNTH_PIXELS = 32
 # the real r = 8 batch against the fp32 model: phase 11's limit
 R8_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 8 batch the model runs on, and the first and the
 # last main-path rows held bit for bit to the compact call. The 2-tile
 # batch (about 2,000 main-path centers at about 65 ms a center, about two
-# minutes) is timed on those 528 rows in place, four waves of the
-# persistent grid, a part of it
-R8_MODEL_CENTERS = 132
-R8_BITWISE_CENTERS = 264
+# minutes) is timed on those 264 rows in place, two waves of the
+# persistent grid, a part of it (528 rows, the model on 132 centers,
+# until phase 13 needed the run's time)
+R8_MODEL_CENTERS = 32
+R8_BITWISE_CENTERS = 132
 # the r = 8, b = 15 finest-scale main-path fraction of the frame and of the
 # 2-tile batch must exceed these (stated before the first reading: at r = 7
 # the frame read 0.8064 and its batch 1.0)
 R8_MAIN_FLOOR = 0.6
 R8_BATCH_FLOOR = 0.8
-# the cut -w 8 -b 15 frame: the scene's top-left 64x64 (the finest scale's
-# 4 tiles in two 2-tile batches), at two scales: at three its 16x16
-# coarsest scale holds no 17x17 patch, so that scale's estimate is 0
-# everywhere and the merge loses the image's low frequencies
-R8_CROP = (64, 64)
-R8_SCALES = 2
 # (e): in a 46x46 crop 12 centers reach the solve, all in the finest
 # scale's first batch (their windows keep 900 offsets); in a 44x44 none
 R8_CPU_CROP = 46
+# the cut -w 8 -b 15 frame: (e)'s crop (the finest scale's 4 tiles in two
+# 2-tile batches, one launch; 64x64, two launches, until phase 13 needed
+# the run's time), at two scales: at three a 64x64 crop's 16x16 coarsest
+# scale holds no 17x17 patch, so that scale's estimate is 0 everywhere and
+# the merge loses the image's low frequencies
+R8_CROP = (R8_CPU_CROP, R8_CPU_CROP)
+R8_SCALES = 2
+# phase 13, d = 1083 (csrc/solve_filter_smem.cu with 2,128 of the 2,168
+# rows of W and Q in a global slot and nine pivot passes a round, a lane
+# forming two passes' angles), at the engine's 10 sweeps
+R9_KERNELS = ("solve_filter_1083",)
+# the smallest search radius whose window reaches the main path at r = 9:
+# 1,089 offsets, where n >= d + 1 = 1,084 similar candidates are needed
+# (b = 15 offers 961)
+R9_SEARCH = 16
+# synthetic rows (every pixel rank-deficient), held as phase 12's: the
+# kernel against its model two sweeps past the engine's within
+# SMEM_MODEL_RMS, and at the engine's to the float64 twin within
+# SYNTH_RMS, on one wave of R9_SYNTH_PIXELS pixels. The rows' pivots reach
+# the ninth pass's pairs (512 to 541), which only a lane's second angle
+# step rotates
+R9_MODEL_SWEEPS = 12
+R9_SYNTH_PIXELS = 32
+# the real r = 9 batch against the fp32 model: phase 12's limit
+R9_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 9 batch the model runs on, and the first and the
+# last main-path rows held bit for bit to the compact call: one wave of
+# the persistent grid in all (18.3 s at 10 sweeps on an H100), whose 132
+# compact rows are the twin's centers and the kernels line's. The last lie
+# past element 2^31 of the (2048, 1089, 1083) stack
+R9_MODEL_CENTERS = 16
+R9_BITWISE_CENTERS = 66
+R9_TWIN_CENTERS = 132
+# the r = 9, b = 16 finest-scale main-path fraction of the frame and of the
+# 2-tile batch must exceed these (stated before the first reading: at r = 8
+# the frame read 0.8002 and its batch 1.0; at r = 9 the first reading on an
+# H100 0.7224 and 1.0)
+R9_MAIN_FLOOR = 0.55
+R9_BATCH_FLOOR = 0.8
+# (e): in a 52x52 crop 4 centers reach the solve (their windows keep all
+# 1,089 offsets), all in the finest scale's first batch; in a 50x50 none
+# (the top-left crops of the scene after the prefilter)
+R9_CPU_CROP = 52
+# (c): bcd -w 9 -b 16 -s 2 on (e)'s crop: its 26x26 coarse scale still
+# holds a 19x19 patch
+R9_CROP = (R9_CPU_CROP, R9_CPU_CROP)
+R9_SCALES = 2
 # the repaired batch rule, read cheaply: bcd -w 3 -b 33 on the scene's
 # top-left 64x128 (8 tiles at the finest scale; 4 a batch, 16 before)
 BATCH_RULE_CROP = (64, 128)
@@ -1003,7 +1065,7 @@ def compare_solve_batch(label, x, main, reps):
 def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
                            name="solve_filter_smem", pixels=1024,
                            model_sweeps=None, diag=False):
-    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 867:
+    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1083:
     ``solve_filter_<d>``) on ``pixels`` synthetic
     pixels of O candidates: against the float64 twin at ``sweeps``, and
     against the fp32 model of its schedule at ``model_sweeps`` (default
@@ -1073,21 +1135,20 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        model_centers=R3_MODEL_CENTERS,
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
                        bitwise_centers=None, tail_centers=None, part=False,
-                       time_once=False):
-    """``name`` (solve_filter_pm at d = 147 to 867) on one
-    real batch: the engine's in-place call on the main-path rows, timed
-    after a warm-up or, with ``time_once``, once (and so the twin's
-    centers), against the compact call on the first ``bitwise_centers``
-    of them (or all) and on the last ``tail_centers`` (the rows at the
-    stack's highest offsets), bit for bit, and zero on every other row.
-    The in-place call solves every main-path row, or with ``part`` only
-    those first and last rows (a part of a batch too costly to time
-    whole). The compact field against the fp32 model on at most
-    ``model_centers`` centers and against the float64 twin on
-    R3_TWIN_CENTERS. Returns (max_abs_err, ms, plain_ms, bound) on the
-    twin's centers (two a block of a persistent grid on 132 SMs), the in-
-    place call's ms and its rows (printed beside its bound), and the
-    batch's main-path centers."""
+                       time_once=False, twin_centers=R3_TWIN_CENTERS):
+    """``name`` (solve_filter_pm at d = 147 to 1083) on one real batch: the
+    engine's in-place call on the main-path rows, timed after a warm-up
+    or, with ``time_once``, once (and so the twin's centers), and zero on
+    every other row. The in-place call solves every main-path row, or with
+    ``part`` only the first ``bitwise_centers`` and the last
+    ``tail_centers`` of them (the rows at the stack's highest offsets; a
+    part of a batch too costly to time whole). One compact call on the
+    same rows must give the same bits. Its field against the fp32 model on
+    at most ``model_centers`` centers and against the float64 twin on its
+    first ``twin_centers``. Returns (max_abs_err, ms, plain_ms, bound) on
+    the twin's centers (the compact call's own time where they are all its
+    rows), the in-place call's ms and its rows (printed beside its bound),
+    and the batch's main-path centers."""
     import torch
     from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
@@ -1096,10 +1157,13 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     npx = d // 3
     args = [x[k] for k in PM_KEYS]
     idx = main.nonzero()[:, 0]
-    need(idx.numel() >= R3_TWIN_CENTERS, f"{label}: too few main-path centers")
-    sub = idx if bitwise_centers is None else idx[:bitwise_centers]
-    tail = idx[idx.numel() - (tail_centers or 0):]
-    rows = torch.cat([sub, tail]).unique() if part else idx
+    need(idx.numel() >= twin_centers, f"{label}: too few main-path centers")
+    if part:
+        n_first, n_last = bitwise_centers, tail_centers or 0
+        rows = torch.cat([idx[:n_first],
+                          idx[idx.numel() - n_last:]]).unique()
+    else:
+        n_first, n_last, rows = idx.numel(), 0, idx
     batch = lambda: ts.solve_filter_pm(  # noqa: E731
         *args, 1e-8, npx=npx, sweeps=sweeps, rows=rows)
     whole, ms_batch = timed_once(batch) if time_once else (batch(), None)
@@ -1108,16 +1172,15 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     rest[rows] = False
     need(not bool(whole[rest].any()),
          f"{label} {name}: rows not solved in place are not zero")
-    # the compact calls, the first rows last: their stacks and field (one
-    # call, timed once) serve the model and the twin below
-    for part_rows in ((tail, sub) if tail.numel() else (sub,)):
-        args_m = [x[k][part_rows].contiguous() for k in PM_KEYS]
-        field, ms_sub = timed_once(lambda: ts.solve_filter_pm(
-            *args_m, 1e-8, npx=npx, sweeps=sweeps))
-        need(torch.equal(whole[part_rows], field),
-             f"{label} {name}: rows in place differ from the compact stack "
-             f"(rows {int(part_rows[0])} to {int(part_rows[-1])}, last "
-             f"element {(int(part_rows[-1]) + 1) * n_off * d - 1})")
+    # the compact call (timed once): its stacks and field serve the model
+    # and the twin below
+    args_m = [x[k][rows].contiguous() for k in PM_KEYS]
+    field, ms_rows = timed_once(lambda: ts.solve_filter_pm(
+        *args_m, 1e-8, npx=npx, sweeps=sweeps))
+    need(torch.equal(whole[rows], field),
+         f"{label} {name}: rows in place differ from the compact stack "
+         f"(rows {int(rows[0])} to {int(rows[-1])}, last element "
+         f"{(int(rows[-1]) + 1) * n_off * d - 1})")
     del whole
     if ms_batch is None:
         ms_batch = cuda_ms(batch, 1)
@@ -1128,36 +1191,35 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     rel_m = rel_rms(field[:model_centers], model)
     model_s = time.perf_counter() - t0
     del model
-    subt = [v[:R3_TWIN_CENTERS].contiguous() for v in args_m]
+    subt = [v[:twin_centers].contiguous() for v in args_m]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
         *subt, 1e-8, npx=npx, sweeps=sweeps)
     ref, plain_ms = timed_once(
         lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
-    if time_once and sub.numel() == R3_TWIN_CENTERS:  # the call above
-        got, ms = field, ms_sub
-    elif time_once:  # this too: a call takes seconds at d = 507
+    if time_once and rows.numel() == twin_centers:  # the call above
+        got, ms = field, ms_rows
+    elif time_once:  # this too: a call takes seconds from d = 507
         got, ms = timed_once(sf)
     else:
         got, ms = sf(), cuda_ms(sf, 3)
     rel = rel_rms(got, ref)
     res = (float((got - ref).abs().max()), ms, plain_ms,
-           bounds.solve_filter(R3_TWIN_CENTERS, n_off, d, sweeps))
+           bounds.solve_filter(twin_centers, n_off, d, sweeps))
     print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
-          f"engine's in-place rows bitwise equal to the compact call "
-          f"(on the first {sub.numel()}"
-          f"{f' and the last {tail.numel()}' if tail.numel() else ''}, up "
-          f"to element {(int(idx[-1]) + 1) * n_off * d - 1} of the stack); "
+          f"engine's in-place rows bitwise equal to the compact call on "
+          f"the same {rows.numel()} (the first {n_first}"
+          f"{f' and the last {n_last}' if n_last else ''}, up "
+          f"to element {(int(rows[-1]) + 1) * n_off * d - 1} of the stack); "
           f"{ms_batch:.3f} ms for {rows.numel()} main rows in place"
           f"{' (a part of the batch)' if part else ''}, bound "
           f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
     print(f"{tag} {label}: field vs its fp32 schedule model on the first "
-          f"{min(model_centers, sub.numel())} centers rel rms {rel_m:.3e} "
+          f"{min(model_centers, rows.numel())} centers rel rms {rel_m:.3e} "
           f"(limit {model_limit:g}; the model {model_s:.1f} s); vs the "
-          f"float64 twin on the "
-          f"first {R3_TWIN_CENTERS} rel rms {rel:.3e} (limit "
-          f"{BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those centers "
-          f"kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
+          f"float64 twin on the first {twin_centers} rel rms {rel:.3e} "
+          f"(limit {BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those "
+          f"centers kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
           f"{res[3][0]:.3f} ms", flush=True)
     need(rel_m < model_limit, f"{label} {name} vs its schedule model")
     need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
@@ -1270,7 +1332,7 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 to 12 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 13 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
     synthetic and real-batch checks, and whether its batch is timed once.
@@ -1304,7 +1366,7 @@ def wide_phases():
                 batch=dict(model_centers=R6_MODEL_CENTERS,
                            model_limit=R6_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R6_BITWISE_CENTERS,
-                           tail_centers=R3_TWIN_CENTERS, part=True),
+                           tail_centers=R6_BITWISE_CENTERS, part=True),
                 time_once=True,
                 # no solve: -w 6 at b = 10 (441 offsets)
                 no_solve_b=10),
@@ -1316,7 +1378,7 @@ def wide_phases():
                 batch=dict(model_centers=R7_MODEL_CENTERS,
                            model_limit=R7_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R7_BITWISE_CENTERS,
-                           tail_centers=R3_TWIN_CENTERS, part=True),
+                           tail_centers=R7_BITWISE_CENTERS, part=True),
                 time_once=True,
                 # no solve: -w 7 at b = 12 (625 offsets)
                 no_solve_b=12),
@@ -1328,20 +1390,35 @@ def wide_phases():
                 batch=dict(model_centers=R8_MODEL_CENTERS,
                            model_limit=R8_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R8_BITWISE_CENTERS,
-                           tail_centers=R3_TWIN_CENTERS, part=True),
+                           tail_centers=R8_BITWISE_CENTERS, part=True),
                 time_once=True,
                 # no solve: -w 8 at b = 14 (841 offsets)
                 no_solve_b=14),
+        9: dict(tag="[13]", kernels=R9_KERNELS, O=1089, search=R9_SEARCH,
+                floor=R9_MAIN_FLOOR, batch_floor=R9_BATCH_FLOOR,
+                crop=R9_CROP, cpu_crop=R9_CPU_CROP, scales=R9_SCALES,
+                synth=dict(pixels=R9_SYNTH_PIXELS,
+                           model_sweeps=R9_MODEL_SWEEPS),
+                batch=dict(model_centers=R9_MODEL_CENTERS,
+                           model_limit=R9_MODEL_BATCH_REL_RMS,
+                           bitwise_centers=R9_BITWISE_CENTERS,
+                           tail_centers=R9_BITWISE_CENTERS, part=True,
+                           twin_centers=R9_TWIN_CENTERS),
+                time_once=True,
+                # no solve: -w 9 at b = 15 (961 offsets)
+                no_solve_b=15),
     }
 
 
 def wide_phase(radius, dev, card, stats, clean, scene_path):
     """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363), 10 (radius 6,
-    d = 507), 11 (radius 7, d = 675) or 12 (radius 8, d = 867): the -w r
-    path on the 1088x1920 scene at the smallest b that reaches its main
-    path, each step's time printed. Returns the kernels line's entry
-    (max_abs_err, ms, plain_ms, bound) and the cut frame's launch
-    counts."""
+    d = 507), 11 (radius 7, d = 675), 12 (radius 8, d = 867) or 13 (radius
+    9, d = 1083): the -w r path on the 1088x1920 scene at the smallest b
+    that reaches its main path, each step's time printed. (e)'s reference,
+    the port's CPU pipeline on a crop, runs on the host's cores from the
+    start, while the card works through (a) to (d). Returns the kernels
+    line's entry (max_abs_err, ms, plain_ms, bound) and the cut frame's
+    launch counts."""
     import torch
     from bcd_tpu_torch import cli
     from bcd_tpu_torch.core.monoscale import (STACK_TILE_BATCH,
@@ -1368,19 +1445,24 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
         print(f"{tag} ({step}) in {now - t_step[0]:.1f} s", flush=True)
         t_step[0] = now
 
+    pw = PipelineParameters()
+    pw.denoiser.monoscale.patch_radius = radius
+    pw.denoiser.monoscale.search_window_radius = b
+    k = c["cpu_crop"]
+    crop = [torch.as_tensor(x[:k, :k]) for x in stats]
+    cpu_ref = in_background(functools.partial(
+        denoise_pipeline, *crop, torch.device("cpu"), pw))
+
     # (a) synthetic
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, **c["synth"])
     step_done("a")
     # (b) one real tile batch of the finest scale (after the prefilter): 16
-    # tiles, 8 at r = 6, 4 at r = 7 and 2 at r = 8
+    # tiles, 8 at r = 6, 4 at r = 7 and 2 at r = 8 and 9
     # (core/monoscale.STACK_BYTES), the batch that holds the tiles of phase
     # 2's 16-tile batch 8
     n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
     k_batch = 8 * STACK_TILE_BATCH // n_tiles
-    pw = PipelineParameters()
-    pw.denoiser.monoscale.patch_radius = radius
-    pw.denoiser.monoscale.search_window_radius = b
     thr = pw.denoiser.monoscale.histogram_distance_threshold
     pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
                         pw.prefiltering.spike_removal_threshold_stdev_factor)
@@ -1486,17 +1568,17 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
           f"{rmse(out0, clean_c):.5f}, noisy input {e_in_c:.5f}", flush=True)
     step_done("d")
 
-    # (e) a crop on the card, twice, against the port's CPU pipeline
-    k = c["cpu_crop"]
-    crop = [torch.as_tensor(x[:k, :k], device=dev) for x in stats]
+    # (e) the crop on the card, twice, against the port's CPU pipeline
+    crop = [x.to(dev) for x in crop]
     _build.reset_launches()
     got = denoise_pipeline(*crop, dev, pw)
     need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
     need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
          f"{' '.join(w)} crop not bitwise repeatable")
     t0 = time.perf_counter()
-    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), pw)
-    cpu_s = time.perf_counter() - t0
+    ref, cpu_s = cpu_ref()
+    print(f"{tag} waited {time.perf_counter() - t0:.1f} s for the CPU "
+          "pipeline", flush=True)
     gap = rmse(got.cpu(), ref)
     print(f"{tag} {' '.join(w)} pipeline on a {k}x{k} crop: card vs the "
           f"port's CPU pipeline (float64 twins, {cpu_s:.1f} s) rmse "
@@ -1507,6 +1589,21 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
          "pipeline")
     step_done("e")
     return res, launches
+
+
+def in_background(fn):
+    """Start ``fn()`` on a host thread; returns a function that waits for
+    it and returns (its value, its seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed():
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(timed)
+    pool.shutdown(wait=False)
+    return future.result
 
 
 def batch_rule_run(card, stats, clean, scene_path) -> None:
@@ -1825,7 +1922,7 @@ def card_line() -> str:
 
 
 def time_crop(height, width, radius=5) -> int:
-    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 12's radius r
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 13's radius r
     and its search radius b) through the CLI's entry point on the
     scene's top-left height x width crop, the kernels built first: wall
     time with EXR I/O, launches, peak memory, rmse vs clean."""
@@ -1893,8 +1990,8 @@ def main() -> int:
         need(len(sys.argv) == 4 or (len(sys.argv) == 6
                                     and sys.argv[4] == "--radius"
                                     and sys.argv[5] in ("4", "5", "6", "7",
-                                                        "8")),
-             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6|7|8]")
+                                                        "8", "9")),
+             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6|7|8|9]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -2144,6 +2241,9 @@ def main() -> int:
     print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 8. the -w 4 path ---------------------------------------------------
+    # from here (e)'s CPU pipelines run beside the card's work: a core is
+    # left to the thread that drives the card
+    torch.set_num_threads(max(1, torch.get_num_threads() - 1))
     t0 = time.perf_counter()
     kernels["solve_filter_243"], launches4 = wide_phase(
         4, dev, card, stats, clean, paths[""])
@@ -2173,6 +2273,12 @@ def main() -> int:
     kernels["solve_filter_867"], launches8 = wide_phase(
         8, dev, card, stats, clean, paths[""])
     print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- 13. the -w 9 path --------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_1083"], launches9 = wide_phase(
+        9, dev, card, stats, clean, paths[""])
+    print(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- results ------------------------------------------------------------
     meta = {
@@ -2207,6 +2313,9 @@ def main() -> int:
         "solve_filter_867": ("solve_filter_867",
                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_1083": ("solve_filter_1083",
+                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
@@ -2215,7 +2324,8 @@ def main() -> int:
             "solve_filter_363": launches5["solve_filter_363"],
             "solve_filter_507": launches6["solve_filter_507"],
             "solve_filter_675": launches7["solve_filter_675"],
-            "solve_filter_867": launches8["solve_filter_867"]}
+            "solve_filter_867": launches8["solve_filter_867"],
+            "solve_filter_1083": launches9["solve_filter_1083"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
