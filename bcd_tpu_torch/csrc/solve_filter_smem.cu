@@ -1,13 +1,13 @@
 // solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363),
-// 6 (d = 507), 7 (d = 675), 8 (d = 867) and 9 (d = 1083): the per-pixel
-// two-step Bayesian solve and filter of the candidate stacks, with the
-// Jacobi's two working matrices in shared memory (d = 147), or as much of
-// them as fits there and the rest in a global slot of the block (d = 243
-// to 1083).
+// 6 (d = 507), 7 (d = 675), 8 (d = 867), 9 (d = 1083) and 10 (d = 1323):
+// the per-pixel two-step Bayesian solve and filter of the candidate
+// stacks, with the Jacobi's two working matrices in shared memory
+// (d = 147), or as much of them as fits there and the rest in a global
+// slot of the block (d = 243 to 1323).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
 // body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363,
-// 507, 675, 867 and 1083; it computes what csrc/solve_filter.cu computes at
+// 507, 675, 867, 1083 and 1323; it computes what csrc/solve_filter.cu computes at
 // d = 27 and 75. Per pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
@@ -63,7 +63,12 @@
 // 56 KB of vectors (229,808 of the 232,448 bytes), the other 2,128
 // (9.23 MB) in the global slot, which with Cemp and H is 18.6 MB a block,
 // 2.46 GB for 132 blocks, 49 times the L2: a round (542 pairs, nine pivot
-// passes) moves about 1.56 times d = 867's bytes. The design is the simple
+// passes) moves about 1.56 times d = 867's bytes. At d = 1323 they take
+// 14.0 MB: 30 of the 2,648 rows (W's first 30) stay in shared memory beside
+// 69 KB of vectors (227,728 of the 232,448 bytes), the other 2,618
+// (13.9 MB) in the global slot, which with Cemp and H is 27.9 MB a block,
+// 3.68 GB for 132 blocks, 74 times the L2: a round (662 pairs, eleven pivot
+// passes) moves about 1.5 times d = 1083's bytes. The design is the simple
 // one, not tuned (its time beside its bound: PERF.md).
 //
 // The design:
@@ -84,7 +89,8 @@
 //     pairs a pass, PASSES passes loaded together: two at d = 147 and 243,
 //     three for the 182 pairs at d = 363, four for the 254 at d = 507, six
 //     for the 338 at d = 675, seven for the 434 at d = 867, nine for the
-//     542 at d = 1083), lane k of a group then forms the angles and row
+//     542 at d = 1083, eleven for the 662 at d = 1323), lane k of a group
+//     then forms the angles and row
 //     scales of its pass-k pair and, from nine passes on, of its
 //     pass-(k + 8) pair (as _jacobi_fp32 does), each pair's record
 //     {alpha, beta, rows} and the next seat map; a barrier; every thread
@@ -106,7 +112,7 @@
 //     row kept in registers (d / 32 columns a lane) up to d = 507 and
 //     staged in shared memory beyond, where the registers spilled it
 //     (one more barrier a column; 28 columns a lane at d = 867, 34 at
-//     d = 1083); the back substitution right-looking too.
+//     d = 1083, 42 at d = 1323); the back substitution right-looking too.
 //
 // Layouts (pixel-major, P pixels; bcd_tpu_torch/ops/solve_filter.py):
 // cand (P, O, d), mask (P, O), noise (P, 6 npx) with the channels
@@ -144,8 +150,8 @@ struct Smem {
   // the Cholesky's pivot row of S and of Y, scaled: in registers, CL
   // columns a lane in each of two arrays, up to CL = 16 (d = 507); past
   // that (d = 675: 22 columns) ptxas spilled it inside the elimination
-  // loop, so it is staged in the shared vectors instead (d = 675 to 1083;
-  // 28 columns at 867, 34 at 1083). The fields are the same bit for bit
+  // loop, so it is staged in the shared vectors instead (d = 675 to 1323;
+  // 28 columns at 867, 34 at 1083, 42 at 1323). The fields are the same bit for bit
   // either way; on an H100 the registers were the faster at d = 147 to 507
   // and the staged row at d = 675 and 867
   static constexpr int CL = (D + 31) / 32;
@@ -596,7 +602,8 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
             for (int k = 0; k < NP; ++k) sp[k] += __shfl_xor_sync(FULL, sp[k], o);
         }
         // lane k of a group forms the angles of its pass-k pair and, from
-        // nine passes on (d = 1083), of its pass-(k + 8) pair: a round's
+        // nine passes on (d = 1083; lanes 0-2 at d = 1323's eleven), of its
+        // pass-(k + 8) pair: a round's
         // pairs are disjoint, so one lane's two pairs write disjoint diag,
         // fsc, rec and nxt entries. Up to eight passes the step is the one
         // the smaller d were timed with, so they compile to the same code
@@ -823,6 +830,7 @@ extern "C" int bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (d == 675) return n_blocks * Smem<675>::SCRATCH;
   if (d == 867) return n_blocks * Smem<867>::SCRATCH;
   if (d == 1083) return n_blocks * Smem<1083>::SCRATCH;
+  if (d == 1323) return n_blocks * Smem<1323>::SCRATCH;
   return -1;
 }
 
@@ -833,7 +841,7 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
   if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675 && d != 867 &&
-       d != 1083) ||
+       d != 1083 && d != 1323) ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
@@ -856,6 +864,9 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
   if (d == 867)
     return launch<867>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                        n_blocks, field, st);
-  return launch<1083>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+  if (d == 1083)
+    return launch<1083>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                        n_blocks, field, st);
+  return launch<1323>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                       n_blocks, field, st);
 }

@@ -37,13 +37,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # solve_filter_smem, solve_filter_243, solve_filter_363, solve_filter_507,
-# solve_filter_675, solve_filter_867 and solve_filter_1083 are
-# csrc/solve_filter_smem.cu at d = 147, 243, 363, 507, 675, 867 and 1083
+# solve_filter_675, solve_filter_867, solve_filter_1083 and
+# solve_filter_1323 are csrc/solve_filter_smem.cu at d = 147, 243, 363,
+# 507, 675, 867, 1083 and 1323
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
             "solve_filter_507": 0, "solve_filter_675": 0,
-            "solve_filter_867": 0, "solve_filter_1083": 0}
+            "solve_filter_867": 0, "solve_filter_1083": 0,
+            "solve_filter_1323": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

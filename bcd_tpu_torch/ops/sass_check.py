@@ -1,0 +1,114 @@
+"""The SASS of ``csrc/solve_filter_smem.cu`` against another version of the
+file, kernel by kernel, and where one instance's spills sit, on a machine
+with ``nvcc`` (no card needed):
+
+    git show <commit>:bcd_tpu_torch/csrc/solve_filter_smem.cu > build/parent.cu
+    python -m bcd_tpu_torch.ops.sass_check build/parent.cu 1323
+
+Both files are compiled with the library's flags (``ops/_build.NVCC_FLAGS``)
+under ``build/sass_check/``, the other one under this one's file name, and
+each ``solve_filter_smem_kernel<D>`` of ``cuobjdump -sass`` is compared
+line for line, with the hashed part of the anonymous namespace's names
+blanked. A change that adds an instance must leave every other one SAME.
+Then this tree's file is compiled again with ``-lineinfo``, and the spill
+stores and loads (STL, LDL) of ``solve_filter_smem_kernel<D>`` are counted
+by source line (``nvdisasm -g -c``), after its ``-Xptxas -v`` report.
+"""
+
+from __future__ import annotations
+
+import collections
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+from bcd_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "solve_filter_smem.cu"
+WORK = _build.BUILD_DIR.parent / "sass_check"
+
+
+def tool(name: str) -> str:
+    return str(Path(_build._nvcc()).parent / name)
+
+
+def run(cmd) -> str:
+    proc = subprocess.run([str(c) for c in cmd], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(map(str, cmd))}: rc "
+                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def kernels(sass: str) -> dict[int, list[str]]:
+    """``cuobjdump -sass`` text by the kernel's d."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : \S*solve_filter_smem_kernelILi(\d+)E",
+                     line)
+        if m:
+            cur = out.setdefault(int(m.group(1)), [])
+        elif "Function :" in line:
+            cur = None
+        elif cur is not None:
+            cur.append(re.sub(r"_GLOBAL__N__\w+", "", line))
+    return out
+
+
+def spills_by_line(cubin: Path, d: int) -> collections.Counter:
+    """(source line, STL or LDL) -> its count in the kernel at ``d``."""
+    counts, fn, line = collections.Counter(), "", 0
+    for text in run([tool("nvdisasm"), "-g", "-c", cubin]).splitlines():
+        m = re.match(r"\s*\.text\.(\S+):", text)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r'//## File ".*?", line (\d+)', text)
+        if m:
+            line = int(m.group(1))
+        elif f"solve_filter_smem_kernelILi{d}E" in fn:
+            for op in ("STL", "LDL"):
+                if re.search(rf"\b{op}\b", text):
+                    counts[(line, op)] += 1
+    return counts
+
+
+def main() -> int:
+    if len(sys.argv) != 3:
+        raise SystemExit("usage: python -m bcd_tpu_torch.ops.sass_check "
+                         "OTHER_SOLVE_FILTER_SMEM_CU D")
+    other, d = Path(sys.argv[1]), int(sys.argv[2])
+    (WORK / "other").mkdir(parents=True, exist_ok=True)
+    shutil.copy(other, WORK / "other" / SOURCE.name)
+    nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS
+    jobs = {"other": [nvcc, *flags, "-c", "-o", WORK / "other.o",
+                      WORK / "other" / SOURCE.name],
+            "tree": [nvcc, *flags, "-c", "-o", WORK / "tree.o", SOURCE],
+            "lineinfo": [nvcc, *flags, "-lineinfo", "-cubin", "-o",
+                         WORK / "tree.cubin", SOURCE]}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = dict(zip(jobs, pool.map(run, jobs.values())))
+    old, new = (kernels(run([tool("cuobjdump"), "-sass", WORK / f"{k}.o"]))
+                for k in ("other", "tree"))
+    for k in sorted(set(old) | set(new)):
+        state = ("NEW" if k not in old else "GONE" if k not in new
+                 else "SAME" if old[k] == new[k] else "DIFF")
+        print(f"solve_filter_smem_kernel<{k}>: {state} against {other}",
+              flush=True)
+    report = logs["tree"].split(f"solve_filter_smem_kernelILi{d}E", 1)[1]
+    print(f"<{d}> -Xptxas -v: "
+          + "; ".join(x.strip() for x in report.splitlines()[1:3]))
+    src = SOURCE.read_text().splitlines()
+    for (line, op), n in sorted(spills_by_line(WORK / "tree.cubin",
+                                               d).items()):
+        print(f"<{d}> {op} {n:3d} at line {line}: "
+              f"{src[line - 1].strip()[:70]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,9 +6,9 @@
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's, 9's, 10's, 11's, 12's or
-13's patch radius (4, 5, 6, 7, 8 or 9; 5 by default) and B its search
-radius (8, 10, 11, 13, 15 or 16).
+built, and runs nothing else: R is phase 8's to 14's patch radius (4, 5,
+6, 7, 8, 9 or 10; 5 by default) and B its search radius (8, 10, 11, 13,
+15, 16 or 18).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -126,9 +126,23 @@ non-zero before the final line:
    on a 52x52 crop (launches only solve_filter_1083; peak memory);
    ``bcd -w 9 -b 15 -s 2`` on that crop (no solve launch); that crop
    against the port's CPU pipeline.
+14. The -w 10 path (d = 1323, the same kernel with 2,618 of the 2,648 rows
+   in the global slot and eleven pivot passes a round, lanes 0-2 of a
+   group forming the angles of two passes, solve_filter_1323) at b = 18,
+   checked as phase 13 checks the -w 9 path: one wave of synthetic stacks
+   against the float64 twin at the engine's sweeps and the fp32 model two
+   sweeps past them; the real one-tile r = 10, b = 18 batch, its first and
+   last 66 main-path rows (one wave) timed once in place and held bit for
+   bit to a compact call on 32 of them; ``bcd -w 10 -b 18 -s 2``
+   on a 58x58 crop (launches only solve_filter_1323; peak memory);
+   ``bcd -w 10 -b 17 -s 2`` on that crop (no solve launch); that crop
+   against the port's CPU pipeline.
 
 From phase 8 on, (e)'s reference, the port's CPU pipeline on the crop,
 runs on the host's cores from the phase's start, beside the card's work.
+From phase 10 on, the rows a phase times in place are held bit for bit to
+a compact call on the first and last 16 of them, and to the float64 twin
+on the twin's centers.
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -226,7 +240,7 @@ R4_KERNELS = ("solve_filter_243",)
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
                  "solve_filter_507", "solve_filter_675", "solve_filter_867",
-                 "solve_filter_1083")
+                 "solve_filter_1083", "solve_filter_1323")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -309,11 +323,16 @@ R6_SYNTH_PIXELS = 32
 # d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
 # convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
 R6_MODEL_BATCH_REL_RMS = 2e-5
+# phases 10 to 14 hold the rows they time in place bit for bit to a compact
+# call on the first and last COMPACT_CENTERS / 2 of them, which keeps the
+# rows at the stack's highest offsets (on all of them until phase 14
+# needed the run's time); the float64 twin still runs on its centers
+COMPACT_CENTERS = 32
 # centers of the real r = 6 batch the model runs on, and the first and the
 # last main-path rows of the batch that the timed in-place call solves and
-# holds bit for bit to the compact call on the same rows (a wave of the
+# holds bit for bit to the compact call (COMPACT_CENTERS; a wave of the
 # kernel's persistent grid on 132 SMs each, so the twin's 264 centers are
-# the compact call's). The whole 8-tile batch took 98.4 s on an H100, most
+# the timed rows). The whole 8-tile batch took 98.4 s on an H100, most
 # of phase 10 (PERF.md): it is timed on a part, its first and last 264
 # rows until phase 13 needed the run's time. Its last rows lie past
 # element 2^31 of the (8192, 529, 507) stack.
@@ -357,7 +376,8 @@ R7_SYNTH_PIXELS = 32
 # convergence as d = 507 at 9 on the synthetic rows)
 R7_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 7 batch the model runs on, and the first and the
-# last main-path rows held bit for bit to the compact call. The 4-tile
+# last main-path rows timed in place, held bit for bit to the compact call
+# (COMPACT_CENTERS). The 4-tile
 # batch (about 4,000 main-path centers at about 31 ms a center on an H100,
 # about two minutes) is timed on those 264 rows in place, two waves of
 # the persistent grid, a part of it (528 rows, the model on 132 centers,
@@ -390,13 +410,14 @@ R8_SEARCH = 15
 # first run of phase 12, 64 pixels). So the kernel is held to its model
 # two sweeps past the engine's within SMEM_MODEL_RMS, and at the engine's
 # to the float64 twin within SYNTH_RMS, on R8_SYNTH_PIXELS pixels (64
-# until phase 13 needed the run's time)
+# until phase 13 needed the run's time, 32 until phase 14 did)
 R8_MODEL_SWEEPS = 11
-R8_SYNTH_PIXELS = 32
+R8_SYNTH_PIXELS = 16
 # the real r = 8 batch against the fp32 model: phase 11's limit
 R8_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 8 batch the model runs on, and the first and the
-# last main-path rows held bit for bit to the compact call. The 2-tile
+# last main-path rows timed in place, held bit for bit to the compact call
+# (COMPACT_CENTERS). The 2-tile
 # batch (about 2,000 main-path centers at about 65 ms a center, about two
 # minutes) is timed on those 264 rows in place, two waves of the
 # persistent grid, a part of it (528 rows, the model on 132 centers,
@@ -429,18 +450,21 @@ R9_SEARCH = 16
 # synthetic rows (every pixel rank-deficient), held as phase 12's: the
 # kernel against its model two sweeps past the engine's within
 # SMEM_MODEL_RMS, and at the engine's to the float64 twin within
-# SYNTH_RMS, on one wave of R9_SYNTH_PIXELS pixels. The rows' pivots reach
-# the ninth pass's pairs (512 to 541), which only a lane's second angle
-# step rotates
+# SYNTH_RMS, on one wave of R9_SYNTH_PIXELS pixels (32 until phase 14
+# needed the run's time).
+# The rows' pivots reach the ninth pass's pairs (512 to 541), which only a
+# lane's second angle step rotates
 R9_MODEL_SWEEPS = 12
-R9_SYNTH_PIXELS = 32
+R9_SYNTH_PIXELS = 16
 # the real r = 9 batch against the fp32 model: phase 12's limit
 R9_MODEL_BATCH_REL_RMS = 2e-5
 # centers of the real r = 9 batch the model runs on, and the first and the
-# last main-path rows held bit for bit to the compact call: one wave of
-# the persistent grid in all (18.3 s at 10 sweeps on an H100), whose 132
-# compact rows are the twin's centers and the kernels line's. The last lie
-# past element 2^31 of the (2048, 1089, 1083) stack
+# last main-path rows timed in place: one wave of the persistent grid in
+# all (18.3 s at 10 sweeps on an H100), whose 132 rows are the twin's
+# centers and the kernels line's, held bit for bit to the compact call
+# (COMPACT_CENTERS). The last lie past element 2^31 of the
+# (2048, 1089, 1083) stack. The fp32 model's time is set by its rounds,
+# not its centers: on 8 centers it took as long as on 16 (H100)
 R9_MODEL_CENTERS = 16
 R9_BITWISE_CENTERS = 66
 R9_TWIN_CENTERS = 132
@@ -458,6 +482,48 @@ R9_CPU_CROP = 52
 # holds a 19x19 patch
 R9_CROP = (R9_CPU_CROP, R9_CPU_CROP)
 R9_SCALES = 2
+# a round's pivot pairs a pass of csrc/solve_filter_smem.cu (Smem::PPASS)
+PIVOT_PAIRS_A_PASS = 64
+# phase 14, d = 1323 (csrc/solve_filter_smem.cu with 2,618 of the 2,648
+# rows of W and Q in a global slot and eleven pivot passes a round, lanes
+# 0-2 of a group forming two passes' angles), at the engine's sweeps
+R10_KERNELS = ("solve_filter_1323",)
+# the smallest search radius whose window reaches the main path at r = 10:
+# 1,369 offsets, where n >= d + 1 = 1,324 similar candidates are needed
+# (b = 17 offers 1,225)
+R10_SEARCH = 18
+# synthetic rows (every pixel rank-deficient), held as phase 13's: the
+# kernel against its model two sweeps past the engine's within
+# SMEM_MODEL_RMS, and at the engine's to the float64 twin within
+# SYNTH_RMS, on one wave of R10_SYNTH_PIXELS pixels (32 in phase 14's
+# first run: (a) took 79.7 s on an H100, 59.6 s on 16).
+# The rows' pivots reach the ninth to eleventh passes' pairs (512 to 660),
+# which only a lane's second angle step rotates
+R10_MODEL_SWEEPS = 12
+R10_SYNTH_PIXELS = 16
+# the real r = 10 batch against the fp32 model: phase 13's limit
+R10_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 10 batch the model runs on, and the first and the
+# last main-path rows of the one-tile batch timed in place (one wave of the
+# persistent grid, whose 132 rows are the twin's centers and the kernels
+# line's), held bit for bit to the compact call (COMPACT_CENTERS). The
+# (1024, 1369, 1323) stack holds 1,854,655,488 elements, under 2^31: phase
+# 13 holds its rows past 2^31
+R10_MODEL_CENTERS = 16
+R10_BITWISE_CENTERS = 66
+R10_TWIN_CENTERS = 132
+# the r = 10, b = 18 finest-scale main-path fraction of the frame and of the
+# one-tile batch must exceed these (stated before the first reading: at
+# r = 9 the frame read 0.7224 and its batch 1.0)
+R10_MAIN_FLOOR = 0.5
+R10_BATCH_FLOOR = 0.8
+# (e): in a 58x58 crop 12 centers reach the solve (in 57x57 5, in 56x56
+# none; the top-left crops of the scene after the prefilter)
+R10_CPU_CROP = 58
+# (c): bcd -w 10 -b 18 -s 2 on (e)'s crop: its 29x29 coarse scale still
+# holds a 21x21 patch
+R10_CROP = (R10_CPU_CROP, R10_CPU_CROP)
+R10_SCALES = 2
 # the repaired batch rule, read cheaply: bcd -w 3 -b 33 on the scene's
 # top-left 64x128 (8 tiles at the finest scale; 4 a batch, 16 before)
 BATCH_RULE_CROP = (64, 128)
@@ -1065,14 +1131,17 @@ def compare_solve_batch(label, x, main, reps):
 def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
                            name="solve_filter_smem", pixels=1024,
                            model_sweeps=None, diag=False):
-    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1083:
+    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1323:
     ``solve_filter_<d>``) on ``pixels`` synthetic
     pixels of O candidates: against the float64 twin at ``sweeps``, and
     against the fp32 model of its schedule at ``model_sweeps`` (default
     ``sweeps``; where they differ and ``diag`` is set, the model is also
     read at ``sweeps`` and against itself with the candidates reversed at
-    both, with no limit, on the first SYNTH_DIAG_PIXELS pixels). Returns
-    the max abs err against the twin."""
+    both, with no limit, on the first SYNTH_DIAG_PIXELS pixels). Where a
+    round has more than eight pivot passes (d = 1083 and 1323), the first
+    round's pivots of the pairs past the eighth pass, which a lane's
+    second angle step forms, must be non-zero on every pixel. Returns the
+    max abs err against the twin."""
     import torch
     from bcd_tpu_torch.ops import solve_filter as ts
 
@@ -1080,6 +1149,24 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
     model_sweeps = sweeps if model_sweeps is None else model_sweeps
     x = stack_inputs(np.random.default_rng(d), O, d, pixels, dev)
     pm = pm_of(x)
+    half = (d + d % 2) // 2
+    if half > 8 * PIVOT_PAIRS_A_PASS:
+        # W = Cemp - BD with Q = I: the first round pairs seats (i, i +
+        # half), whose pivot is W[i][i + half]; the last pair of an odd d
+        # holds the zero padding row
+        w = (ts._cemp(torch.einsum("poi,poj->pij", pm[1][..., None] * pm[0],
+                                   pm[0]), pm[4], pm[3])
+             - ts._noise_bd(pm[2], npx))
+        seats = torch.arange(8 * PIVOT_PAIRS_A_PASS, half - d % 2,
+                             device=w.device)
+        need(bool((w[:, seats, seats + half] != 0).all()),
+             f"synthetic d={d}: a first-round pivot past the eighth pass "
+             "is zero")
+        print(f"{tag} synthetic d={d}: the first round's pivots of pairs "
+              f"{int(seats[0])} to {int(seats[-1])} (passes 9 to "
+              f"{-(-half // PIVOT_PAIRS_A_PASS)}) non-zero on all {pixels} "
+              "pixels", flush=True)
+        del w
     field = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=sweeps)
     need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
     twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
@@ -1135,18 +1222,20 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        model_centers=R3_MODEL_CENTERS,
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
                        bitwise_centers=None, tail_centers=None, part=False,
-                       time_once=False, twin_centers=R3_TWIN_CENTERS):
-    """``name`` (solve_filter_pm at d = 147 to 1083) on one real batch: the
+                       time_once=False, twin_centers=R3_TWIN_CENTERS,
+                       compact_centers=None):
+    """``name`` (solve_filter_pm at d = 147 to 1323) on one real batch: the
     engine's in-place call on the main-path rows, timed after a warm-up
     or, with ``time_once``, once (and so the twin's centers), and zero on
     every other row. The in-place call solves every main-path row, or with
     ``part`` only the first ``bitwise_centers`` and the last
     ``tail_centers`` of them (the rows at the stack's highest offsets; a
     part of a batch too costly to time whole). One compact call on the
-    same rows must give the same bits. Its field against the fp32 model on
+    same rows, or on the first and last ``compact_centers`` / 2 of them,
+    must give the same bits. The in-place field against the fp32 model on
     at most ``model_centers`` centers and against the float64 twin on its
     first ``twin_centers``. Returns (max_abs_err, ms, plain_ms, bound) on
-    the twin's centers (the compact call's own time where they are all its
+    the twin's centers (the in-place call's time where they are all its
     rows), the in-place call's ms and its rows (printed beside its bound),
     and the batch's main-path centers."""
     import torch
@@ -1172,19 +1261,31 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     rest[rows] = False
     need(not bool(whole[rest].any()),
          f"{label} {name}: rows not solved in place are not zero")
-    # the compact call (timed once): its stacks and field serve the model
-    # and the twin below
-    args_m = [x[k][rows].contiguous() for k in PM_KEYS]
-    field, ms_rows = timed_once(lambda: ts.solve_filter_pm(
-        *args_m, 1e-8, npx=npx, sweeps=sweeps))
-    need(torch.equal(whole[rows], field),
-         f"{label} {name}: rows in place differ from the compact stack "
-         f"(rows {int(rows[0])} to {int(rows[-1])}, last element "
-         f"{(int(rows[-1]) + 1) * n_off * d - 1})")
+    field = whole[rows]
     del whole
+    # the solved rows' stacks, for the compact call, the model and the twin
+    args_m = [x[k][rows].contiguous() for k in PM_KEYS]
+    n_rows = rows.numel()
+    if compact_centers is None or compact_centers >= n_rows:
+        sel = torch.arange(n_rows, device=rows.device)
+    else:
+        half = compact_centers // 2
+        sel = torch.cat([torch.arange(half, device=rows.device),
+                         torch.arange(n_rows - half, n_rows,
+                                      device=rows.device)])
+    # the compact call, timed once
+    args_c = [v[sel].contiguous() for v in args_m]
+    compact, ms_rows = timed_once(lambda: ts.solve_filter_pm(
+        *args_c, 1e-8, npx=npx, sweeps=sweeps))
+    del args_c
+    need(torch.equal(field[sel], compact),
+         f"{label} {name}: rows in place differ from the compact stack "
+         f"(rows {int(rows[sel[0]])} to {int(rows[sel[-1]])}, last element "
+         f"{(int(rows[sel[-1]]) + 1) * n_off * d - 1})")
+    del compact
     if ms_batch is None:
         ms_batch = cuda_ms(batch, 1)
-    bound_batch = bounds.solve_filter(rows.numel(), n_off, d, sweeps)
+    bound_batch = bounds.solve_filter(n_rows, n_off, d, sweeps)
     t0 = time.perf_counter()
     model = ts.solve_filter_pm_schedule(
         *(v[:model_centers] for v in args_m), 1e-8, npx, sweeps)
@@ -1196,8 +1297,8 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
         *subt, 1e-8, npx=npx, sweeps=sweeps)
     ref, plain_ms = timed_once(
         lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
-    if time_once and rows.numel() == twin_centers:  # the call above
-        got, ms = field, ms_rows
+    if time_once and n_rows == twin_centers:
+        got, ms = field, ms_batch  # the in-place call above
     elif time_once:  # this too: a call takes seconds from d = 507
         got, ms = timed_once(sf)
     else:
@@ -1205,17 +1306,21 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     rel = rel_rms(got, ref)
     res = (float((got - ref).abs().max()), ms, plain_ms,
            bounds.solve_filter(twin_centers, n_off, d, sweeps))
+    last = int(rows[sel[-1]])
+    on_rows = (f"the same {n_rows}" if sel.numel() == n_rows else
+               f"the first and last {sel.numel() // 2} of the same {n_rows}")
+    part_rows = (f" (the first {n_first}"
+                 f"{f' and the last {n_last}' if n_last else ''}, a part of "
+                 "the batch)") if part else ""
     print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
           f"engine's in-place rows bitwise equal to the compact call on "
-          f"the same {rows.numel()} (the first {n_first}"
-          f"{f' and the last {n_last}' if n_last else ''}, up "
-          f"to element {(int(rows[-1]) + 1) * n_off * d - 1} of the stack); "
-          f"{ms_batch:.3f} ms for {rows.numel()} main rows in place"
-          f"{' (a part of the batch)' if part else ''}, bound "
-          f"{bound_batch[0]:.3f} ms ({bound_batch[1]})", flush=True)
+          f"{on_rows}, up to element {(last + 1) * n_off * d - 1} of the "
+          f"stack ({ms_rows:.3f} ms); {ms_batch:.3f} ms for {n_rows} main "
+          f"rows in place{part_rows}, bound {bound_batch[0]:.3f} ms "
+          f"({bound_batch[1]})", flush=True)
     print(f"{tag} {label}: field vs its fp32 schedule model on the first "
-          f"{min(model_centers, rows.numel())} centers rel rms {rel_m:.3e} "
+          f"{min(model_centers, n_rows)} centers rel rms {rel_m:.3e} "
           f"(limit {model_limit:g}; the model {model_s:.1f} s); vs the "
           f"float64 twin on the first {twin_centers} rel rms {rel:.3e} "
           f"(limit {BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those "
@@ -1332,17 +1437,18 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 to 13 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 14 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
-    synthetic and real-batch checks, and whether its batch is timed once.
-    From d = 363 on the last R3_TWIN_CENTERS main rows of the batch are
-    held in place to the compact call as well as the first. ``scales``,
-    where given, is the ``-s`` of the crop's CLI runs (else the default)."""
+    synthetic and real-batch checks; each phase times its batch once, not
+    after a warm-up (phase 8's after one until phase 14 needed the run's
+    time). From d = 363 on the last main rows of the batch are held in
+    place to the compact call as well as the first. ``scales``, where
+    given, is the ``-s`` of the crop's CLI runs (else the default)."""
     return {
         4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
                 floor=R4_MAIN_FLOOR, batch_floor=0.0, crop=R4_CROP,
-                cpu_crop=R4_CPU_CROP, synth={}, batch={}, time_once=False,
+                cpu_crop=R4_CPU_CROP, synth={}, batch={},
                 # no solve: -w 4 at the default b = 6
                 no_solve_b=6),
         5: dict(tag="[9]", kernels=R5_KERNELS, O=441, search=R5_SEARCH,
@@ -1354,8 +1460,6 @@ def wide_phases():
                            model_limit=R5_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R5_BITWISE_CENTERS,
                            tail_centers=R3_TWIN_CENTERS, part=True),
-                # the batch is timed once, not after a warm-up
-                time_once=True,
                 # no solve: -w 5 at b = 9 (361 offsets)
                 no_solve_b=9),
         6: dict(tag="[10]", kernels=R6_KERNELS, O=529, search=R6_SEARCH,
@@ -1366,8 +1470,8 @@ def wide_phases():
                 batch=dict(model_centers=R6_MODEL_CENTERS,
                            model_limit=R6_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R6_BITWISE_CENTERS,
-                           tail_centers=R6_BITWISE_CENTERS, part=True),
-                time_once=True,
+                           tail_centers=R6_BITWISE_CENTERS, part=True,
+                           compact_centers=COMPACT_CENTERS),
                 # no solve: -w 6 at b = 10 (441 offsets)
                 no_solve_b=10),
         7: dict(tag="[11]", kernels=R7_KERNELS, O=729, search=R7_SEARCH,
@@ -1378,8 +1482,8 @@ def wide_phases():
                 batch=dict(model_centers=R7_MODEL_CENTERS,
                            model_limit=R7_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R7_BITWISE_CENTERS,
-                           tail_centers=R7_BITWISE_CENTERS, part=True),
-                time_once=True,
+                           tail_centers=R7_BITWISE_CENTERS, part=True,
+                           compact_centers=COMPACT_CENTERS),
                 # no solve: -w 7 at b = 12 (625 offsets)
                 no_solve_b=12),
         8: dict(tag="[12]", kernels=R8_KERNELS, O=961, search=R8_SEARCH,
@@ -1390,8 +1494,8 @@ def wide_phases():
                 batch=dict(model_centers=R8_MODEL_CENTERS,
                            model_limit=R8_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R8_BITWISE_CENTERS,
-                           tail_centers=R8_BITWISE_CENTERS, part=True),
-                time_once=True,
+                           tail_centers=R8_BITWISE_CENTERS, part=True,
+                           compact_centers=COMPACT_CENTERS),
                 # no solve: -w 8 at b = 14 (841 offsets)
                 no_solve_b=14),
         9: dict(tag="[13]", kernels=R9_KERNELS, O=1089, search=R9_SEARCH,
@@ -1403,18 +1507,32 @@ def wide_phases():
                            model_limit=R9_MODEL_BATCH_REL_RMS,
                            bitwise_centers=R9_BITWISE_CENTERS,
                            tail_centers=R9_BITWISE_CENTERS, part=True,
-                           twin_centers=R9_TWIN_CENTERS),
-                time_once=True,
+                           twin_centers=R9_TWIN_CENTERS,
+                           compact_centers=COMPACT_CENTERS),
                 # no solve: -w 9 at b = 15 (961 offsets)
                 no_solve_b=15),
+        10: dict(tag="[14]", kernels=R10_KERNELS, O=1369, search=R10_SEARCH,
+                 floor=R10_MAIN_FLOOR, batch_floor=R10_BATCH_FLOOR,
+                 crop=R10_CROP, cpu_crop=R10_CPU_CROP, scales=R10_SCALES,
+                 synth=dict(pixels=R10_SYNTH_PIXELS,
+                            model_sweeps=R10_MODEL_SWEEPS),
+                 batch=dict(model_centers=R10_MODEL_CENTERS,
+                            model_limit=R10_MODEL_BATCH_REL_RMS,
+                            bitwise_centers=R10_BITWISE_CENTERS,
+                            tail_centers=R10_BITWISE_CENTERS, part=True,
+                            twin_centers=R10_TWIN_CENTERS,
+                            compact_centers=COMPACT_CENTERS),
+                  # no solve: -w 10 at b = 17 (1,225 offsets)
+                 no_solve_b=17),
     }
 
 
 def wide_phase(radius, dev, card, stats, clean, scene_path):
     """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363), 10 (radius 6,
-    d = 507), 11 (radius 7, d = 675), 12 (radius 8, d = 867) or 13 (radius
-    9, d = 1083): the -w r path on the 1088x1920 scene at the smallest b
-    that reaches its main path, each step's time printed. (e)'s reference,
+    d = 507), 11 (radius 7, d = 675), 12 (radius 8, d = 867), 13 (radius
+    9, d = 1083) or 14 (radius 10, d = 1323): the -w r path on the
+    1088x1920 scene at the smallest b that reaches its main path, each
+    step's time printed. (e)'s reference,
     the port's CPU pipeline on a crop, runs on the host's cores from the
     start, while the card works through (a) to (d). Returns the kernels
     line's entry (max_abs_err, ms, plain_ms, bound) and the cut frame's
@@ -1458,9 +1576,9 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
                                    name=name, **c["synth"])
     step_done("a")
     # (b) one real tile batch of the finest scale (after the prefilter): 16
-    # tiles, 8 at r = 6, 4 at r = 7 and 2 at r = 8 and 9
+    # tiles, 8 at r = 6, 4 at r = 7, 2 at r = 8 and 9 and 1 at r = 10
     # (core/monoscale.STACK_BYTES), the batch that holds the tiles of phase
-    # 2's 16-tile batch 8
+    # 2's 16-tile batch 8 (at r = 10 its first tile)
     n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
     k_batch = 8 * STACK_TILE_BATCH // n_tiles
     thr = pw.denoiser.monoscale.histogram_distance_threshold
@@ -1483,14 +1601,12 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
          f"{k_batch} barely reaches the main path")
     res, batch_ms, timed_rows, _ = compare_smem_batch(
         f"full-size r={radius} b={b} {n_tiles}-tile batch {k_batch}", x,
-        main, sweeps=sweeps, tag=tag, name=name, time_once=c["time_once"],
-        **c["batch"])
+        main, sweeps=sweeps, tag=tag, name=name, time_once=True, **c["batch"])
     res = (max(res[0], e_syn),) + res[1:]
-    # the Jacobi's share: the same rows at 0 sweeps (once where they were
-    # timed once)
-    zero = lambda: ts.solve_filter_pm(  # noqa: E731
-        *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0, rows=timed_rows)
-    ms0 = timed_once(zero)[1] if c["time_once"] else cuda_ms(zero, 1)
+    # the Jacobi's share: the same rows at 0 sweeps, timed once
+    ms0 = timed_once(lambda: ts.solve_filter_pm(
+        *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
+        rows=timed_rows))[1]
     print(f"{tag} the same {timed_rows.numel()} rows at 0 sweeps "
           f"{ms0:.3f} ms: "
           f"the Jacobi's {sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
@@ -1922,7 +2038,7 @@ def card_line() -> str:
 
 
 def time_crop(height, width, radius=5) -> int:
-    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 13's radius r
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 14's radius r
     and its search radius b) through the CLI's entry point on the
     scene's top-left height x width crop, the kernels built first: wall
     time with EXR I/O, launches, peak memory, rmse vs clean."""
@@ -1990,8 +2106,9 @@ def main() -> int:
         need(len(sys.argv) == 4 or (len(sys.argv) == 6
                                     and sys.argv[4] == "--radius"
                                     and sys.argv[5] in ("4", "5", "6", "7",
-                                                        "8", "9")),
-             "usage: chip_smoke.py --time-crop H W [--radius 4|5|6|7|8|9]")
+                                                        "8", "9", "10")),
+             "usage: chip_smoke.py --time-crop H W "
+             "[--radius 4|5|6|7|8|9|10]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -2280,6 +2397,12 @@ def main() -> int:
         9, dev, card, stats, clean, paths[""])
     print(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- 14. the -w 10 path -------------------------------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_1323"], launches10 = wide_phase(
+        10, dev, card, stats, clean, paths[""])
+    print(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
@@ -2316,6 +2439,9 @@ def main() -> int:
         "solve_filter_1083": ("solve_filter_1083",
                               "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                               "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_1323": ("solve_filter_1323",
+                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
@@ -2325,7 +2451,8 @@ def main() -> int:
             "solve_filter_507": launches6["solve_filter_507"],
             "solve_filter_675": launches7["solve_filter_675"],
             "solve_filter_867": launches8["solve_filter_867"],
-            "solve_filter_1083": launches9["solve_filter_1083"]}
+            "solve_filter_1083": launches9["solve_filter_1083"],
+            "solve_filter_1323": launches10["solve_filter_1323"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

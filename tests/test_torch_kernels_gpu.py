@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
-shared-memory form at d = 147, 243, 363, 507, 675, 867 and 1083 and the
-lane-form
+shared-memory form at d = 147, 243, 363, 507, 675, 867, 1083 and 1323 and
+the lane-form
 solve_matrices) against their plain twins, and the solve kernels against
 the plain fp32 model of their own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
@@ -619,14 +619,80 @@ def test_schedule_sweeps_at_d1083(cuda):
     assert rms[0] > 2e-5 and rms[1] < 2e-5
 
 
-@pytest.mark.parametrize("d", [75, 147, 243, 363, 507, 675, 867, 1083])
+# d = 1323, as d = 1083: the model two sweeps past the engine's
+R10_MODEL_SWEEPS = solve_filter_sweeps(1323) + 2
+
+
+def test_solve_filter_1323_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 1323 (csrc/solve_filter_smem.cu with 2,618 of
+    the 2,648 rows of W and Q in a global slot and eleven pivot passes a
+    round) on 32 synthetic pixels of 1,369 candidates: against the fp32
+    model of its schedule at R10_MODEL_SWEEPS, rms SMEM_MODEL_RMS, and
+    against the float64 twin at the engine's sweeps, rms 2e-4; it launches
+    the d = 1323 kernel only. The first round's pairs of the ninth to
+    eleventh passes, seats (512 + p, 1174 + p) for p < 149 (p = 149 pairs
+    the padding row), have non-zero pivots on every pixel: lanes 0-2 of a
+    group form those angles besides their first pass's, and pairs they
+    skipped would leave the clamp far from the model."""
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops.solve_filter import _cemp, _noise_bd
+
+    x = _stack_inputs(np.random.default_rng(1323), 1369, 1323, 32)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    mk = pm[1][..., None]
+    w = (_cemp(torch.einsum("poi,poj->pij", mk * pm[0], pm[0]), pm[4], pm[3])
+         - _noise_bd(pm[2], 441))
+    seats = torch.arange(512, 661, device=cuda)
+    assert bool((w[:, seats, seats + 662] != 0).all())
+    del w
+    _build.reset_launches()
+    got = solve_filter_pm(*pm, 1e-8, npx=441,
+                          sweeps=solve_filter_sweeps(1323))
+    assert _build.LAUNCHES["solve_filter_1323"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 441)) < 2e-4
+    got = solve_filter_pm(*pm, 1e-8, npx=441, sweeps=R10_MODEL_SWEEPS)
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, 441,
+                                              R10_MODEL_SWEEPS)) \
+        < SMEM_MODEL_RMS
+
+
+def test_schedule_sweeps_at_d1323(cuda):
+    """Why the engine runs solve_filter_sweeps(1323) sweeps at d = 1323:
+    the count keeps the fp32 schedule within 2e-5 rms of the float64 twin,
+    as at d = 147 to 1083, on 8 synthetic pixels of 1,369 candidates, read
+    on the card. One sweep fewer sits at that edge (1.874e-5 on an H100;
+    at d = 1083 it passed it, 2.321e-5), far from the converged schedule
+    (1.616e-6 at ten), so d = 1323 keeps the count of the step it shares
+    with d = 1083, the smallest that holds at both."""
+    x = _stack_inputs(np.random.default_rng(21), 1369, 1323, 8)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    want = solve_filter_pm_plain(*pm, 1e-8, 441)
+    sweeps = solve_filter_sweeps(1323)
+    rms = [_rms(solve_filter_pm_schedule(*pm, 1e-8, 441, s), want)
+           for s in (sweeps - 1, sweeps)]
+    print(f"d = 1323: {sweeps - 1} sweeps {rms[0]:.3e}, {sweeps} "
+          f"{rms[1]:.3e} rms from the float64 twin")
+    assert sweeps == solve_filter_sweeps(1083)
+    assert rms[0] > 1e-5 and rms[1] < 2e-5
+
+
+@pytest.mark.parametrize("d", [75, 147, 243, 363, 507, 675, 867, 1083,
+                               1323])
 def test_solve_filter_pm_rows_in_place(cuda, d):
     """The engine's entry: with ``rows`` the kernel reads those pixels of the
     stacks in place and writes their fields, bit for bit those of the
     compact stacks; the other rows are 0."""
     x = _stack_inputs(np.random.default_rng(31),
                       {243: 289, 363: 441, 507: 529, 675: 729,
-                       867: 961, 1083: 1089}.get(d, 169),
+                       867: 961, 1083: 1089, 1323: 1369}.get(d, 169),
                       d, 64)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -693,26 +759,26 @@ def test_wrappers_count_only_launches(cuda):
 
 def test_solve_filter_pm_empty_rows_at_any_d(cuda):
     """No pixel to solve (a batch where no center reaches the main path):
-    zeros and no launch, also at d = 1323, for which no kernel is built."""
+    zeros and no launch, also at d = 1587, for which no kernel is built."""
     from bcd_tpu_torch.ops import _build
 
-    x = _stack_inputs(np.random.default_rng(1), 9, 1323, 3)
+    x = _stack_inputs(np.random.default_rng(1), 9, 1587, 3)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
         x["m"].T.contiguous())]
     _build.reset_launches()
-    field = solve_filter_pm(*pm, 1e-8, npx=441, sweeps=9,
+    field = solve_filter_pm(*pm, 1e-8, npx=529, sweeps=9,
                             rows=torch.zeros(0, dtype=torch.long, device=cuda))
-    assert field.shape == (3, 9, 1323) and not bool(field.any())
+    assert field.shape == (3, 9, 1587) and not bool(field.any())
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    """d = 1323 (patch radius 10) with a pixel to solve: no kernel is
-    built for it (W and Q would take 14.0 MB a pixel); refused with the
+    """d = 1587 (patch radius 11) with a pixel to solve: no kernel is
+    built for it (W and Q would take 20.2 MB a pixel); refused with the
     reason, and the lane form at d = 147 too."""
-    d = 1323
+    d = 1587
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
     pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -732,14 +798,14 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """Radius 3 to 9 run on the card now; radius 10 at b = 18, where a
-    center can reach the solve and no kernel is built for d = 1323, is
+    """Radius 3 to 10 run on the card now; radius 11 at b = 20, where a
+    center can reach the solve and no kernel is built for d = 1587, is
     refused before the inputs are read, with the shared-memory reason and
     the ROADMAP item, and the twin never runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "10", "-b", "18"]) == 1
+                     "11", "-b", "20"]) == 1
     out = capsys.readouterr().out
     assert "shared memory" in out and "ROADMAP.md Queue 2" in out
 
@@ -769,10 +835,17 @@ def test_cli_accepts_radius_9_at_b15_on_cuda(cuda, tmp_path):
 
 def test_cli_accepts_radius_10_at_b17_on_cuda(cuda, tmp_path):
     """``bcd -w 10 -b 17`` (1,225 offsets, fewer than the 1,324 candidates
-    the d = 1323 main path needs) runs on the card though no kernel is
-    built for d = 1323: no solve kernel launches, and the output is the
-    CPU run's within rmse 1e-4."""
+    the d = 1323 main path needs) runs on the card: no solve kernel
+    launches, and the output is the CPU run's within rmse 1e-4."""
     _cli_fallback_only_matches_cpu(tmp_path, ["-w", "10", "-b", "17"])
+
+
+def test_cli_accepts_radius_11_at_b19_on_cuda(cuda, tmp_path):
+    """``bcd -w 11 -b 19`` (1,521 offsets, fewer than the 1,588 candidates
+    the d = 1587 main path needs) runs on the card though no kernel is
+    built for d = 1587: no solve kernel launches, and the output is the
+    CPU run's within rmse 1e-4."""
+    _cli_fallback_only_matches_cpu(tmp_path, ["-w", "11", "-b", "19"])
 
 
 def _cli_fallback_only_matches_cpu(tmp_path, flags):

@@ -186,13 +186,13 @@ def test_solve_wrappers_refuse_bad_inputs():
 
 
 @pytest.mark.parametrize("d", [27, 75, 147, 243, 363, 507, 675, 867, 1083,
-                               1323])
+                               1323, 1587])
 def test_kernel_dims(d):
     """The CUDA solve kernels are built for patch radius 1, 2 (registers),
-    3 (shared memory), 4 to 9 (shared memory and a global slot); radius 10
-    (W and Q would take 14.0 MB) is refused with the reason and its
+    3 (shared memory), 4 to 10 (shared memory and a global slot); radius 11
+    (W and Q would take 20.2 MB) is refused with the reason and its
     ROADMAP item."""
-    assert (d in ts.KERNEL_DIMS) == (d <= 1083)
+    assert (d in ts.KERNEL_DIMS) == (d <= 1323)
     if d in ts.KERNEL_DIMS:
         ts.check_kernel_dim(d)
     else:
@@ -205,25 +205,27 @@ def test_kernel_dims(d):
     (4, 6, True), (4, 7, True), (4, 8, True), (5, 9, True), (5, 10, True),
     (6, 10, True), (6, 11, True), (6, 13, True), (7, 12, True),
     (7, 13, True), (8, 14, True), (8, 15, True), (9, 15, True),
-    (9, 16, True), (10, 17, True), (10, 18, False),
+    (9, 16, True), (10, 17, True), (10, 18, True), (11, 19, True),
+    (11, 20, False),
 ])
 def test_solve_path_gate(r, b, accepted):
     """The CUDA engine's and CLI's gate: a center needs n >= d + 1 similar
     candidates to reach the solve, so a window of (2b + 1)^2 <= d offsets
     never launches a solve kernel and runs whatever d is (r = 4 at b <= 7,
     r = 5 at b <= 9, r = 6 at b <= 10, r = 7 at b <= 12, r = 8 at b <= 14,
-    r = 9 at b <= 15, r = 10 at b <= 17: every center takes the fallback,
-    as in JAX); r = 5 at b = 10 runs the d = 363 kernel, r = 6 from b = 11
-    the d = 507 one, r = 7 from b = 13 the d = 675 one, r = 8 from b = 15
-    the d = 867 one, r = 9 from b = 16 the d = 1083 one; r = 10 at b = 18
-    (1,369 offsets >= 1,324) would need the d = 1323 kernel the port
+    r = 9 at b <= 15, r = 10 at b <= 17, r = 11 at b <= 19: every center
+    takes the fallback, as in JAX); r = 5 at b = 10 runs the d = 363
+    kernel, r = 6 from b = 11 the d = 507 one, r = 7 from b = 13 the
+    d = 675 one, r = 8 from b = 15 the d = 867 one, r = 9 from b = 16 the
+    d = 1083 one, r = 10 from b = 18 the d = 1323 one; r = 11 at b = 20
+    (1,681 offsets >= 1,588) would need the d = 1587 kernel the port
     lacks."""
     d, n_off = 3 * (2 * r + 1) ** 2, (2 * b + 1) ** 2
     if accepted:
         ts.check_solve_path(d, n_off)
     else:
         with pytest.raises(NotImplementedError,
-                           match="shared memory.*patch radius >= 10"):
+                           match="shared memory.*patch radius >= 11"):
             ts.check_solve_path(d, n_off)
 
 
@@ -317,14 +319,15 @@ def test_schedule_degenerate_pixels():
     assert (small[:32, D] == 0).all() and (small[32:64, D] == 1).all()
 
 
-@pytest.mark.parametrize("dp", [28, 76, 148, 244, 364, 508, 676, 868, 1084])
+@pytest.mark.parametrize("dp", [28, 76, 148, 244, 364, 508, 676, 868, 1084,
+                                1324])
 def test_reseat_order_is_one_sweep_cycle(dp):
     """reseat_order is the TPU kernel's re-seating (the concatenation of
     solve_filter_pallas.py:184-187, written out on row labels): a
     permutation that keeps row 0 and moves the other rows along one cycle
     of length dp - 1, the round-robin order of a Brent-Luk sweep, at K2's
-    dp = 28 and solve_filter's dp = 76, 148, 244, 364, 508, 676, 868 and
-    1084 (d = 75, 147, 243, 363, 507, 675, 867 and 1083)."""
+    dp = 28 and solve_filter's dp = 76, 148, 244, 364, 508, 676, 868, 1084
+    and 1324 (d = 75, 147, 243, 363, 507, 675, 867, 1083 and 1323)."""
     order = ts.reseat_order(dp)
     half = dp // 2
     u, dn = np.arange(half), np.arange(half, dp)
