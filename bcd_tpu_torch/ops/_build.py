@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels (``bcd_tpu_torch/csrc/*.cu``).
 
-Every ``.cu`` file is compiled by its own ``nvcc``, all started together,
-and the objects are linked into ONE shared library with a plain C interface
+Every ``.cu`` file is compiled by its own ``nvcc``, all started together
+(``csrc/solve_filter_smem.cu`` by one for each patch dimension it is built
+for and one for its C entries, ``SPLIT``), and the objects are linked into
+ONE shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds) under ``build/kernels/``
 in the checkout, on first use, and loaded with ``ctypes``. The library's file name carries a hash of the sources and flags,
 so an edited kernel is rebuilt. Each C entry launches on the stream it is
@@ -23,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -37,15 +41,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # solve_filter_smem, solve_filter_243, solve_filter_363, solve_filter_507,
-# solve_filter_675, solve_filter_867, solve_filter_1083 and
-# solve_filter_1323 are csrc/solve_filter_smem.cu at d = 147, 243, 363,
-# 507, 675, 867, 1083 and 1323
+# solve_filter_675, solve_filter_867, solve_filter_1083, solve_filter_1323
+# and solve_filter_1587 are csrc/solve_filter_smem.cu at d = 147, 243, 363,
+# 507, 675, 867, 1083, 1323 and 1587
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
             "solve_filter_507": 0, "solve_filter_675": 0,
             "solve_filter_867": 0, "solve_filter_1083": 0,
-            "solve_filter_1323": 0}
+            "solve_filter_1323": 0, "solve_filter_1587": 0}
+
+# sources compiled as several translation units at once: one for each
+# instance (-DBCD_SMEM_D=d) and one for the C entries
+# (-DBCD_SMEM_ENTRIES). As one unit solve_filter_smem.cu's instances
+# compiled one after another, the build's longest step (PERF.md)
+SPLIT = {"solve_filter_smem.cu": ("BCD_SMEM_D", "BCD_SMEM_ENTRIES",
+                                  (147, 243, 363, 507, 675, 867, 1083, 1323,
+                                   1587))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,9 +80,10 @@ _SIGNATURES = {
     # scratch, n_blocks, field, stream
     "bcd_solve_filter_smem": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P,
                               _I, _P, _P],
-    # d, n_blocks -> floats of scratch
+    # d, n_blocks -> floats of scratch (a 64-bit count)
     "bcd_solve_filter_smem_scratch_floats": [_I, _I],
 }
+_RESTYPES = {"bcd_solve_filter_smem_scratch_floats": ctypes.c_longlong}
 
 _lib = None
 _log = ""
@@ -90,9 +103,31 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _units(sources):
+    """(source, extra nvcc flags, object suffix) of every translation unit."""
+    units = []
+    for src in sources:
+        if src.name not in SPLIT:
+            units.append((src, [], src.stem))
+            continue
+        one, entries, dims = SPLIT[src.name]
+        units.append((src, [f"-D{entries}"], f"{src.stem}.entries"))
+        units += [(src, [f"-D{one}={d}"], f"{src.stem}.{d}") for d in dims]
+    return units
+
+
+def _timed_run(cmd):
+    """(return code, output, seconds) of one compile."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def _library_path():
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(SPLIT.items())).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -109,19 +144,20 @@ def library() -> ctypes.CDLL:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
-        objs = [f"{tmp}.{src.stem}.o" for src in sources]
-        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                for src, obj in zip(sources, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        outs = [proc.communicate()[0] for proc in procs]
-        log = "".join(outs)
-        for cmd, proc, out in zip(cmds, procs, outs):
-            if proc.returncode != 0:
+        units = _units(sources)
+        objs = [f"{tmp}.{stem}.o" for _, _, stem in units]
+        cmds = [[_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", obj, str(src)]
+                for (src, extra, _), obj in zip(units, objs)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            procs = list(pool.map(_timed_run, cmds))
+        # nvcc's report, and each unit's compile time
+        log = "".join(out for _, out, _ in procs) + "".join(
+            f"nvcc {stem}: {secs:.1f} s\n"
+            for (_, _, stem), (_, _, secs) in zip(units, procs))
+        for cmd, (rc, out, _) in zip(cmds, procs):
+            if rc != 0:
                 raise RuntimeError(
-                    f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{out}")
+                    f"nvcc failed (rc {rc}):\n{' '.join(cmd)}\n{out}")
         link = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.so", *objs]
         proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -136,7 +172,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

@@ -3,15 +3,17 @@ file, kernel by kernel, and where one instance's spills sit, on a machine
 with ``nvcc`` (no card needed):
 
     git show <commit>:bcd_tpu_torch/csrc/solve_filter_smem.cu > build/parent.cu
-    python -m bcd_tpu_torch.ops.sass_check build/parent.cu 1323
+    python -m bcd_tpu_torch.ops.sass_check build/parent.cu 1587
 
 Both files are compiled with the library's flags (``ops/_build.NVCC_FLAGS``)
 under ``build/sass_check/``, the other one under this one's file name, and
 each ``solve_filter_smem_kernel<D>`` of ``cuobjdump -sass`` is compared
 line for line, with the hashed part of the anonymous namespace's names
 blanked. A change that adds an instance must leave every other one SAME.
-Then this tree's file is compiled again with ``-lineinfo``, and the spill
-stores and loads (STL, LDL) of ``solve_filter_smem_kernel<D>`` are counted
+The library's build compiles the file once for each d
+(``_build.SPLIT``); each of those units' kernel must be this tree's
+one-unit SASS too (UNIT SAME). Then this tree's file is compiled again
+with ``-lineinfo``, and the spill stores and loads (STL, LDL) of ``solve_filter_smem_kernel<D>`` are counted
 by source line (``nvdisasm -g -c``), after its ``-Xptxas -v`` report.
 """
 
@@ -45,7 +47,11 @@ def run(cmd) -> str:
 
 
 def kernels(sass: str) -> dict[int, list[str]]:
-    """``cuobjdump -sass`` text by the kernel's d."""
+    """``cuobjdump -sass`` text by the kernel's d, with the hashed part of
+    the anonymous namespace's names blanked, runs of spaces (whose width
+    follows the file's longest line) made one, and the branch labels
+    (``.L_x_N``, numbered through the whole file) renumbered from 0 in
+    each kernel."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : \S*solve_filter_smem_kernelILi(\d+)E",
@@ -55,8 +61,20 @@ def kernels(sass: str) -> dict[int, list[str]]:
         elif "Function :" in line:
             cur = None
         elif cur is not None:
-            cur.append(re.sub(r"_GLOBAL__N__\w+", "", line))
+            cur.append(" ".join(re.sub(r"_GLOBAL__N__\w+", "", line).split()))
+    for d, lines in out.items():
+        labels = {}
+        out[d] = [re.sub(r"\.L_x_\d+", lambda m: ".L" + str(
+            labels.setdefault(m.group(0), len(labels))), line)
+            for line in lines]
     return out
+
+
+def first_difference(a: list[str], b: list[str]) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"line {i}: {x} | {y}"
+    return f"lengths {len(a)} and {len(b)}"
 
 
 def spills_by_line(cubin: Path, d: int) -> collections.Counter:
@@ -85,11 +103,14 @@ def main() -> int:
     (WORK / "other").mkdir(parents=True, exist_ok=True)
     shutil.copy(other, WORK / "other" / SOURCE.name)
     nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS
+    one_d, _, dims = _build.SPLIT[SOURCE.name]
     jobs = {"other": [nvcc, *flags, "-c", "-o", WORK / "other.o",
                       WORK / "other" / SOURCE.name],
             "tree": [nvcc, *flags, "-c", "-o", WORK / "tree.o", SOURCE],
             "lineinfo": [nvcc, *flags, "-lineinfo", "-cubin", "-o",
                          WORK / "tree.cubin", SOURCE]}
+    jobs.update({f"unit{k}": [nvcc, *flags, f"-D{one_d}={k}", "-c", "-o",
+                              WORK / f"unit{k}.o", SOURCE] for k in dims})
     with ThreadPoolExecutor(len(jobs)) as pool:
         logs = dict(zip(jobs, pool.map(run, jobs.values())))
     old, new = (kernels(run([tool("cuobjdump"), "-sass", WORK / f"{k}.o"]))
@@ -97,8 +118,15 @@ def main() -> int:
     for k in sorted(set(old) | set(new)):
         state = ("NEW" if k not in old else "GONE" if k not in new
                  else "SAME" if old[k] == new[k] else "DIFF")
-        print(f"solve_filter_smem_kernel<{k}>: {state} against {other}",
-              flush=True)
+        unit = kernels(run([tool("cuobjdump"), "-sass",
+                            WORK / f"unit{k}.o"])) if k in dims else {}
+        same = unit.get(k) == new.get(k)
+        print(f"solve_filter_smem_kernel<{k}>: {state} against {other}; "
+              f"its build unit {'UNIT SAME' if same else 'UNIT DIFF'}"
+              + ("" if same or k not in unit or k not in new else
+                 f" ({first_difference(new[k], unit[k])})"), flush=True)
+        if state == "DIFF":
+            print(f"    {first_difference(old[k], new[k])}", flush=True)
     report = logs["tree"].split(f"solve_filter_smem_kernelILi{d}E", 1)[1]
     print(f"<{d}> -Xptxas -v: "
           + "; ".join(x.strip() for x in report.splitlines()[1:3]))

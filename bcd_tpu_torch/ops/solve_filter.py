@@ -21,12 +21,13 @@ Jacobi's matrices in a thread's registers. At d = 147 (r = 3) a column
 outgrows the registers: ``solve_filter_pm`` runs ``csrc/solve_filter_smem.cu``
 there, the same function with the two matrices in shared memory, and at
 d = 243 (r = 4), 363 (r = 5), 507 (r = 6), 675 (r = 7), 867 (r = 8),
-1083 (r = 9) and 1323 (r = 10) the same kernel with the rows that do not
-fit there in a global slot of the block (at d = 363 most of them: 580 of
-728; at d = 507, 913 of 1,016, the slot 3.92 MB a block with Cemp and H;
-at d = 675, 1,280 of 1,352, 7.12 MB; at d = 867, 1,683 of 1,736, 11.9 MB;
-at d = 1083, 2,128 of 2,168, 18.6 MB; at d = 1323, 2,618 of 2,648,
-27.9 MB); the lane ``solve_matrices``
+1083 (r = 9), 1323 (r = 10) and 1587 (r = 11) the same kernel with the
+rows that do not fit there in a global slot of the block (at d = 363 most
+of them: 580 of 728; at d = 507, 913 of 1,016, the slot 3.92 MB a block
+with Cemp and H; at d = 675, 1,280 of 1,352, 7.12 MB; at d = 867, 1,683 of
+1,736, 11.9 MB; at d = 1083, 2,128 of 2,168, 18.6 MB; at d = 1323, 2,618
+of 2,648, 27.9 MB; at d = 1587, 3,153 of 3,176, 40.2 MB); the lane
+``solve_matrices``
 has no d = 147 kernel. Larger d is refused where a center could reach the
 solve (``check_solve_path``). The kernels' headers give the math, the design
 and what bounds them.
@@ -71,17 +72,18 @@ EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
 # 148 of the 728 rows in shared memory; r = 6: 2.06 MB, 103 of 1,016; r = 7:
 # 3.66 MB, 72 of 1,352; r = 8: 6.03 MB, 53 of 1,736; r = 9: 9.40 MB, 40 of
 # 2,168, nine pivot passes a round; r = 10: 14.0 MB, 30 of 2,648, eleven
-# pivot passes)
-KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675, 867, 1083, 1323)
+# pivot passes; r = 11: 20.2 MB, 23 of 3,176, thirteen pivot passes)
+KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675, 867, 1083, 1323, 1587)
 # the d that csrc/solve_filter_smem.cu runs, with each one's launch counter
 SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243",
              363: "solve_filter_363", 507: "solve_filter_507",
              675: "solve_filter_675", 867: "solve_filter_867",
-             1083: "solve_filter_1083", 1323: "solve_filter_1323"}
+             1083: "solve_filter_1083", 1323: "solve_filter_1323",
+             1587: "solve_filter_1587"}
 # the lane solve_matrices' kernel (csrc/solve_filter.cu only)
 LANE_KERNEL_DIMS = (27, 75)
 SMEM_BYTES = 232448  # shared memory an H100 block may have
-ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 11")
+ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 12")
 ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
@@ -142,10 +144,10 @@ def check_kernel_dim(d: int) -> None:
         need = 2 * (d + d % 2) ** 2 * 4
         raise NotImplementedError(
             f"patch dimension d = {d}: the CUDA solve kernels are built for "
-            f"d in {KERNEL_DIMS} (patch radius 1 to 10); the Jacobi's two "
+            f"d in {KERNEL_DIMS} (patch radius 1 to 11); the Jacobi's two "
             f"working matrices take {need} bytes at this d, more than the "
             f"{SMEM_BYTES} bytes of shared memory a block may have (the "
-            f"d = 243 to 1323 kernels keep the rows that do not fit there in "
+            f"d = 243 to 1587 kernels keep the rows that do not fit there in "
             f"a global slot, built for those d only); see {ROADMAP_LARGE_D}")
 
 
@@ -402,8 +404,8 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     pixels are solved and the other rows of field are 0. ``sweeps`` is the
     kernel's number of Jacobi sweeps; the twin's exact eigh has none. On
     CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147, 243, 363,
-    507, 675, 867, 1083 and 1323 ``csrc/solve_filter_smem.cu``, and any
-    other d is refused (``check_kernel_dim``) unless no pixel is to be solved (an empty
+    507, 675, 867, 1083, 1323 and 1587 ``csrc/solve_filter_smem.cu``, and
+    any other d is refused (``check_kernel_dim``) unless no pixel is to be solved (an empty
     ``rows``: no launch).
     """
     if cand.dim() != 3:

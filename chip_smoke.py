@@ -6,9 +6,9 @@
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's to 14's patch radius (4, 5,
-6, 7, 8, 9 or 10; 5 by default) and B its search radius (8, 10, 11, 13,
-15, 16 or 18).
+built, and runs nothing else: R is phase 8's to 15's patch radius (4, 5,
+6, 7, 8, 9, 10 or 11; 5 by default) and B its search radius (8, 10, 11,
+13, 15, 16, 18 or 20).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -90,26 +90,26 @@ non-zero before the final line:
    the -w 5 path: synthetic stacks against the float64 twin at 9 sweeps
    and against the fp32 model at 11; one real 8-tile r = 6, b = 11 batch
    (the engine's batch at this d), a part of it timed once in place (its
-   first and last 132 main-path rows, the last past element 2^31 of the
-   stack, bit for bit against the compact call); ``bcd -w 6 -b 11`` on a
-   64x64 crop (launches only solve_filter_507); ``bcd -w 6 -b 10`` on
-   that crop (no solve launch); a 40x40 crop (the smallest size here whose
-   centers reach the solve) against the port's CPU pipeline.
+   first and last main-path rows, the last past element 2^31 of the
+   stack, bit for bit against the compact call); ``bcd -w 6 -b 11 -s 2``
+   on a 40x40 crop (the smallest size here whose centers reach the solve;
+   launches only solve_filter_507); ``bcd -w 6 -b 10 -s 2`` on that crop
+   (no solve launch); that crop against the port's CPU pipeline.
 11. The -w 7 path (d = 675, the same kernel with 1,280 of the 1,352 rows
    in the global slot and the Cholesky's pivot rows in shared memory,
    solve_filter_675, 9 sweeps) at b = 13, checked as phase 10 checks the
    -w 6 path: synthetic stacks against the float64 twin at 9 sweeps and
    the fp32 model at 11; one real 4-tile r = 7, b = 13 batch, its first
-   and last 132 main-path rows timed once in place; ``bcd -w 7 -b 13`` on
-   a 64x64 crop (launches only solve_filter_675; peak memory);
-   ``bcd -w 7 -b 12`` on that crop (no solve launch); a 40x40 crop against
-   the port's CPU pipeline. Then ``bcd -w 3 -b 33`` on a 64x128 crop: the
+   and last main-path rows timed once in place; ``bcd -w 7 -b 13 -s 2``
+   on a 40x40 crop (launches only solve_filter_675; peak memory);
+   ``bcd -w 7 -b 12 -s 2`` on that crop (no solve launch); that crop
+   against the port's CPU pipeline. Then ``bcd -w 3 -b 33`` on a 64x128 crop: the
    engine's batch rule, 4 tiles a batch there, and its peak memory.
 12. The -w 8 path (d = 867, the same kernel with 1,683 of the 1,736 rows
    in the global slot, solve_filter_867) at b = 15, checked as phase 11
    checks the -w 7 path: synthetic stacks against the float64 twin at the
    engine's sweeps and the fp32 model two sweeps past them; one real
-   2-tile r = 8, b = 15 batch, its first and last 132 main-path rows timed
+   2-tile r = 8, b = 15 batch, its first and last main-path rows timed
    once in place; ``bcd -w 8 -b 15 -s 2`` on a 46x46 crop (launches only
    solve_filter_867; peak memory; two scales, since at three a 64x64
    crop's 16x16 coarsest scale holds no 17x17 patch); ``bcd -w 8 -b 14
@@ -118,31 +118,47 @@ non-zero before the final line:
 13. The -w 9 path (d = 1083, the same kernel with 2,128 of the 2,168 rows
    in the global slot and nine pivot passes a round, a lane of a group
    forming the angles of two passes, solve_filter_1083, 10 sweeps) at
-   b = 16, checked as phase 12 checks the -w 8 path: one wave of
-   synthetic stacks against the float64 twin at the engine's sweeps and
+   b = 16, checked as phase 12 checks the -w 8 path: synthetic stacks
+   against the float64 twin at the engine's sweeps and
    the fp32 model two sweeps past them; one real 2-tile r = 9, b = 16
-   batch, its first and last 66 main-path rows (one wave) timed once in
-   place, the last past element 2^31 of the stack; ``bcd -w 9 -b 16 -s 2``
+   batch, its first and last main-path rows timed once in place, the
+   last past element 2^31 of the stack; ``bcd -w 9 -b 16 -s 2``
    on a 52x52 crop (launches only solve_filter_1083; peak memory);
    ``bcd -w 9 -b 15 -s 2`` on that crop (no solve launch); that crop
    against the port's CPU pipeline.
 14. The -w 10 path (d = 1323, the same kernel with 2,618 of the 2,648 rows
    in the global slot and eleven pivot passes a round, lanes 0-2 of a
    group forming the angles of two passes, solve_filter_1323) at b = 18,
-   checked as phase 13 checks the -w 9 path: one wave of synthetic stacks
-   against the float64 twin at the engine's sweeps and the fp32 model two
+   checked as phase 13 checks the -w 9 path: synthetic stacks against
+   the float64 twin at the engine's sweeps and the fp32 model two
    sweeps past them; the real one-tile r = 10, b = 18 batch, its first and
-   last 66 main-path rows (one wave) timed once in place and held bit for
-   bit to a compact call on 32 of them; ``bcd -w 10 -b 18 -s 2``
+   last main-path rows timed once in place; ``bcd -w 10 -b 18 -s 2``
    on a 58x58 crop (launches only solve_filter_1323; peak memory);
    ``bcd -w 10 -b 17 -s 2`` on that crop (no solve launch); that crop
    against the port's CPU pipeline.
+15. The -w 11 path (d = 1587, the same kernel with 3,153 of the 3,176 rows
+   in the global slot and thirteen pivot passes a round, lanes 0-4 of a
+   group forming the angles of two passes, solve_filter_1587) at b = 20,
+   checked as phase 14 checks the -w 10 path: synthetic stacks against
+   the float64 twin at the engine's sweeps and the fp32 model two sweeps
+   past them; the real one-tile r = 11, b = 20 batch, its first and last
+   66 main-path rows (one wave) timed once in place, the last past
+   element 2^31 of the stack, held bit for bit to a compact call on 32 of
+   them; ``bcd -w 11 -b 20 -s 2`` on a 62x62 crop (launches only
+   solve_filter_1587; peak memory); ``bcd -w 11 -b 19 -s 2`` on that crop
+   (no solve launch); that crop against the port's CPU pipeline.
 
-From phase 8 on, (e)'s reference, the port's CPU pipeline on the crop,
-runs on the host's cores from the phase's start, beside the card's work.
-From phase 10 on, the rows a phase times in place are held bit for bit to
-a compact call on the first and last 16 of them, and to the float64 twin
-on the twin's centers.
+The crops' CPU references (phases 5, 7 and 8 to 15's (e)), the port's
+CPU pipeline on each crop, are computed one after another from phase 5's
+start in a process of its own (spawned; it never touches the card),
+beside the card's work.
+From phase 8 on the frame's main-path fraction is read on an eighth of
+its tiles.
+Phases 10 to 14 time the first and last 16 main rows of their batch in
+place and hold them bit for bit to one compact call on the same rows and
+to the float64 twin; phase 15 times one wave. The kernel calls whose time
+is not read (the synthetic rows', the compact call) run on side streams,
+beside each other and the plain references.
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -153,7 +169,6 @@ Inputs are generated from fixed seeds; nothing is downloaded. No JAX.
 from __future__ import annotations
 
 import contextlib
-import functools
 import io
 import json
 import os
@@ -204,8 +219,9 @@ MODEL_CENTERS = 4096
 # rms, the bound K2's filtered self-candidate is held to
 BATCH_REL_RMS = 1e-3
 # the -w 2 pipeline on the card against the port's CPU pipeline: the
-# goldens' bound
+# goldens' bound, on the scene's top-left R2_CPU_CROP square
 R2_CPU_RMSE = 1e-4
+R2_CPU_CROP = 64
 # the kernels each path launches (ops/_build.LAUNCHES keys)
 R1_KERNELS = ("masks_moments", "solve_matrices_pm", "apply_scatter")
 R2_KERNELS = ("solve_filter",)
@@ -240,7 +256,8 @@ R4_KERNELS = ("solve_filter_243",)
 SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
                  "solve_filter_507", "solve_filter_675", "solve_filter_867",
-                 "solve_filter_1083", "solve_filter_1323")
+                 "solve_filter_1083", "solve_filter_1323",
+                 "solve_filter_1587")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -250,9 +267,10 @@ R4_SEARCH = 8
 R4_MAIN_FLOOR = 0.72
 # the cut -w 4 -b 8 frame: the scene's top-left crop, sides a multiple of
 # 32; 256x512 took 56 s of phase 8's 165 s on an H100, cut to a quarter
-# so that phases 1 to 10 stay well inside the run's time limit; the whole
-# 1088x1920 frame takes about 14 minutes
-R4_CROP = (128, 256)
+# so that phases 1 to 10 stay well inside the run's time limit, and
+# 128x256 (11.1 s) to a quarter again for phase 15's; the whole 1088x1920
+# frame takes about 14 minutes
+R4_CROP = (64, 128)
 # (e): a crop on the card against the port's CPU pipeline
 R4_CPU_CROP = 32
 # phase 9, d = 363 (csrc/solve_filter_smem.cu with 580 of the 728 rows of
@@ -293,8 +311,9 @@ R5_BITWISE_CENTERS = 528
 R5_MAIN_FLOOR = 0.7
 # the cut -w 5 -b 10 frame: the scene's top-left crop, sides a multiple of
 # 32; 128x256 took 102 s of phase 9's 252 s on an H100, cut to a quarter
-# for phase 10's time; the whole 1088x1920 frame takes over two hours
-R5_CROP = (64, 128)
+# for phase 10's time, and 64x128 (16.1 s) to a half for phase 15's; the
+# whole 1088x1920 frame takes over two hours
+R5_CROP = (64, 64)
 # (e): a crop on the card against the port's CPU pipeline
 R5_CPU_CROP = 32
 # phase 10, d = 507 (csrc/solve_filter_smem.cu with 913 of the 1,016 rows
@@ -323,21 +342,17 @@ R6_SYNTH_PIXELS = 32
 # d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
 # convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
 R6_MODEL_BATCH_REL_RMS = 2e-5
-# phases 10 to 14 hold the rows they time in place bit for bit to a compact
-# call on the first and last COMPACT_CENTERS / 2 of them, which keeps the
-# rows at the stack's highest offsets (on all of them until phase 14
-# needed the run's time); the float64 twin still runs on its centers
+# phase 15 holds the rows it times in place bit for bit to a compact call
+# on the first and last COMPACT_CENTERS / 2 of them, which keeps the rows
+# at the stack's highest offsets (phases 10 to 14 did until phase 15: see
+# PART_ROWS); the float64 twin still runs on its centers
 COMPACT_CENTERS = 32
-# centers of the real r = 6 batch the model runs on, and the first and the
-# last main-path rows of the batch that the timed in-place call solves and
-# holds bit for bit to the compact call (COMPACT_CENTERS; a wave of the
-# kernel's persistent grid on 132 SMs each, so the twin's 264 centers are
-# the timed rows). The whole 8-tile batch took 98.4 s on an H100, most
-# of phase 10 (PERF.md): it is timed on a part, its first and last 264
-# rows until phase 13 needed the run's time. Its last rows lie past
-# element 2^31 of the (8192, 529, 507) stack.
+# centers of the real r = 6 batch the model runs on. The whole 8-tile
+# batch took 98.4 s on an H100, most of phase 10 (PERF.md): it is timed on
+# a part (PART_ROWS), its first and last 264 rows until phase 13 needed the
+# run's time, 132 until phase 15 did. Its last rows lie past element 2^31
+# of the (8192, 529, 507) stack.
 R6_MODEL_CENTERS = 132
-R6_BITWISE_CENTERS = 132
 # the 8-tile batch's main-path fraction (8,192 of 8,192 centers on an H100)
 R6_BATCH_FLOOR = 0.8
 # the r = 6, b = 11 finest-scale main-path fraction must exceed this (first
@@ -347,8 +362,11 @@ R6_MAIN_FLOOR = 0.65
 # 32; at -s 3 its coarsest scale (16x16) still has centers at r = 6, so
 # every pixel of the output has an estimate (a 48x48 crop's 12x12 has none,
 # and its output there is 0). 64x128 took 34.4 s on an H100, cut to 64x64
-# (the finest scale's 4 tiles in one batch) for phase 11's time
-R6_CROP = (64, 64)
+# (the finest scale's 4 tiles in one batch) for phase 11's time, and to
+# (e)'s 40x40 (its 4 tiles in one batch too) at two scales for phase 15's
+# (64x64 11.1 s): at three its 10x10 coarsest scale holds no 13x13 patch
+R6_CROP = (40, 40)
+R6_SCALES = 2
 # (e): a crop on the card against the port's CPU pipeline; in a 32x32 crop
 # the patch centers span 20x20, fewer than the 508 candidates of the main
 # path at r = 6, b = 11, so none takes it; in a 40x40 crop 36 do (48x48,
@@ -375,28 +393,27 @@ R7_SYNTH_PIXELS = 32
 # (its reading 1.1e-6, 18x under it; d = 675 at 9 sweeps sits about as near
 # convergence as d = 507 at 9 on the synthetic rows)
 R7_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 7 batch the model runs on, and the first and the
-# last main-path rows timed in place, held bit for bit to the compact call
-# (COMPACT_CENTERS). The 4-tile
-# batch (about 4,000 main-path centers at about 31 ms a center on an H100,
-# about two minutes) is timed on those 264 rows in place, two waves of
-# the persistent grid, a part of it (528 rows, the model on 132 centers,
-# until phase 13 needed the run's time)
+# centers of the real r = 7 batch the model runs on. The 4-tile batch
+# (about 4,000 main-path centers at about 31 ms a center on an H100, about
+# two minutes) is timed on a part of it in place (PART_ROWS; 528 rows, the
+# model on 132 centers, until phase 13 needed the run's time, 264 until
+# phase 15 did)
 R7_MODEL_CENTERS = 32
-R7_BITWISE_CENTERS = 132
 # the r = 7, b = 13 finest-scale main-path fraction of the frame and of the
 # 4-tile batch must exceed these (stated before the first reading: at r = 6
 # the frame read 0.8192 and its batch 1.0)
 R7_MAIN_FLOOR = 0.6
 R7_BATCH_FLOOR = 0.8
-# the cut -w 7 -b 13 frame: the scene's top-left 64x64, one 4-tile batch at
-# the finest scale (the batch's peak memory), where all 676 centers whose
-# window keeps 676 offsets take the main path (about 21 s of the kernel);
-# its 16x16 coarsest scale keeps 2x2 centers, whose patches cover it
-R7_CROP = (64, 64)
 # (e): in a 40x40 crop 4 centers reach the solve (their windows lose one
 # row and one column); in a 32x32 crop none
 R7_CPU_CROP = 40
+# the cut -w 7 -b 13 frame: (e)'s crop, one 4-tile batch at the finest
+# scale (the batch's peak memory), at two scales (at three its 10x10
+# coarsest scale holds no 15x15 patch). The top-left 64x64, where all 676
+# centers whose window keeps 676 offsets take the main path (22.1 s), until
+# phase 15 needed the run's time
+R7_CROP = (R7_CPU_CROP, R7_CPU_CROP)
+R7_SCALES = 2
 # phase 12, d = 867 (csrc/solve_filter_smem.cu with 1,683 of the 1,736 rows
 # of W and Q in a global slot), at the engine's sweeps
 R8_KERNELS = ("solve_filter_867",)
@@ -415,15 +432,12 @@ R8_MODEL_SWEEPS = 11
 R8_SYNTH_PIXELS = 16
 # the real r = 8 batch against the fp32 model: phase 11's limit
 R8_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 8 batch the model runs on, and the first and the
-# last main-path rows timed in place, held bit for bit to the compact call
-# (COMPACT_CENTERS). The 2-tile
-# batch (about 2,000 main-path centers at about 65 ms a center, about two
-# minutes) is timed on those 264 rows in place, two waves of the
-# persistent grid, a part of it (528 rows, the model on 132 centers,
-# until phase 13 needed the run's time)
+# centers of the real r = 8 batch the model runs on. The 2-tile batch
+# (about 2,000 main-path centers at about 65 ms a center, about two
+# minutes) is timed on a part of it in place (PART_ROWS; 528 rows, the
+# model on 132 centers, until phase 13 needed the run's time, 264 until
+# phase 15 did)
 R8_MODEL_CENTERS = 32
-R8_BITWISE_CENTERS = 132
 # the r = 8, b = 15 finest-scale main-path fraction of the frame and of the
 # 2-tile batch must exceed these (stated before the first reading: at r = 7
 # the frame read 0.8064 and its batch 1.0)
@@ -450,24 +464,22 @@ R9_SEARCH = 16
 # synthetic rows (every pixel rank-deficient), held as phase 12's: the
 # kernel against its model two sweeps past the engine's within
 # SMEM_MODEL_RMS, and at the engine's to the float64 twin within
-# SYNTH_RMS, on one wave of R9_SYNTH_PIXELS pixels (32 until phase 14
-# needed the run's time).
+# SYNTH_RMS, on R9_SYNTH_PIXELS pixels (32 until phase 14 needed the run's
+# time, 16 until phase 15 did).
 # The rows' pivots reach the ninth pass's pairs (512 to 541), which only a
 # lane's second angle step rotates
 R9_MODEL_SWEEPS = 12
-R9_SYNTH_PIXELS = 16
+R9_SYNTH_PIXELS = 8
 # the real r = 9 batch against the fp32 model: phase 12's limit
 R9_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 9 batch the model runs on, and the first and the
-# last main-path rows timed in place: one wave of the persistent grid in
-# all (18.3 s at 10 sweeps on an H100), whose 132 rows are the twin's
-# centers and the kernels line's, held bit for bit to the compact call
-# (COMPACT_CENTERS). The last lie past element 2^31 of the
-# (2048, 1089, 1083) stack. The fp32 model's time is set by its rounds,
-# not its centers: on 8 centers it took as long as on 16 (H100)
-R9_MODEL_CENTERS = 16
-R9_BITWISE_CENTERS = 66
-R9_TWIN_CENTERS = 132
+# centers of the real r = 9 batch the model runs on; the batch is timed on
+# a part in place (PART_ROWS; one wave of 132 rows, 18.3 s at 10 sweeps on
+# an H100, until phase 15 needed the run's time), the last rows past
+# element 2^31 of the (2048, 1089, 1083) stack. The fp32 model's time is
+# set by its rounds, not its centers, where its launches bound it (on 8
+# centers it took as long as on 16 on an H100); from d = 1083 it
+# runs on 8 beside the compact call, whose memory traffic it slows
+R9_MODEL_CENTERS = 8
 # the r = 9, b = 16 finest-scale main-path fraction of the frame and of the
 # 2-tile batch must exceed these (stated before the first reading: at r = 8
 # the frame read 0.8002 and its batch 1.0; at r = 9 the first reading on an
@@ -495,23 +507,20 @@ R10_SEARCH = 18
 # synthetic rows (every pixel rank-deficient), held as phase 13's: the
 # kernel against its model two sweeps past the engine's within
 # SMEM_MODEL_RMS, and at the engine's to the float64 twin within
-# SYNTH_RMS, on one wave of R10_SYNTH_PIXELS pixels (32 in phase 14's
-# first run: (a) took 79.7 s on an H100, 59.6 s on 16).
+# SYNTH_RMS, on R10_SYNTH_PIXELS pixels (32 in phase 14's first run: (a)
+# took 79.7 s on an H100, 59.6 s on 16; 16 until phase 15).
 # The rows' pivots reach the ninth to eleventh passes' pairs (512 to 660),
 # which only a lane's second angle step rotates
 R10_MODEL_SWEEPS = 12
-R10_SYNTH_PIXELS = 16
+R10_SYNTH_PIXELS = 8
 # the real r = 10 batch against the fp32 model: phase 13's limit
 R10_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 10 batch the model runs on, and the first and the
-# last main-path rows of the one-tile batch timed in place (one wave of the
-# persistent grid, whose 132 rows are the twin's centers and the kernels
-# line's), held bit for bit to the compact call (COMPACT_CENTERS). The
-# (1024, 1369, 1323) stack holds 1,854,655,488 elements, under 2^31: phase
-# 13 holds its rows past 2^31
-R10_MODEL_CENTERS = 16
-R10_BITWISE_CENTERS = 66
-R10_TWIN_CENTERS = 132
+# centers of the real r = 10 batch the model runs on; the one-tile batch is
+# timed on a part in place (PART_ROWS; one wave of 132 rows, 33.8 s on an
+# H100, until phase 15 needed the run's time). The (1024, 1369, 1323)
+# stack holds 1,854,655,488 elements, under 2^31: phases 13 and 15 hold
+# their rows past 2^31
+R10_MODEL_CENTERS = 8
 # the r = 10, b = 18 finest-scale main-path fraction of the frame and of the
 # one-tile batch must exceed these (stated before the first reading: at
 # r = 9 the frame read 0.7224 and its batch 1.0)
@@ -524,12 +533,69 @@ R10_CPU_CROP = 58
 # holds a 21x21 patch
 R10_CROP = (R10_CPU_CROP, R10_CPU_CROP)
 R10_SCALES = 2
+# phase 15, d = 1587 (csrc/solve_filter_smem.cu with 3,153 of the 3,176
+# rows of W and Q in a global slot and thirteen pivot passes a round, lanes
+# 0-4 of a group forming two passes' angles), at the engine's sweeps
+R11_KERNELS = ("solve_filter_1587",)
+# the smallest search radius whose window reaches the main path at r = 11:
+# 1,681 offsets, where n >= d + 1 = 1,588 similar candidates are needed
+# (b = 19 offers 1,521)
+R11_SEARCH = 20
+# synthetic rows (every pixel rank-deficient), held as phase 14's: the
+# kernel against its model two sweeps past the engine's within
+# SMEM_MODEL_RMS, and at the engine's to the float64 twin within
+# SYNTH_RMS, on R11_SYNTH_PIXELS pixels (16 in phase 15's first run: its
+# model took 31.8 s and slowed the kernel's calls beside it to 67.3 s on
+# an H100). The rows' pivots reach the ninth
+# to thirteenth passes' pairs (512 to 792), which only a lane's second
+# angle step rotates
+R11_MODEL_SWEEPS = 12
+R11_SYNTH_PIXELS = 8
+# the real r = 11 batch against the fp32 model: phase 14's limit
+R11_MODEL_BATCH_REL_RMS = 2e-5
+# centers of the real r = 11 batch the model runs on, and the first and the
+# last main-path rows of the one-tile batch timed in place: one wave of the
+# persistent grid, whose 132 rows are the twin's centers and the kernels
+# line's, held bit for bit to the compact call (COMPACT_CENTERS). The last
+# lie past element 2^31 of the (1024, 1681, 1587) stack. The model on 16
+# centers took 36.4 s beside the compact call in phase 15's first run
+R11_MODEL_CENTERS = 8
+R11_BITWISE_CENTERS = 66
+R11_TWIN_CENTERS = 132
+# the r = 11, b = 20 finest-scale main-path fraction of the frame's part and
+# of the one-tile batch must exceed these (stated before the first reading:
+# at r = 10 the frame read 0.7165 and its batch 1.0)
+R11_MAIN_FLOOR = 0.45
+R11_BATCH_FLOOR = 0.8
+# (e): in a 62x62 crop 4 centers reach the solve (their windows keep 1,600
+# offsets of the 40-wide patch-valid region); a 61x61 crop's 39-wide one
+# keeps at most 1,521, under 1,588 (the top-left crops of the scene after
+# the prefilter; 63x63 holds 13, 64x64 24)
+R11_CPU_CROP = 62
+# (c): bcd -w 11 -b 20 -s 2 on (e)'s crop: its 31x31 coarse scale still
+# holds a 23x23 patch
+R11_CROP = (R11_CPU_CROP, R11_CPU_CROP)
+R11_SCALES = 2
+# phases 10 to 14 time the first and last PART_ROWS main rows of their
+# batch in place and hold them bit for bit to one compact call on the same
+# rows and to the float64 twin (a wave of 132, or two, until phase 15
+# needed the run's time; their readings stay in PERF.md); phase 15 times a
+# wave
+PART_ROWS = 16
+# phases 8 to 15 read the frame's finest-scale main-path fraction on every
+# FRAME_PART-th 16-tile batch, an eighth of the frame's tiles spread over
+# it (the whole frame took 3.5 s at r = 4 to 24.5 s at r = 10 on an H100;
+# a quarter 1.4 s at r = 5 to 8.1 s at r = 11 in phase 15's first run, 0.9019
+# and 0.7163 where the whole frame read 0.8875 and 0.7165)
+FRAME_PART = 8
 # the repaired batch rule, read cheaply: bcd -w 3 -b 33 on the scene's
 # top-left 64x128 (8 tiles at the finest scale; 4 a batch, 16 before)
 BATCH_RULE_CROP = (64, 128)
-# centers of the real r = 2 batch on which the lane solve_matrices, on no
-# engine path, is held to its float64 twin (whose call takes about 3 ms a
-# center on the card)
+# centers of the real r = 2 batch on which solve_filter and the lane
+# solve_matrices, on no engine path, are held to their float64 twins (whose
+# call takes about 3 ms a center on the card), and the kernels line's
+# times are read (solve_filter's twin on all 16,384 took 49.2 s on an
+# H100 until phase 15 needed the run's time)
 LANE_CENTERS = 2048
 # solve_filter_pm's stack arguments, in order
 PM_KEYS = ("cand", "mask", "noise", "n", "m")
@@ -959,12 +1025,17 @@ def lanes_of(x):
             "n": x["n"][None].contiguous(), "m": x["m"].T.contiguous()}
 
 
-def r2_main_fraction(stats, dev, thr, radius=2, search_radius=6) -> float:
+def r2_main_fraction(stats, dev, thr, radius=2, search_radius=6,
+                     every=1) -> float:
     """Main-path centers over managed centers of the r = ``radius``, b =
-    ``search_radius`` engine on a whole image: n >= d + 1 similar patches
-    (distance masks only, so STACK_TILE_BATCH tiles a batch at every r:
-    the masks are a tile's own, and at the engine's 2 tiles a batch of
-    r = 8 the launches of the window loop took a minute)."""
+    ``search_radius`` engine on a whole image, or on every ``every``-th of
+    its 16-tile batches (rows of tiles spread over the image): n >= d + 1
+    similar patches (distance masks only, so STACK_TILE_BATCH tiles a
+    batch at every r: the masks are a tile's own, and at the engine's 2
+    tiles a batch of r = 8 the launches of the window loop took a
+    minute)."""
+    import itertools
+
     from bcd_tpu_torch.core.monoscale import (STACK_TILE_BATCH,
                                               MonoscaleConfig,
                                               _distance_masks, tile_batches)
@@ -973,7 +1044,8 @@ def r2_main_fraction(stats, dev, thr, radius=2, search_radius=6) -> float:
                           tile_batch=STACK_TILE_BATCH)
     height, width = stats[0].shape[:2]
     main = managed = 0
-    for _, (ly, lx), slabs in tile_batches(cfg, *padded(cfg, *stats, dev)):
+    for _, (ly, lx), slabs in itertools.islice(
+            tile_batches(cfg, *padded(cfg, *stats, dev)), 0, None, every):
         masks, cv = _distance_masks(cfg, slabs[2], slabs[1][..., 0], ly, lx,
                                     ly, lx, height, width, height, width, thr)
         main += int(((masks.sum(1) >= cfg.d + 1) & cv).sum())
@@ -1061,8 +1133,6 @@ def compare_solve_batch(label, x, main, reps):
     args_m = [xm[k] for k in PM_KEYS]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
         *args_m, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
-    sf_plain = lambda: ts.solve_filter_pm_plain(  # noqa: E731
-        *args_m, 1e-8, npx=npx)
     field = sf()
     in_place = ts.solve_filter_pm(*args, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS,
                                   rows=idx)
@@ -1072,16 +1142,23 @@ def compare_solve_batch(label, x, main, reps):
          and not bool(in_place[rest].any()),
          f"{label} solve_filter_pm: rows in place differ from the compact "
          "stack")
-    ref, plain_ms = timed_once(sf_plain)
-    rel = rel_rms(field, ref)
-    res = {"solve_filter": (float((field - ref).abs().max()),
-                            cuda_ms(sf, reps), plain_ms, bounds.solve_filter(
-                                idx.numel(), n_off, d, SOLVE_SWEEPS))}
+    whole_ms = cuda_ms(sf, reps)
+    n_t = min(LANE_CENTERS, idx.numel())
+    args_t = [v[:n_t] for v in args_m]
+    sf_t = lambda: ts.solve_filter_pm(  # noqa: E731
+        *args_t, 1e-8, npx=npx, sweeps=SOLVE_SWEEPS)
+    ref, plain_ms = timed_once(lambda: ts.solve_filter_pm_plain(
+        *args_t, 1e-8, npx=npx))
+    rel = rel_rms(field[:n_t], ref)
+    res = {"solve_filter": (float((field[:n_t] - ref).abs().max()),
+                            cuda_ms(sf_t, reps), plain_ms, bounds.solve_filter(
+                                n_t, n_off, d, SOLVE_SWEEPS))}
     print(f"[2] {label} solve_filter: {idx.numel()} main-path centers of "
-          f"{main.numel()} (O={n_off}, d={d}), finite on all; field vs "
-          f"float64 twin rel rms {rel:.3e} (limit {BATCH_REL_RMS:g}), max "
-          f"abs err {res['solve_filter'][0]:.3e}; the engine's in-place rows "
-          f"bitwise equal; kernel {res['solve_filter'][1]:.3f} ms, twin "
+          f"{main.numel()} (O={n_off}, d={d}), finite on all, the engine's "
+          f"in-place rows bitwise equal, kernel {whole_ms:.3f} ms on all; on "
+          f"the first {n_t}: field vs float64 twin rel rms {rel:.3e} (limit "
+          f"{BATCH_REL_RMS:g}), max abs err {res['solve_filter'][0]:.3e}; "
+          f"kernel {res['solve_filter'][1]:.3f} ms, twin "
           f"{res['solve_filter'][2]:.3f} ms, bound "
           f"{res['solve_filter'][3][0]:.3f} ms", flush=True)
     need(rel < BATCH_REL_RMS, f"{label} solve_filter vs twin")
@@ -1128,20 +1205,41 @@ def compare_solve_batch(label, x, main, reps):
 # ---------------------------------------------------------------------------
 
 
+def side_streams(dev, n):
+    """``n`` CUDA streams that start after the work queued so far on the
+    current one: for kernel calls whose time is not read, to run beside
+    each other and beside the plain references on the current stream (a
+    call on a few pixels fills a few SMs and lasts a pixel's latency).
+    ``join`` makes the current stream wait for them."""
+    import torch
+
+    cur = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(n)]
+    for st in streams:
+        st.wait_stream(cur)
+
+    def join():
+        for st in streams:
+            cur.wait_stream(st)
+
+    return streams, join
+
+
 def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
                            name="solve_filter_smem", pixels=1024,
                            model_sweeps=None, diag=False):
-    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1323:
+    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1587:
     ``solve_filter_<d>``) on ``pixels`` synthetic
     pixels of O candidates: against the float64 twin at ``sweeps``, and
     against the fp32 model of its schedule at ``model_sweeps`` (default
     ``sweeps``; where they differ and ``diag`` is set, the model is also
     read at ``sweeps`` and against itself with the candidates reversed at
-    both, with no limit, on the first SYNTH_DIAG_PIXELS pixels). Where a
-    round has more than eight pivot passes (d = 1083 and 1323), the first
-    round's pivots of the pairs past the eighth pass, which a lane's
-    second angle step forms, must be non-zero on every pixel. Returns the
-    max abs err against the twin."""
+    both, with no limit, on the first SYNTH_DIAG_PIXELS pixels). The
+    kernel's calls run on side streams, beside each other and the twin and
+    the model. Where a round has more than eight pivot passes (d = 1083 to
+    1587), the first round's pivots of the pairs past the eighth pass,
+    which a lane's second angle step forms, must be non-zero on every
+    pixel. Returns the max abs err against the twin."""
     import torch
     from bcd_tpu_torch.ops import solve_filter as ts
 
@@ -1167,10 +1265,15 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
               f"{-(-half // PIVOT_PAIRS_A_PASS)}) non-zero on all {pixels} "
               "pixels", flush=True)
         del w
-    field = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=sweeps)
-    need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
+    t0 = time.perf_counter()
+    counts = sorted({sweeps, model_sweeps})
+    streams, join = side_streams(dev, len(counts))
+    fields = {}
+    for st, s in zip(streams, counts):
+        with torch.cuda.stream(st):
+            fields[s] = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=s)
+    field, field_m = fields[sweeps], fields[model_sweeps]
     twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
-    e_t = rmse(field.cpu(), twin.cpu())
     k = SYNTH_DIAG_PIXELS
     pk = [v[:k] for v in pm]
 
@@ -1184,33 +1287,35 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
 
     diag = diag and model_sweeps != sweeps
     if diag:
-        t0 = time.perf_counter()
-        model = ts.solve_filter_pm_schedule(*pk, 1e-8, npx, sweeps)
+        model_d = ts.solve_filter_pm_schedule(*pk, 1e-8, npx, sweeps)
+    t1 = time.perf_counter()
+    model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, model_sweeps)
+    torch.cuda.current_stream(dev).synchronize()  # not the side streams
+    model_s = time.perf_counter() - t1
+    join()
+    torch.cuda.synchronize(dev)
+    kernel_s = time.perf_counter() - t0
+    need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
+    e_t = rmse(field.cpu(), twin.cpu())
+    e_m = rmse(field_m.cpu(), model.cpu())
+    if diag:
+        t1 = time.perf_counter()
         print(f"{tag} synthetic d={d} (O={O}, the first {k} pixels) at "
               f"{sweeps} sweeps, no limit: {name} vs its fp32 schedule model "
-              f"rms {rmse(field[:k].cpu(), model.cpu()):.3e}, model vs twin "
-              f"{rmse(model.cpu(), twin[:k].cpu()):.3e}, model vs itself "
-              f"with the candidates reversed {order_gap(model, sweeps):.3e} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        del model
-    if model_sweeps != sweeps:
-        field_m = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=model_sweeps)
-    else:
-        field_m = field
-    t0 = time.perf_counter()
-    model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, model_sweeps)
-    e_m = rmse(field_m.cpu(), model.cpu())
-    model_s = time.perf_counter() - t0
-    if diag:
-        t0 = time.perf_counter()
-        print(f"{tag} synthetic d={d} at {model_sweeps} sweeps, no limit: "
+              f"rms {rmse(field[:k].cpu(), model_d.cpu()):.3e}, model vs "
+              f"twin {rmse(model_d.cpu(), twin[:k].cpu()):.3e}, model vs "
+              f"itself with the candidates reversed "
+              f"{order_gap(model_d, sweeps):.3e}; at {model_sweeps} sweeps "
               f"model vs itself with the candidates reversed "
-              f"{order_gap(model, model_sweeps):.3e} on the first {k} "
-              f"pixels ({time.perf_counter() - t0:.1f} s)", flush=True)
+              f"{order_gap(model, model_sweeps):.3e} "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        del model_d
     print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels): {name} at "
           f"{model_sweeps} sweeps vs its fp32 schedule model rms {e_m:.3e} "
-          f"(limit {SMEM_MODEL_RMS:g}; the model {model_s:.1f} s), model vs "
-          f"twin {rmse(model.cpu(), twin.cpu()):.3e}; at {sweeps} sweeps vs "
+          f"(limit {SMEM_MODEL_RMS:g}; the model {model_s:.1f} s, the "
+          f"kernel's {len(counts)} calls beside the references "
+          f"{kernel_s:.1f} s), model vs twin "
+          f"{rmse(model.cpu(), twin.cpu()):.3e}; at {sweeps} sweeps vs "
           f"float64 twin rms {e_t:.3e} (limit {SYNTH_RMS:g})", flush=True)
     need(e_m < SMEM_MODEL_RMS, f"synthetic d={d} vs the schedule model")
     need(e_t < SYNTH_RMS, f"synthetic d={d} vs the float64 twin")
@@ -1232,7 +1337,7 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     ``tail_centers`` of them (the rows at the stack's highest offsets; a
     part of a batch too costly to time whole). One compact call on the
     same rows, or on the first and last ``compact_centers`` / 2 of them,
-    must give the same bits. The in-place field against the fp32 model on
+    run on a side stream beside the fp32 model, must give the same bits. The in-place field against the fp32 model on
     at most ``model_centers`` centers and against the float64 twin on its
     first ``twin_centers``. Returns (max_abs_err, ms, plain_ms, bound) on
     the twin's centers (the in-place call's time where they are all its
@@ -1273,25 +1378,30 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
         sel = torch.cat([torch.arange(half, device=rows.device),
                          torch.arange(n_rows - half, n_rows,
                                       device=rows.device)])
-    # the compact call, timed once
-    args_c = [v[sel].contiguous() for v in args_m]
-    compact, ms_rows = timed_once(lambda: ts.solve_filter_pm(
-        *args_c, 1e-8, npx=npx, sweeps=sweeps))
-    del args_c
-    need(torch.equal(field[sel], compact),
-         f"{label} {name}: rows in place differ from the compact stack "
-         f"(rows {int(rows[sel[0]])} to {int(rows[sel[-1]])}, last element "
-         f"{(int(rows[sel[-1]]) + 1) * n_off * d - 1})")
-    del compact
     if ms_batch is None:
         ms_batch = cuda_ms(batch, 1)
     bound_batch = bounds.solve_filter(n_rows, n_off, d, sweeps)
+    # the compact call, on a side stream beside the fp32 model (neither is
+    # timed: the call lasts about a pixel's latency, the model about as
+    # long from d = 867)
+    args_c = [v[sel].contiguous() for v in args_m]
+    (side,), join = side_streams(idx.device, 1)
     t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        compact = ts.solve_filter_pm(*args_c, 1e-8, npx=npx, sweeps=sweeps)
     model = ts.solve_filter_pm_schedule(
         *(v[:model_centers] for v in args_m), 1e-8, npx, sweeps)
     rel_m = rel_rms(field[:model_centers], model)
     model_s = time.perf_counter() - t0
     del model
+    join()
+    torch.cuda.synchronize(idx.device)
+    compact_s = time.perf_counter() - t0
+    need(torch.equal(field[sel], compact),
+         f"{label} {name}: rows in place differ from the compact stack "
+         f"(rows {int(rows[sel[0]])} to {int(rows[sel[-1]])}, last element "
+         f"{(int(rows[sel[-1]]) + 1) * n_off * d - 1})")
+    del compact, args_c
     subt = [v[:twin_centers].contiguous() for v in args_m]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
         *subt, 1e-8, npx=npx, sweeps=sweeps)
@@ -1316,7 +1426,8 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
           f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
           f"engine's in-place rows bitwise equal to the compact call on "
           f"{on_rows}, up to element {(last + 1) * n_off * d - 1} of the "
-          f"stack ({ms_rows:.3f} ms); {ms_batch:.3f} ms for {n_rows} main "
+          f"stack (the call and the model {compact_s:.1f} s); "
+          f"{ms_batch:.3f} ms for {n_rows} main "
           f"rows in place{part_rows}, bound {bound_batch[0]:.3f} ms "
           f"({bound_batch[1]})", flush=True)
     print(f"{tag} {label}: field vs its fp32 schedule model on the first "
@@ -1331,7 +1442,7 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     return res, ms_batch, rows, idx.numel()
 
 
-def r3_phase(dev, card, stats, clean, scene_path):
+def r3_phase(dev, card, stats, clean, scene_path, cpu_refs):
     """Phase 7: the -w 3 path on the 1088x1920 scene (its CLI run on a
     crop). Returns the kernels line's entry (max_abs_err, ms, plain_ms,
     bound) and the -w 3 run's launch counts."""
@@ -1412,9 +1523,7 @@ def r3_phase(dev, card, stats, clean, scene_path):
     got = denoise_pipeline(*crop, dev, p3)
     need(torch.equal(got, denoise_pipeline(*crop, dev, p3)),
          "-w 3 crop not bitwise repeatable")
-    t0 = time.perf_counter()
-    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p3)
-    cpu_s = time.perf_counter() - t0
+    ref, cpu_s = cpu_refs.result(3)
     gap = rmse(got.cpu(), ref)
     print(f"[7] -w 3 pipeline on a {k}x{k} crop (b=6): card vs the port's CPU "
           f"pipeline (float64 twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit "
@@ -1437,7 +1546,7 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 to 14 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 15 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
     synthetic and real-batch checks; each phase times its batch once, not
@@ -1445,6 +1554,11 @@ def wide_phases():
     time). From d = 363 on the last main rows of the batch are held in
     place to the compact call as well as the first. ``scales``, where
     given, is the ``-s`` of the crop's CLI runs (else the default)."""
+    # phases 10 to 14: the first and last PART_ROWS main rows, timed in
+    # place, held to one compact call on all of them and to the twin
+    part = dict(bitwise_centers=PART_ROWS, tail_centers=PART_ROWS,
+                part=True, twin_centers=2 * PART_ROWS,
+                compact_centers=2 * PART_ROWS)
     return {
         4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
                 floor=R4_MAIN_FLOOR, batch_floor=0.0, crop=R4_CROP,
@@ -1464,26 +1578,20 @@ def wide_phases():
                 no_solve_b=9),
         6: dict(tag="[10]", kernels=R6_KERNELS, O=529, search=R6_SEARCH,
                 floor=R6_MAIN_FLOOR, batch_floor=R6_BATCH_FLOOR,
-                crop=R6_CROP, cpu_crop=R6_CPU_CROP,
+                crop=R6_CROP, cpu_crop=R6_CPU_CROP, scales=R6_SCALES,
                 synth=dict(pixels=R6_SYNTH_PIXELS,
                            model_sweeps=R6_MODEL_SWEEPS),
                 batch=dict(model_centers=R6_MODEL_CENTERS,
-                           model_limit=R6_MODEL_BATCH_REL_RMS,
-                           bitwise_centers=R6_BITWISE_CENTERS,
-                           tail_centers=R6_BITWISE_CENTERS, part=True,
-                           compact_centers=COMPACT_CENTERS),
+                           model_limit=R6_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 6 at b = 10 (441 offsets)
                 no_solve_b=10),
         7: dict(tag="[11]", kernels=R7_KERNELS, O=729, search=R7_SEARCH,
                 floor=R7_MAIN_FLOOR, batch_floor=R7_BATCH_FLOOR,
-                crop=R7_CROP, cpu_crop=R7_CPU_CROP,
+                crop=R7_CROP, cpu_crop=R7_CPU_CROP, scales=R7_SCALES,
                 synth=dict(pixels=R7_SYNTH_PIXELS,
                            model_sweeps=R7_MODEL_SWEEPS),
                 batch=dict(model_centers=R7_MODEL_CENTERS,
-                           model_limit=R7_MODEL_BATCH_REL_RMS,
-                           bitwise_centers=R7_BITWISE_CENTERS,
-                           tail_centers=R7_BITWISE_CENTERS, part=True,
-                           compact_centers=COMPACT_CENTERS),
+                           model_limit=R7_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 7 at b = 12 (625 offsets)
                 no_solve_b=12),
         8: dict(tag="[12]", kernels=R8_KERNELS, O=961, search=R8_SEARCH,
@@ -1492,10 +1600,7 @@ def wide_phases():
                 synth=dict(pixels=R8_SYNTH_PIXELS,
                            model_sweeps=R8_MODEL_SWEEPS),
                 batch=dict(model_centers=R8_MODEL_CENTERS,
-                           model_limit=R8_MODEL_BATCH_REL_RMS,
-                           bitwise_centers=R8_BITWISE_CENTERS,
-                           tail_centers=R8_BITWISE_CENTERS, part=True,
-                           compact_centers=COMPACT_CENTERS),
+                           model_limit=R8_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 8 at b = 14 (841 offsets)
                 no_solve_b=14),
         9: dict(tag="[13]", kernels=R9_KERNELS, O=1089, search=R9_SEARCH,
@@ -1504,11 +1609,7 @@ def wide_phases():
                 synth=dict(pixels=R9_SYNTH_PIXELS,
                            model_sweeps=R9_MODEL_SWEEPS),
                 batch=dict(model_centers=R9_MODEL_CENTERS,
-                           model_limit=R9_MODEL_BATCH_REL_RMS,
-                           bitwise_centers=R9_BITWISE_CENTERS,
-                           tail_centers=R9_BITWISE_CENTERS, part=True,
-                           twin_centers=R9_TWIN_CENTERS,
-                           compact_centers=COMPACT_CENTERS),
+                           model_limit=R9_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 9 at b = 15 (961 offsets)
                 no_solve_b=15),
         10: dict(tag="[14]", kernels=R10_KERNELS, O=1369, search=R10_SEARCH,
@@ -1517,24 +1618,34 @@ def wide_phases():
                  synth=dict(pixels=R10_SYNTH_PIXELS,
                             model_sweeps=R10_MODEL_SWEEPS),
                  batch=dict(model_centers=R10_MODEL_CENTERS,
-                            model_limit=R10_MODEL_BATCH_REL_RMS,
-                            bitwise_centers=R10_BITWISE_CENTERS,
-                            tail_centers=R10_BITWISE_CENTERS, part=True,
-                            twin_centers=R10_TWIN_CENTERS,
-                            compact_centers=COMPACT_CENTERS),
-                  # no solve: -w 10 at b = 17 (1,225 offsets)
+                            model_limit=R10_MODEL_BATCH_REL_RMS, **part),
+                 # no solve: -w 10 at b = 17 (1,225 offsets)
                  no_solve_b=17),
+        11: dict(tag="[15]", kernels=R11_KERNELS, O=1681, search=R11_SEARCH,
+                 floor=R11_MAIN_FLOOR, batch_floor=R11_BATCH_FLOOR,
+                 crop=R11_CROP, cpu_crop=R11_CPU_CROP, scales=R11_SCALES,
+                 synth=dict(pixels=R11_SYNTH_PIXELS,
+                            model_sweeps=R11_MODEL_SWEEPS),
+                 batch=dict(model_centers=R11_MODEL_CENTERS,
+                            model_limit=R11_MODEL_BATCH_REL_RMS,
+                            bitwise_centers=R11_BITWISE_CENTERS,
+                            tail_centers=R11_BITWISE_CENTERS, part=True,
+                            twin_centers=R11_TWIN_CENTERS,
+                            compact_centers=COMPACT_CENTERS),
+                 # no solve: -w 11 at b = 19 (1,521 offsets)
+                 no_solve_b=19),
     }
 
 
-def wide_phase(radius, dev, card, stats, clean, scene_path):
+def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363), 10 (radius 6,
     d = 507), 11 (radius 7, d = 675), 12 (radius 8, d = 867), 13 (radius
-    9, d = 1083) or 14 (radius 10, d = 1323): the -w r path on the
+    9, d = 1083), 14 (radius 10, d = 1323) or 15 (radius 11, d = 1587):
+    the -w r path on the
     1088x1920 scene at the smallest b that reaches its main path, each
-    step's time printed. (e)'s reference,
-    the port's CPU pipeline on a crop, runs on the host's cores from the
-    start, while the card works through (a) to (d). Returns the kernels
+    step's time printed. (e)'s reference, the port's CPU pipeline on a
+    crop, comes from ``cpu_refs`` (``CpuReferences``), computed on the
+    host's cores while the card works. Returns the kernels
     line's entry (max_abs_err, ms, plain_ms, bound) and the cut frame's
     launch counts."""
     import torch
@@ -1567,27 +1678,26 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     pw.denoiser.monoscale.patch_radius = radius
     pw.denoiser.monoscale.search_window_radius = b
     k = c["cpu_crop"]
-    crop = [torch.as_tensor(x[:k, :k]) for x in stats]
-    cpu_ref = in_background(functools.partial(
-        denoise_pipeline, *crop, torch.device("cpu"), pw))
 
     # (a) synthetic
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, **c["synth"])
     step_done("a")
     # (b) one real tile batch of the finest scale (after the prefilter): 16
-    # tiles, 8 at r = 6, 4 at r = 7, 2 at r = 8 and 9 and 1 at r = 10
-    # (core/monoscale.STACK_BYTES), the batch that holds the tiles of phase
-    # 2's 16-tile batch 8 (at r = 10 its first tile)
+    # tiles, 8 at r = 6, 4 at r = 7, 2 at r = 8 and 9 and 1 at r = 10 and
+    # 11 (core/monoscale.STACK_BYTES), the batch that holds the tiles of
+    # phase 2's 16-tile batch 8 (at r = 10 and 11 its first tile)
     n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
     k_batch = 8 * STACK_TILE_BATCH // n_tiles
     thr = pw.denoiser.monoscale.histogram_distance_threshold
     pre = spike_removal(*(torch.as_tensor(a, device=dev) for a in stats),
                         pw.prefiltering.spike_removal_threshold_stdev_factor)
     t0 = time.perf_counter()
-    frac = r2_main_fraction(pre, dev, thr, radius=radius, search_radius=b)
+    frac = r2_main_fraction(pre, dev, thr, radius=radius, search_radius=b,
+                            every=FRAME_PART)
     print(f"{tag} 1088x1920 finest scale at r={radius}, b={b}, threshold "
-          f"{thr:g}: main-path fraction {frac:.4f} (floor "
+          f"{thr:g}, on every {FRAME_PART}th 16-tile batch: main-path "
+          f"fraction {frac:.4f} (floor "
           f"{c['floor']:g}; {time.perf_counter() - t0:.1f} s)", flush=True)
     need(frac > c["floor"], f"the {' '.join(w)} run barely reaches the main "
          "path")
@@ -1685,14 +1795,14 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     step_done("d")
 
     # (e) the crop on the card, twice, against the port's CPU pipeline
-    crop = [x.to(dev) for x in crop]
+    crop = [torch.as_tensor(x[:k, :k]).to(dev) for x in stats]
     _build.reset_launches()
     got = denoise_pipeline(*crop, dev, pw)
     need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
     need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
          f"{' '.join(w)} crop not bitwise repeatable")
     t0 = time.perf_counter()
-    ref, cpu_s = cpu_ref()
+    ref, cpu_s = cpu_refs.result(radius)
     print(f"{tag} waited {time.perf_counter() - t0:.1f} s for the CPU "
           "pipeline", flush=True)
     gap = rmse(got.cpu(), ref)
@@ -1707,19 +1817,89 @@ def wide_phase(radius, dev, card, stats, clean, scene_path):
     return res, launches
 
 
-def in_background(fn):
-    """Start ``fn()`` on a host thread; returns a function that waits for
-    it and returns (its value, its seconds)."""
-    from concurrent.futures import ThreadPoolExecutor
+def cpu_reference_worker(conn, jobs, threads) -> None:
+    """The port's CPU pipeline on each (key, radius, b, crop) of ``jobs``, in
+    order, each result sent on ``conn`` as (key, output, seconds, error)."""
+    import traceback
 
-    def timed():
+    import torch
+    from bcd_tpu_torch.core.pipeline import denoise_pipeline
+    from bcd_tpu_torch.params import PipelineParameters
+
+    torch.set_num_threads(threads)
+    for key, radius, b, crop in jobs:
         t0 = time.perf_counter()
-        return fn(), time.perf_counter() - t0
+        try:
+            pw = PipelineParameters()
+            pw.denoiser.monoscale.patch_radius = radius
+            pw.denoiser.monoscale.search_window_radius = b
+            out = denoise_pipeline(*(torch.as_tensor(x) for x in crop),
+                                   torch.device("cpu"), pw).numpy()
+            conn.send((key, out, time.perf_counter() - t0, None))
+        except Exception:  # reported where the result is read
+            conn.send((key, None, 0.0, traceback.format_exc()))
+    conn.close()
 
-    pool = ThreadPoolExecutor(1)
-    future = pool.submit(timed)
-    pool.shutdown(wait=False)
-    return future.result
+
+class CpuReferences:
+    """The crops' references, the port's CPU pipeline on phase 5's 64x64
+    crop at r = 2, phase 7's at r = 3 and each wide phase's at its radius
+    and b, computed one after another in a process of its own (spawned, so
+    it never touches the card) from its start, beside the card's work and
+    without the GIL of the process that drives the card. ``result(radius)``
+    waits for one; ``close()`` stops the process."""
+
+    def __init__(self, stats, threads):
+        import multiprocessing
+        import threading
+
+        crops = {2: (6, R2_CPU_CROP), 3: (6, R3_CPU_CROP)}
+        crops.update({radius: (c["search"], c["cpu_crop"])
+                      for radius, c in wide_phases().items()})
+        jobs = [(radius, radius, b,
+                 [np.ascontiguousarray(x[:k, :k]) for x in stats])
+                for radius, (b, k) in crops.items()]
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=cpu_reference_worker,
+                                 args=(child, jobs, threads), daemon=True)
+        self._proc.start()
+        child.close()
+        self._done = {}
+        self._cond = threading.Condition()
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                key, *rest = self._conn.recv()
+            except (EOFError, OSError):
+                key, rest = None, None
+            with self._cond:
+                self._done[key] = rest
+                self._cond.notify_all()
+            if key is None:
+                return
+
+    def result(self, radius):
+        """(output, seconds) of the crop's CPU pipeline at ``radius``."""
+        import torch
+
+        with self._cond:
+            self._cond.wait_for(lambda: radius in self._done
+                                or None in self._done)
+            got = self._done.get(radius)
+        need(got is not None, f"the CPU reference process ended before "
+             f"radius {radius}'s crop (exit code {self._proc.exitcode})")
+        out, secs, err = got
+        need(err is None, f"the CPU pipeline at radius {radius}: {err}")
+        return torch.from_numpy(out), secs
+
+    def close(self) -> None:
+        self._proc.join(timeout=60)
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join()
 
 
 def batch_rule_run(card, stats, clean, scene_path) -> None:
@@ -2038,7 +2218,7 @@ def card_line() -> str:
 
 
 def time_crop(height, width, radius=5) -> int:
-    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 14's radius r
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 15's radius r
     and its search radius b) through the CLI's entry point on the
     scene's top-left height x width crop, the kernels built first: wall
     time with EXR I/O, launches, peak memory, rmse vs clean."""
@@ -2106,9 +2286,10 @@ def main() -> int:
         need(len(sys.argv) == 4 or (len(sys.argv) == 6
                                     and sys.argv[4] == "--radius"
                                     and sys.argv[5] in ("4", "5", "6", "7",
-                                                        "8", "9", "10")),
+                                                        "8", "9", "10",
+                                                        "11")),
              "usage: chip_smoke.py --time-crop H W "
-             "[--radius 4|5|6|7|8|9|10]")
+             "[--radius 4|5|6|7|8|9|10|11]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -2125,7 +2306,8 @@ def main() -> int:
           "(nvcc -Xptxas -v):", flush=True)
     entry, k2_spill = "", None
     for line in log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
+        if ("Compiling entry" in line or "Used" in line or "spill" in line
+                or line.startswith("nvcc ")):
             print("    " + line.strip(), flush=True)
         if "Compiling entry" in line:
             entry = line
@@ -2140,6 +2322,7 @@ def main() -> int:
     kernels = {}
 
     # --- 2. kernels vs twins ---------------------------------------------
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(99)
     m2, misc = (x.to(dev) for x in synthetic_moments(rng))
     a2t, small = solve_matrices_pm(m2, misc, 1e-8, sweeps=6)
@@ -2193,8 +2376,10 @@ def main() -> int:
     for k in res_s:
         kernels[k] = (max(res_s[k][0], e_syn),) + res_s[k][1:]
     del pre  # 585 MB of r = 2 inputs: not part of the -w 1 peak below
+    print(f"[2] phase 2 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # --- 3. goldens on the card ------------------------------------------
+    t_phase = time.perf_counter()
     for tile in (16, 32):
         out = denoise_monoscale(color, nb, histo, cov, params, dev, tile=tile)
         e_mono = rmse(out.cpu(), gold_mono)
@@ -2208,8 +2393,10 @@ def main() -> int:
     print(f"[3] golden main-path fraction (gate sum / managed pixels): "
           f"{frac:.4f}", flush=True)
     need(frac > 0.1, "the golden scene barely reaches the main path")
+    print(f"[3] phase 3 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # --- 4. the default bcd run through the CLI entry point --------------
+    t_phase = time.perf_counter()
     os.makedirs(WORK, exist_ok=True)
     paths = {k: os.path.join(WORK, f"scene{k}.exr")
              for k in ("", "_hist", "_cov", "_out")}
@@ -2286,7 +2473,15 @@ def main() -> int:
     device_time_table("[4]", lambda: denoise_pipeline(*dev_stats, dev,
                                                       pipeline))
 
+    print(f"[4] phase 4 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # --- 5. the -w 2 path ---------------------------------------------------
+    # from here the crops' CPU references (phases 5, 7 and 8 to 15) are
+    # computed in a process of its own, beside the card's work; this
+    # process keeps two cores for the host side of its phases
+    t_phase = time.perf_counter()
+    cpu_refs = CpuReferences(stats, max(1, (os.cpu_count() or 8) - 2))
+    torch.set_num_threads(2)
     argv2 = argv[:2] + [paths["_out"].replace("_out", "_out_w2"), "-w", "2"]
     argv2[2:2] = ["-o"]
     _build.reset_launches()
@@ -2313,7 +2508,7 @@ def main() -> int:
 
     p2 = PipelineParameters()
     p2.denoiser.monoscale.patch_radius = 2
-    crop = [x[:64, :64].contiguous() for x in dev_stats]
+    crop = [x[:R2_CPU_CROP, :R2_CPU_CROP].contiguous() for x in dev_stats]
     denoise_pipeline(*crop, dev, p2)  # warm-up on a small crop
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2333,11 +2528,10 @@ def main() -> int:
     got = denoise_pipeline(*crop, dev, p2)
     need(torch.equal(got, denoise_pipeline(*crop, dev, p2)),
          "-w 2 crop not bitwise repeatable")
-    t0 = time.perf_counter()
-    ref = denoise_pipeline(*(x.cpu() for x in crop), torch.device("cpu"), p2)
-    cpu_s = time.perf_counter() - t0
+    ref, cpu_s = cpu_refs.result(2)
     gap = rmse(got.cpu(), ref)
-    print(f"[5] -w 2 pipeline on a 64x64 crop (b=6): card vs the port's CPU "
+    print(f"[5] -w 2 pipeline on a {R2_CPU_CROP}x{R2_CPU_CROP} crop (b=6): "
+          f"card vs the port's CPU "
           f"pipeline (float64 twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit "
           f"{R2_CPU_RMSE:g}), max abs "
           f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
@@ -2345,6 +2539,7 @@ def main() -> int:
     need(gap < R2_CPU_RMSE, "-w 2 on the card against the CPU pipeline")
     device_time_table("[5]", lambda: denoise_pipeline(*dev_stats, dev, p2))
     del dev_stats, crop, outs, got
+    print(f"[5] phase 5 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # --- 6. ingest and the renderer surface --------------------------------
     t0 = time.perf_counter()
@@ -2354,54 +2549,22 @@ def main() -> int:
     # --- 7. the -w 3 path ---------------------------------------------------
     t0 = time.perf_counter()
     kernels["solve_filter_147"], launches3 = r3_phase(
-        dev, card, stats, clean, paths[""])
+        dev, card, stats, clean, paths[""], cpu_refs)
     print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # --- 8. the -w 4 path ---------------------------------------------------
-    # from here (e)'s CPU pipelines run beside the card's work: a core is
-    # left to the thread that drives the card
-    torch.set_num_threads(max(1, torch.get_num_threads() - 1))
-    t0 = time.perf_counter()
-    kernels["solve_filter_243"], launches4 = wide_phase(
-        4, dev, card, stats, clean, paths[""])
-    print(f"[8] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- 9. the -w 5 path ---------------------------------------------------
-    t0 = time.perf_counter()
-    kernels["solve_filter_363"], launches5 = wide_phase(
-        5, dev, card, stats, clean, paths[""])
-    print(f"[9] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- 10. the -w 6 path --------------------------------------------------
-    t0 = time.perf_counter()
-    kernels["solve_filter_507"], launches6 = wide_phase(
-        6, dev, card, stats, clean, paths[""])
-    print(f"[10] phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- 11. the -w 7 path, and the batch rule ------------------------------
-    t0 = time.perf_counter()
-    kernels["solve_filter_675"], launches7 = wide_phase(
-        7, dev, card, stats, clean, paths[""])
-    batch_rule_run(card, stats, clean, paths[""])
-    print(f"[11] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- 12. the -w 8 path --------------------------------------------------
-    t0 = time.perf_counter()
-    kernels["solve_filter_867"], launches8 = wide_phase(
-        8, dev, card, stats, clean, paths[""])
-    print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- 13. the -w 9 path --------------------------------------------------
-    t0 = time.perf_counter()
-    kernels["solve_filter_1083"], launches9 = wide_phase(
-        9, dev, card, stats, clean, paths[""])
-    print(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- 14. the -w 10 path -------------------------------------------------
-    t0 = time.perf_counter()
-    kernels["solve_filter_1323"], launches10 = wide_phase(
-        10, dev, card, stats, clean, paths[""])
-    print(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+    # --- 8 to 15. the -w 4 to -w 11 paths, and the batch rule after -w 7 ---
+    wide_launches = {}
+    for radius, c in wide_phases().items():
+        t0 = time.perf_counter()
+        (name,) = c["kernels"]
+        kernels[f"solve_filter_{3 * (2 * radius + 1) ** 2}"], \
+            wide_launches[name] = wide_phase(radius, dev, card, stats, clean,
+                                             paths[""], cpu_refs)
+        if radius == 7:
+            batch_rule_run(card, stats, clean, paths[""])
+        print(f"{c['tag']} phase {radius + 4} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cpu_refs.close()
 
     # --- results ------------------------------------------------------------
     meta = {
@@ -2442,17 +2605,14 @@ def main() -> int:
         "solve_filter_1323": ("solve_filter_1323",
                               "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                               "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_1587": ("solve_filter_1587",
+                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
             "solve_filter_smem": launches3["solve_filter_smem"],
-            "solve_filter_243": launches4["solve_filter_243"],
-            "solve_filter_363": launches5["solve_filter_363"],
-            "solve_filter_507": launches6["solve_filter_507"],
-            "solve_filter_675": launches7["solve_filter_675"],
-            "solve_filter_867": launches8["solve_filter_867"],
-            "solve_filter_1083": launches9["solve_filter_1083"],
-            "solve_filter_1323": launches10["solve_filter_1323"]}
+            **{name: counts[name] for name, counts in wide_launches.items()}}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
