@@ -10,9 +10,9 @@ including the ``<input>_hist.exr`` / ``<input>_cov.exr`` inference when
 ``--use-cuda`` are recorded in the parameters only, as JAX's are.
 ``--device`` (default ``cuda``) picks where the denoise runs; with no CUDA
 device the run fails unless it says ``--device cpu``. On CUDA a patch
-radius of 12 or more fails with exit code 1 where the search window can
+radius of 13 or more fails with exit code 1 where the search window can
 reach the solve, (2b + 1)^2 >= d + 1 (the solve kernels are built for
-radius 1 to 11; with fewer offsets every center takes the fallback).
+radius 1 to 12; with fewer offsets every center takes the fallback).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def print_usage(prog: str) -> None:
     print("    -a <file>            The file path to the .bcd.json file containing arguments for the program")
     print(f"    -d <float>           Histogram patch distance threshold (default: {mono.histogram_distance_threshold})")
     print(f"    -b <int>             Radius of search windows (default: {mono.search_window_radius})")
-    print(f"    -w <int>             Radius of patches; on CUDA 1 to 11, or more where (2b+1)^2 <= 3(2w+1)^2 (default: {mono.patch_radius})")
+    print(f"    -w <int>             Radius of patches; on CUDA 1 to 12, or more where (2b+1)^2 <= 3(2w+1)^2 (default: {mono.patch_radius})")
     print(f"    -r <0/1>             1 for random pixel order; accepted for compatibility, the engine is deterministic (default: {int(mono.use_random_pixel_order)})")
     print(f"    -p <0/1>             1 for a spike removal prefiltering (default: {int(d.prefiltering.perform_spike_removal)})")
     print(f"    --p-factor <float>   Spike prefilter threshold = factor * stddev (default: {d.prefiltering.spike_removal_threshold_stdev_factor})")

@@ -11,7 +11,7 @@ contributions are overlap-added in one deterministic pass
 - Any other radius: the candidate-stack engine below, the port of JAX's
   non-fused ``denoise_tile`` (monoscale.py:344-522). The per-pixel solve is
   ``solve_filter_pm``, run only on the main-path centers: on the card the
-  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 11.
+  ``solve_filter`` kernel at r = 2, ``solve_filter_smem`` at r = 3 to 12.
 
 Each kernel launches once per batch of tiles, not once per tile. With
 ``collect_stats`` each tile engine also returns its batch's main-path and
@@ -56,9 +56,10 @@ from bcd_tpu_torch.ops.solve_filter import check_solve_path, solve_filter_pm
 # they passed it, and ten 1.616e-6 (::test_schedule_sweeps_at_d1323, an
 # H100): the step from d = 1083 keeps ten, the smallest count that holds
 # at both. At d = 1587 (r = 11) nine leave 2.984e-5, past the 2e-5, and ten
-# 2.806e-6 (::test_schedule_sweeps_at_d1587, an H100), so ten again. JAX's
-# r = 3 to 11 results are its plain path's, with a converged eigh, since
-# its kernel cannot hold d = 147 and above in VMEM.
+# 2.806e-6 (::test_schedule_sweeps_at_d1587, an H100), and at d = 1875
+# (r = 12) nine 3.591e-5 and ten 3.277e-6 (::test_schedule_sweeps_at_d1875),
+# so ten again. JAX's r = 3 to 12 results are its plain path's, with a
+# converged eigh, since its kernel cannot hold d = 147 and above in VMEM.
 SOLVE_FILTER_SWEEPS = 6
 SOLVE_FILTER_SWEEPS_R3 = 8
 SOLVE_FILTER_SWEEPS_R6 = 9
@@ -89,7 +90,8 @@ FUSED_TILE_BATCH = 128
 # r = 6, b = 18 and r = 3, b = 33; 2 at r = 8, b = 15 (6.83 GB) and at
 # r = 9, b = 16 (9.66 GB); 1 at r = 10, b = 18 (7.42 GB a tile) and at
 # r = 11, b = 20 (10.93 GB a tile, 2.73e9 elements, past 2^31; its batch
-# peaks near four times that)
+# peaks near four times that) and at r = 12, b = 22 (15.55 GB a tile,
+# 3.89e9 elements)
 STACK_TILE_BATCH = 16
 STACK_BYTES = 12e9
 

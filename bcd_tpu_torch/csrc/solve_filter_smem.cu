@@ -1,14 +1,14 @@
 // solve_filter at patch radius 3 (d = 147), 4 (d = 243), 5 (d = 363),
-// 6 (d = 507), 7 (d = 675), 8 (d = 867), 9 (d = 1083), 10 (d = 1323) and
-// 11 (d = 1587): the per-pixel two-step Bayesian solve and filter of the
-// candidate stacks, with the Jacobi's two working matrices in shared
-// memory (d = 147), or as much of them as fits there and the rest in a
-// global slot of the block (d = 243 to 1587).
+// 6 (d = 507), 7 (d = 675), 8 (d = 867), 9 (d = 1083), 10 (d = 1323),
+// 11 (d = 1587) and 12 (d = 1875): the per-pixel two-step Bayesian solve
+// and filter of the candidate stacks, with the Jacobi's two working
+// matrices in shared memory (d = 147), or as much of them as fits there
+// and the rest in a global slot of the block (d = 243 to 1875).
 //
 // Replaces bcd_tpu/ops/solve_filter_pallas.py::solve_filter (TPU kernel
 // body _solve_filter_kernel, Jacobi _jacobi_clamp_psd) at d = 147, 243, 363,
-// 507, 675, 867, 1083, 1323 and 1587; it computes what csrc/solve_filter.cu
-// computes at d = 27 and 75. Per pixel:
+// 507, 675, 867, 1083, 1323, 1587 and 1875; it computes what
+// csrc/solve_filter.cu computes at d = 27 and 75. Per pixel:
 //   M2 = sum_o mask_o c_o c_o^T over the candidate stack; the mean patch m,
 //   the set size n and the mean noise blocks are given.
 //   Cemp = (M2 - n m m^T) / max(n - 1, 1), BD = block-diagonal noise;
@@ -73,7 +73,12 @@
 // 83 KB of vectors (228,672 of the 232,448 bytes), the other 3,153
 // (20.0 MB) in the global slot, which with Cemp and H is 40.2 MB a block,
 // 5.31 GB for 132 blocks, 106 times the L2: a round (794 pairs, thirteen
-// pivot passes) moves about 1.44 times d = 1323's bytes. The design is the
+// pivot passes) moves about 1.44 times d = 1323's bytes. At d = 1875 they
+// take 28.2 MB: 17 of the 3,752 rows (W's first 17) stay in shared memory
+// beside 98 KB of vectors (225,120 of the 232,448 bytes), the other 3,735
+// (28.0 MB) in the global slot, which with Cemp and H is 56.2 MB a block,
+// 7.42 GB for 132 blocks, 148 times the L2: a round (938 pairs, fifteen
+// pivot passes) moves about 1.4 times d = 1587's bytes. The design is the
 // simple one, not tuned (its time beside its bound: PERF.md).
 //
 // The design:
@@ -95,7 +100,8 @@
 //     three for the 182 pairs at d = 363, four for the 254 at d = 507, six
 //     for the 338 at d = 675, seven for the 434 at d = 867, nine for the
 //     542 at d = 1083, eleven for the 662 at d = 1323, thirteen for the
-//     794 at d = 1587), lane k of a group then forms the angles and row
+//     794 at d = 1587, fifteen for the 938 at d = 1875), lane k of a group
+//     then forms the angles and row
 //     scales of its pass-k pair and, from nine passes on, of its
 //     pass-(k + 8) pair (as _jacobi_fp32 does), each pair's record
 //     {alpha, beta, rows} and the next seat map; a barrier; every thread
@@ -117,8 +123,8 @@
 //     row kept in registers (d / 32 columns a lane) up to d = 507 and
 //     staged in shared memory beyond, where the registers spilled it
 //     (one more barrier a column; 28 columns a lane at d = 867, 34 at
-//     d = 1083, 42 at d = 1323, 50 at d = 1587); the back substitution
-//     right-looking too.
+//     d = 1083, 42 at d = 1323, 50 at d = 1587, 59 at d = 1875); the back
+//     substitution right-looking too.
 //
 // Layouts (pixel-major, P pixels; bcd_tpu_torch/ops/solve_filter.py):
 // cand (P, O, d), mask (P, O), noise (P, 6 npx) with the channels
@@ -156,9 +162,9 @@ struct Smem {
   // the Cholesky's pivot row of S and of Y, scaled: in registers, CL
   // columns a lane in each of two arrays, up to CL = 16 (d = 507); past
   // that (d = 675: 22 columns) ptxas spilled it inside the elimination
-  // loop, so it is staged in the shared vectors instead (d = 675 to 1587;
-  // 28 columns at 867, 34 at 1083, 42 at 1323, 50 at 1587). The fields are
-  // the same bit for bit
+  // loop, so it is staged in the shared vectors instead (d = 675 to 1875;
+  // 28 columns at 867, 34 at 1083, 42 at 1323, 50 at 1587, 59 at 1875). The
+  // fields are the same bit for bit
   // either way; on an H100 the registers were the faster at d = 147 to 507
   // and the staged row at d = 675 and 867
   static constexpr int CL = (D + 31) / 32;
@@ -610,7 +616,8 @@ solve_filter_smem_kernel(const float* __restrict__ cand, const float* __restrict
         }
         // lane k of a group forms the angles of its pass-k pair and, from
         // nine passes on (d = 1083; lanes 0-2 at d = 1323's eleven, 0-4 at
-        // d = 1587's thirteen), of its pass-(k + 8) pair: a round's
+        // d = 1587's thirteen, 0-6 at d = 1875's fifteen), of its
+        // pass-(k + 8) pair: a round's
         // pairs are disjoint, so one lane's two pairs write disjoint diag,
         // fsc, rec and nxt entries. Up to eight passes the step is the one
         // the smaller d were timed with, so they compile to the same code
@@ -864,6 +871,7 @@ extern "C" long long bcd_solve_filter_smem_scratch_floats(int d, int n_blocks) {
   if (d == 1083) return nb * Smem<1083>::SCRATCH;
   if (d == 1323) return nb * Smem<1323>::SCRATCH;
   if (d == 1587) return nb * Smem<1587>::SCRATCH;
+  if (d == 1875) return nb * Smem<1875>::SCRATCH;
   return -1;
 }
 
@@ -874,7 +882,7 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
                                      float* scratch, int n_blocks, float* field,
                                      void* stream) {
   if ((d != 147 && d != 243 && d != 363 && d != 507 && d != 675 && d != 867 &&
-       d != 1083 && d != 1323 && d != 1587) ||
+       d != 1083 && d != 1323 && d != 1587 && d != 1875) ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
@@ -904,7 +912,10 @@ extern "C" int bcd_solve_filter_smem(const float* cand, const float* mask,
   if (d == 1323)
     return launch<1323>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                         n_blocks, field, st);
-  return launch<1587>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+  if (d == 1587)
+    return launch<1587>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
+                        n_blocks, field, st);
+  return launch<1875>(cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch,
                       n_blocks, field, st);
 }
 #endif

@@ -41,15 +41,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # solve_filter_smem, solve_filter_243, solve_filter_363, solve_filter_507,
-# solve_filter_675, solve_filter_867, solve_filter_1083, solve_filter_1323
-# and solve_filter_1587 are csrc/solve_filter_smem.cu at d = 147, 243, 363,
-# 507, 675, 867, 1083, 1323 and 1587
+# solve_filter_675, solve_filter_867, solve_filter_1083, solve_filter_1323,
+# solve_filter_1587 and solve_filter_1875 are csrc/solve_filter_smem.cu at
+# d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587 and 1875
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
             "solve_filter_507": 0, "solve_filter_675": 0,
             "solve_filter_867": 0, "solve_filter_1083": 0,
-            "solve_filter_1323": 0, "solve_filter_1587": 0}
+            "solve_filter_1323": 0, "solve_filter_1587": 0,
+            "solve_filter_1875": 0}
 
 # sources compiled as several translation units at once: one for each
 # instance (-DBCD_SMEM_D=d) and one for the C entries
@@ -57,7 +58,7 @@ LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
 # compiled one after another, the build's longest step (PERF.md)
 SPLIT = {"solve_filter_smem.cu": ("BCD_SMEM_D", "BCD_SMEM_ENTRIES",
                                   (147, 243, 363, 507, 675, 867, 1083, 1323,
-                                   1587))}
+                                   1587, 1875))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -5,7 +5,7 @@ one CUDA card:
     python -m bcd_tpu_torch.ops.pivot_ab
 
 The kernel picks one at compile time (``Smem<D>::PIVOT_SMEM``: the row is
-staged where a lane's columns pass 16, at d = 675 to 1587). This copies the package
+staged where a lane's columns pass 16, at d = 675 to 1875). This copies the package
 twice under ``build/pivot_ab/``, with the row staged at every d in one copy
 and in registers at every d in the other, and in one process a copy times
 ``solve_filter_pm`` on the same synthetic inputs (CUDA events, after a
@@ -32,7 +32,8 @@ VARIANTS = {"registers": "false", "staged": "true"}
 # reaches its main path, on two or more waves of a 132-SM grid
 CASES = ((147, 169, 1056, 3), (243, 289, 528, 3), (363, 441, 264, 1),
          (507, 529, 264, 1), (675, 729, 264, 1), (867, 961, 264, 1),
-         (1083, 1089, 264, 1), (1323, 1369, 264, 1), (1587, 1681, 264, 1))
+         (1083, 1089, 264, 1), (1323, 1369, 264, 1), (1587, 1681, 264, 1),
+         (1875, 2025, 264, 1))
 
 
 def copy_variant(name: str) -> Path:

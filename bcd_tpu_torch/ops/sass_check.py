@@ -3,7 +3,7 @@ file, kernel by kernel, and where one instance's spills sit, on a machine
 with ``nvcc`` (no card needed):
 
     git show <commit>:bcd_tpu_torch/csrc/solve_filter_smem.cu > build/parent.cu
-    python -m bcd_tpu_torch.ops.sass_check build/parent.cu 1587
+    python -m bcd_tpu_torch.ops.sass_check build/parent.cu 1875
 
 Both files are compiled with the library's flags (``ops/_build.NVCC_FLAGS``)
 under ``build/sass_check/``, the other one under this one's file name, and

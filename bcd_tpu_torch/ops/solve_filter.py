@@ -21,13 +21,13 @@ Jacobi's matrices in a thread's registers. At d = 147 (r = 3) a column
 outgrows the registers: ``solve_filter_pm`` runs ``csrc/solve_filter_smem.cu``
 there, the same function with the two matrices in shared memory, and at
 d = 243 (r = 4), 363 (r = 5), 507 (r = 6), 675 (r = 7), 867 (r = 8),
-1083 (r = 9), 1323 (r = 10) and 1587 (r = 11) the same kernel with the
-rows that do not fit there in a global slot of the block (at d = 363 most
-of them: 580 of 728; at d = 507, 913 of 1,016, the slot 3.92 MB a block
-with Cemp and H; at d = 675, 1,280 of 1,352, 7.12 MB; at d = 867, 1,683 of
-1,736, 11.9 MB; at d = 1083, 2,128 of 2,168, 18.6 MB; at d = 1323, 2,618
-of 2,648, 27.9 MB; at d = 1587, 3,153 of 3,176, 40.2 MB); the lane
-``solve_matrices``
+1083 (r = 9), 1323 (r = 10), 1587 (r = 11) and 1875 (r = 12) the same
+kernel with the rows that do not fit there in a global slot of the block
+(at d = 363 most of them: 580 of 728; at d = 507, 913 of 1,016, the slot
+3.92 MB a block with Cemp and H; at d = 675, 1,280 of 1,352, 7.12 MB; at
+d = 867, 1,683 of 1,736, 11.9 MB; at d = 1083, 2,128 of 2,168, 18.6 MB; at
+d = 1323, 2,618 of 2,648, 27.9 MB; at d = 1587, 3,153 of 3,176, 40.2 MB; at
+d = 1875, 3,735 of 3,752, 56.2 MB); the lane ``solve_matrices``
 has no d = 147 kernel. Larger d is refused where a center could reach the
 solve (``check_solve_path``). The kernels' headers give the math, the design
 and what bounds them.
@@ -72,18 +72,21 @@ EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
 # 148 of the 728 rows in shared memory; r = 6: 2.06 MB, 103 of 1,016; r = 7:
 # 3.66 MB, 72 of 1,352; r = 8: 6.03 MB, 53 of 1,736; r = 9: 9.40 MB, 40 of
 # 2,168, nine pivot passes a round; r = 10: 14.0 MB, 30 of 2,648, eleven
-# pivot passes; r = 11: 20.2 MB, 23 of 3,176, thirteen pivot passes)
-KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675, 867, 1083, 1323, 1587)
+# pivot passes; r = 11: 20.2 MB, 23 of 3,176, thirteen pivot passes;
+# r = 12: 28.2 MB, 17 of 3,752, fifteen pivot passes, the most a round of
+# the kernel may have)
+KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675, 867, 1083, 1323, 1587,
+               1875)
 # the d that csrc/solve_filter_smem.cu runs, with each one's launch counter
 SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243",
              363: "solve_filter_363", 507: "solve_filter_507",
              675: "solve_filter_675", 867: "solve_filter_867",
              1083: "solve_filter_1083", 1323: "solve_filter_1323",
-             1587: "solve_filter_1587"}
+             1587: "solve_filter_1587", 1875: "solve_filter_1875"}
 # the lane solve_matrices' kernel (csrc/solve_filter.cu only)
 LANE_KERNEL_DIMS = (27, 75)
 SMEM_BYTES = 232448  # shared memory an H100 block may have
-ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 12")
+ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 13")
 ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
@@ -144,10 +147,10 @@ def check_kernel_dim(d: int) -> None:
         need = 2 * (d + d % 2) ** 2 * 4
         raise NotImplementedError(
             f"patch dimension d = {d}: the CUDA solve kernels are built for "
-            f"d in {KERNEL_DIMS} (patch radius 1 to 11); the Jacobi's two "
+            f"d in {KERNEL_DIMS} (patch radius 1 to 12); the Jacobi's two "
             f"working matrices take {need} bytes at this d, more than the "
             f"{SMEM_BYTES} bytes of shared memory a block may have (the "
-            f"d = 243 to 1587 kernels keep the rows that do not fit there in "
+            f"d = 243 to 1875 kernels keep the rows that do not fit there in "
             f"a global slot, built for those d only); see {ROADMAP_LARGE_D}")
 
 
@@ -228,14 +231,19 @@ def _chol_solve_fp32(s: torch.Tensor, rhs: torch.Tensor,
     return y
 
 
-def _jacobi_fp32(a: torch.Tensor, sweeps: int):
+def _jacobi_fp32(a: torch.Tensor, sweeps: int, graphs: bool = True):
     """The kernels' Jacobi of the symmetric float32 (P, d, d) ``a``, the
     TPU kernel's own (``_jacobi_clamp_psd``): ``a`` zero-padded to an even
     dp, one-sided accumulation of Q (rows are eigenvector estimates) and
     W = Q A with row-only fast-Givens rotations of the pairs (i, i + dp/2),
     the Brent-Luk re-seating after each round, rows renormalized at each
     sweep's end. Returns the exact final eigenvalues <W[k], Q[k]> (P, dp)
-    and Q (P, dp, dp)."""
+    and Q (P, dp, dp).
+
+    A round is about 65 small operations, so on a CUDA device its launches
+    bound it (about 1.2 ms a round on an H100, whatever d); there, with
+    ``graphs``, one round is captured in a CUDA graph and replayed: the
+    same kernels on the same buffers, so the same bits."""
     f32 = torch.float32
     p_total, d = a.shape[0], a.shape[-1]
     dp = d + d % 2
@@ -244,27 +252,54 @@ def _jacobi_fp32(a: torch.Tensor, sweeps: int):
     q = torch.eye(dp, dtype=f32, device=a.device).repeat(p_total, 1, 1)
     dall = torch.diagonal(w, dim1=1, dim2=2).clone()
     order = torch.as_tensor(reseat_order(dp), device=a.device)
+
+    def rotate(w, q, dall, f):
+        fp, fq = f[:, :half], f[:, half:]
+        apq = (w[:, :half] * q[:, half:]).sum(-1) * (fp * fq)
+        app, aqq = dall[:, :half], dall[:, half:]
+        small = apq.abs() < 1e-30
+        tau = (aqq - app) / torch.where(small, 1.0, 2.0 * apq)
+        t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+        t = torch.where(small, 0.0, torch.where(tau == 0.0, 1.0, t))
+        c = 1.0 / torch.sqrt(1.0 + t * t)
+        s = t * c
+        inv_cf = 1.0 / (c * fp * fq)
+        an = torch.where(small, 0.0, -s * fq * fq * inv_cf)[..., None]
+        bn = torch.where(small, 0.0, s * fp * fp * inv_cf)[..., None]
+        w = torch.cat([w[:, :half] + an * w[:, half:],
+                       bn * w[:, :half] + w[:, half:]], 1)[:, order]
+        q = torch.cat([q[:, :half] + an * q[:, half:],
+                       bn * q[:, :half] + q[:, half:]], 1)[:, order]
+        dall = torch.cat([app - t * apq, aqq + t * apq], 1)[:, order]
+        f = torch.cat([c * fp, c * fq], 1)[:, order]
+        return w, q, dall, f
+
+    f = torch.ones((p_total, dp), dtype=f32, device=a.device)
+    if a.is_cuda and graphs and sweeps > 0:
+        # a warm-up round on a side stream (its results dropped), then one
+        # captured round that writes the next state over this one
+        cur = torch.cuda.current_stream(a.device)
+        side = torch.cuda.Stream(a.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            rotate(w, q, dall, f)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for old, new in zip((w, q, dall, f), rotate(w, q, dall, f)):
+                old.copy_(new)
+        for _ in range(sweeps):
+            f.fill_(1.0)
+            for _ in range(dp - 1):
+                graph.replay()
+            w.mul_(f[..., None])
+            q.mul_(f[..., None])
+        del graph
+        return (w * q).sum(-1), q
     for _ in range(sweeps):
         f = torch.ones((p_total, dp), dtype=f32, device=a.device)
         for _ in range(dp - 1):
-            fp, fq = f[:, :half], f[:, half:]
-            apq = (w[:, :half] * q[:, half:]).sum(-1) * (fp * fq)
-            app, aqq = dall[:, :half], dall[:, half:]
-            small = apq.abs() < 1e-30
-            tau = (aqq - app) / torch.where(small, 1.0, 2.0 * apq)
-            t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
-            t = torch.where(small, 0.0, torch.where(tau == 0.0, 1.0, t))
-            c = 1.0 / torch.sqrt(1.0 + t * t)
-            s = t * c
-            inv_cf = 1.0 / (c * fp * fq)
-            an = torch.where(small, 0.0, -s * fq * fq * inv_cf)[..., None]
-            bn = torch.where(small, 0.0, s * fp * fp * inv_cf)[..., None]
-            w = torch.cat([w[:, :half] + an * w[:, half:],
-                           bn * w[:, :half] + w[:, half:]], 1)[:, order]
-            q = torch.cat([q[:, :half] + an * q[:, half:],
-                           bn * q[:, :half] + q[:, half:]], 1)[:, order]
-            dall = torch.cat([app - t * apq, aqq + t * apq], 1)[:, order]
-            f = torch.cat([c * fp, c * fq], 1)[:, order]
+            w, q, dall, f = rotate(w, q, dall, f)
         w = w * f[..., None]
         q = q * f[..., None]
     return (w * q).sum(-1), q
@@ -404,9 +439,9 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     pixels are solved and the other rows of field are 0. ``sweeps`` is the
     kernel's number of Jacobi sweeps; the twin's exact eigh has none. On
     CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147, 243, 363,
-    507, 675, 867, 1083, 1323 and 1587 ``csrc/solve_filter_smem.cu``, and
-    any other d is refused (``check_kernel_dim``) unless no pixel is to be solved (an empty
-    ``rows``: no launch).
+    507, 675, 867, 1083, 1323, 1587 and 1875 ``csrc/solve_filter_smem.cu``,
+    and any other d is refused (``check_kernel_dim``) unless no pixel is to
+    be solved (an empty ``rows``: no launch).
     """
     if cand.dim() != 3:
         raise ValueError(f"cand must be (P, O, d), got {tuple(cand.shape)}")

@@ -6,16 +6,17 @@
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's to 15's patch radius (4, 5,
-6, 7, 8, 9, 10 or 11; 5 by default) and B its search radius (8, 10, 11,
-13, 15, 16, 18 or 20).
+built, and runs nothing else: R is phase 8's to 16's patch radius (4, 5,
+6, 7, 8, 9, 10, 11 or 12; 5 by default) and B its search radius (8, 10,
+11, 13, 15, 16, 18, 20 or 22).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
 
 1. The card (name, count, power limit) and the kernel build: nvcc's
    register, shared-memory and spill report for every kernel; K2's must
-   show no spill (its Jacobi lives in registers).
+   show no spill (its Jacobi lives in registers). Beside the build, the
+   1088x1920 scene of phases 2 to 16, its statistics and EXR files.
 2. Each kernel against its plain PyTorch twin, timed with CUDA events,
    beside its bound (``bcd_tpu_torch/ops/bounds.py``, from this run's
    shapes and mask counts); K2 also against the plain fp32 model of its own
@@ -142,23 +143,37 @@ non-zero before the final line:
    checked as phase 14 checks the -w 10 path: synthetic stacks against
    the float64 twin at the engine's sweeps and the fp32 model two sweeps
    past them; the real one-tile r = 11, b = 20 batch, its first and last
+   16 main-path rows timed once in place, the last past element 2^31 of
+   the stack; ``bcd -w 11 -b 20 -s 2`` on a 62x62 crop
+   (launches only solve_filter_1587; peak memory); ``bcd -w 11 -b 19 -s
+   2`` on that crop (no solve launch); that crop against the port's CPU
+   pipeline.
+16. The -w 12 path (d = 1875, the same kernel with 3,735 of the 3,752 rows
+   in the global slot and fifteen pivot passes a round, lanes 0-6 of a
+   group forming the angles of two passes, solve_filter_1875) at b = 22,
+   checked as phase 15 checks the -w 11 path: synthetic stacks against
+   the float64 twin at the engine's sweeps and the fp32 model two sweeps
+   past them; the real one-tile r = 12, b = 22 batch, its first and last
    66 main-path rows (one wave) timed once in place, the last past
    element 2^31 of the stack, held bit for bit to a compact call on 32 of
-   them; ``bcd -w 11 -b 20 -s 2`` on a 62x62 crop (launches only
-   solve_filter_1587; peak memory); ``bcd -w 11 -b 19 -s 2`` on that crop
-   (no solve launch); that crop against the port's CPU pipeline.
+   them; ``bcd -w 12 -b 22 -s 2`` on a 68x68 crop (launches only
+   solve_filter_1875; peak memory); ``bcd -w 12 -b 21 -s 2`` and ``bcd -w
+   13 -b 22 -s 2`` on that crop (no solve launch); that crop against the
+   port's CPU pipeline.
 
-The crops' CPU references (phases 5, 7 and 8 to 15's (e)), the port's
+The crops' CPU references (phases 5, 7 and 8 to 16's (e)), the port's
 CPU pipeline on each crop, are computed one after another from phase 5's
-start in a process of its own (spawned; it never touches the card),
-beside the card's work.
+start in a process of their own (spawned; it never touches the card),
+beside the card's work, on tiles as small as the crop allows.
 From phase 8 on the frame's main-path fraction is read on an eighth of
 its tiles.
-Phases 10 to 14 time the first and last 16 main rows of their batch in
+Phases 10 to 15 time the first and last 16 main rows of their batch in
 place and hold them bit for bit to one compact call on the same rows and
-to the float64 twin; phase 15 times one wave. The kernel calls whose time
-is not read (the synthetic rows', the compact call) run on side streams,
-beside each other and the plain references.
+to the float64 twin; phase 16 times one wave. From phase 10, where (c)'s
+crop is (e)'s, (e) runs the card once, on the inputs and parameters of
+(c)'s CLI run, and holds it bit for bit to that run (else twice); the
+kernel calls of (a) and (b) whose time is not read run on side streams
+beside that card run, and their fp32 models after it.
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -175,6 +190,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -257,7 +273,7 @@ SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
                  "solve_filter_507", "solve_filter_675", "solve_filter_867",
                  "solve_filter_1083", "solve_filter_1323",
-                 "solve_filter_1587")
+                 "solve_filter_1587", "solve_filter_1875")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -342,10 +358,11 @@ R6_SYNTH_PIXELS = 32
 # d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
 # convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
 R6_MODEL_BATCH_REL_RMS = 2e-5
-# phase 15 holds the rows it times in place bit for bit to a compact call
+# phase 16 holds the rows it times in place bit for bit to a compact call
 # on the first and last COMPACT_CENTERS / 2 of them, which keeps the rows
-# at the stack's highest offsets (phases 10 to 14 did until phase 15: see
-# PART_ROWS); the float64 twin still runs on its centers
+# at the stack's highest offsets (phase 15 did until phase 16, phases 10
+# to 14 until phase 15: see PART_ROWS); the float64 twin still runs on its
+# centers
 COMPACT_CENTERS = 32
 # centers of the real r = 6 batch the model runs on. The whole 8-tile
 # batch took 98.4 s on an H100, most of phase 10 (PERF.md): it is timed on
@@ -472,14 +489,12 @@ R9_MODEL_SWEEPS = 12
 R9_SYNTH_PIXELS = 8
 # the real r = 9 batch against the fp32 model: phase 12's limit
 R9_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 9 batch the model runs on; the batch is timed on
-# a part in place (PART_ROWS; one wave of 132 rows, 18.3 s at 10 sweeps on
-# an H100, until phase 15 needed the run's time), the last rows past
-# element 2^31 of the (2048, 1089, 1083) stack. The fp32 model's time is
-# set by its rounds, not its centers, where its launches bound it (on 8
-# centers it took as long as on 16 on an H100); from d = 1083 it
-# runs on 8 beside the compact call, whose memory traffic it slows
-R9_MODEL_CENTERS = 8
+# the r = 9 batch is timed on a part in place (PART_ROWS; one wave of 132
+# rows, 18.3 s at 10 sweeps on an H100, until phase 15 needed the run's
+# time), the last rows past element 2^31 of the (2048, 1089, 1083) stack.
+# The fp32 model's time was set by its rounds, not its centers, where its
+# launches bound it (on 8 centers it took as long as on 16 on an H100),
+# until it was replayed as a CUDA graph (LATE_MODEL_PIXELS)
 # the r = 9, b = 16 finest-scale main-path fraction of the frame and of the
 # 2-tile batch must exceed these (stated before the first reading: at r = 8
 # the frame read 0.8002 and its batch 1.0; at r = 9 the first reading on an
@@ -515,12 +530,10 @@ R10_MODEL_SWEEPS = 12
 R10_SYNTH_PIXELS = 8
 # the real r = 10 batch against the fp32 model: phase 13's limit
 R10_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 10 batch the model runs on; the one-tile batch is
-# timed on a part in place (PART_ROWS; one wave of 132 rows, 33.8 s on an
-# H100, until phase 15 needed the run's time). The (1024, 1369, 1323)
-# stack holds 1,854,655,488 elements, under 2^31: phases 13 and 15 hold
-# their rows past 2^31
-R10_MODEL_CENTERS = 8
+# the one-tile r = 10 batch is timed on a part in place (PART_ROWS; one
+# wave of 132 rows, 33.8 s on an H100, until phase 15 needed the run's
+# time). The (1024, 1369, 1323) stack holds 1,854,655,488 elements, under
+# 2^31: phases 13, 15 and 16 hold their rows past 2^31
 # the r = 10, b = 18 finest-scale main-path fraction of the frame and of the
 # one-tile batch must exceed these (stated before the first reading: at
 # r = 9 the frame read 0.7224 and its batch 1.0)
@@ -553,15 +566,10 @@ R11_MODEL_SWEEPS = 12
 R11_SYNTH_PIXELS = 8
 # the real r = 11 batch against the fp32 model: phase 14's limit
 R11_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 11 batch the model runs on, and the first and the
-# last main-path rows of the one-tile batch timed in place: one wave of the
-# persistent grid, whose 132 rows are the twin's centers and the kernels
-# line's, held bit for bit to the compact call (COMPACT_CENTERS). The last
-# lie past element 2^31 of the (1024, 1681, 1587) stack. The model on 16
-# centers took 36.4 s beside the compact call in phase 15's first run
-R11_MODEL_CENTERS = 8
-R11_BITWISE_CENTERS = 66
-R11_TWIN_CENTERS = 132
+# the one-tile r = 11 batch is timed on a part in place (PART_ROWS; one
+# wave of 132 rows, 58449.918 ms on an H100, until phase 16 needed the
+# run's time), its last rows past element 2^31 of the (1024, 1681, 1587)
+# stack
 # the r = 11, b = 20 finest-scale main-path fraction of the frame's part and
 # of the one-tile batch must exceed these (stated before the first reading:
 # at r = 10 the frame read 0.7165 and its batch 1.0)
@@ -576,13 +584,59 @@ R11_CPU_CROP = 62
 # holds a 23x23 patch
 R11_CROP = (R11_CPU_CROP, R11_CPU_CROP)
 R11_SCALES = 2
-# phases 10 to 14 time the first and last PART_ROWS main rows of their
+# phase 16, d = 1875 (csrc/solve_filter_smem.cu with 3,735 of the 3,752
+# rows of W and Q in a global slot and fifteen pivot passes a round, lanes
+# 0-6 of a group forming two passes' angles), at the engine's sweeps
+R12_KERNELS = ("solve_filter_1875",)
+# the smallest search radius whose window reaches the main path at r = 12:
+# 2,025 offsets, where n >= d + 1 = 1,876 similar candidates are needed
+# (b = 21 offers 1,849)
+R12_SEARCH = 22
+# synthetic rows (every pixel rank-deficient), held as phase 15's: the
+# kernel against its model two sweeps past the engine's within
+# SMEM_MODEL_RMS, and at the engine's to the float64 twin within
+# SYNTH_RMS, on R12_SYNTH_PIXELS pixels. The rows' pivots reach the ninth
+# to fifteenth passes' pairs (512 to 936), which only a lane's second
+# angle step rotates
+R12_MODEL_SWEEPS = 12
+R12_SYNTH_PIXELS = 8
+# the real r = 12 batch against the fp32 model: phase 15's limit
+R12_MODEL_BATCH_REL_RMS = 2e-5
+# the first and the last main-path rows of the one-tile r = 12 batch timed
+# in place: one wave of the persistent grid, whose 132 rows are the twin's
+# centers and the kernels line's, held bit for bit to the compact call
+# (COMPACT_CENTERS). The last lie past element 2^31 of the
+# (1024, 2025, 1875) stack
+WAVE_ROWS = 66
+R12_TWIN_CENTERS = 2 * WAVE_ROWS
+# the r = 12, b = 22 finest-scale main-path fraction of the frame's part and
+# of the one-tile batch must exceed these (stated before the first reading:
+# at r = 11 the frame's part read 0.6861 and its batch 1.0)
+R12_MAIN_FLOOR = 0.4
+R12_BATCH_FLOOR = 0.8
+# (e): the smallest top-left crop of the scene (after the prefilter) in
+# which a center reaches the solve at r = 12, b = 22
+R12_CPU_CROP = 68
+# (c): bcd -w 12 -b 22 -s 2 on (e)'s crop: its 34x34 coarse scale still
+# holds a 25x25 patch
+R12_CROP = (R12_CPU_CROP, R12_CPU_CROP)
+R12_SCALES = 2
+# (d): besides -w 12 -b 21, -w 13 -b 22 on the crop, where no center can
+# reach the d = 2187 solve (2,025 offsets), which has no kernel
+R13_NO_SOLVE = (13, 22)
+# phases 13 to 16 hold the kernel to the fp32 model on the first
+# LATE_MODEL_PIXELS of their synthetic pixels and of their batch's timed
+# rows (8 until phase 16 needed the run's time; the twin still on all):
+# replayed as a CUDA graph the model's rounds are bound by their HBM
+# traffic, which the pixels set
+LATE_MODEL_PIXELS = 2
+# phases 10 to 15 time the first and last PART_ROWS main rows of their
 # batch in place and hold them bit for bit to one compact call on the same
-# rows and to the float64 twin (a wave of 132, or two, until phase 15
-# needed the run's time; their readings stay in PERF.md); phase 15 times a
+# rows and to the float64 twin (a wave of 132, or two, until phase 15 or 16
+# needed the run's time; their readings stay in PERF.md); phase 16 times a
 # wave
 PART_ROWS = 16
-# phases 8 to 15 read the frame's finest-scale main-path fraction on every
+# phases 8 to 16 read the frame's finest-scale main-path fraction on every
 # FRAME_PART-th 16-tile batch, an eighth of the frame's tiles spread over
 # it (the whole frame took 3.5 s at r = 4 to 24.5 s at r = 10 on an H100;
 # a quarter 1.4 s at r = 5 to 8.1 s at r = 11 in phase 15's first run, 0.9019
@@ -1225,21 +1279,62 @@ def side_streams(dev, n):
     return streams, join
 
 
+class Beside:
+    """Checks whose time is not read, their kernel calls run beside card
+    work whose time is not read either ((e)'s card run of the crop):
+    ``add(launch, model, finish)`` queues one; ``open`` calls every
+    ``launch`` (kernel calls on side streams, a few pixels each, so a few
+    SMs for a pixel's latency); ``close`` waits for them, then runs each
+    ``model`` (the fp32 models, bound by their launches: on a host thread
+    of their own beside the card run they and the run's launches took
+    turns at the GIL, and both took several times as long) and calls
+    ``finish(launched, model's output, model's seconds)``, which joins the
+    check's side streams and compares. Returns the seconds from ``open``
+    to the models' start."""
+
+    def __init__(self, dev):
+        self.dev, self.checks = dev, []
+
+    def add(self, launch, model, finish):
+        self.checks.append((launch, model, finish))
+
+    def open(self):
+        self.t0 = time.perf_counter()
+        self.launched = [launch() for launch, _, _ in self.checks]
+
+    def close(self):
+        import torch
+
+        torch.cuda.synchronize(self.dev)
+        secs = time.perf_counter() - self.t0
+        for (_, model, finish), launched in zip(self.checks, self.launched):
+            t0 = time.perf_counter()
+            out = model()
+            torch.cuda.synchronize(self.dev)
+            finish(launched, out, time.perf_counter() - t0)
+        self.checks = []
+        return secs
+
+
 def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
                            name="solve_filter_smem", pixels=1024,
-                           model_sweeps=None, diag=False):
-    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1587:
+                           model_sweeps=None, diag=False, model_pixels=None,
+                           beside=None):
+    """solve_filter_pm at d (147: ``solve_filter_smem``, 243 to 1875:
     ``solve_filter_<d>``) on ``pixels`` synthetic
     pixels of O candidates: against the float64 twin at ``sweeps``, and
     against the fp32 model of its schedule at ``model_sweeps`` (default
-    ``sweeps``; where they differ and ``diag`` is set, the model is also
-    read at ``sweeps`` and against itself with the candidates reversed at
-    both, with no limit, on the first SYNTH_DIAG_PIXELS pixels). The
-    kernel's calls run on side streams, beside each other and the twin and
-    the model. Where a round has more than eight pivot passes (d = 1083 to
-    1587), the first round's pivots of the pairs past the eighth pass,
-    which a lane's second angle step forms, must be non-zero on every
-    pixel. Returns the max abs err against the twin."""
+    ``sweeps``) on the first ``model_pixels`` (default all; where the
+    counts differ and ``diag`` is set, the model is also read at
+    ``sweeps`` and against itself with the candidates reversed at both,
+    with no limit, on the first SYNTH_DIAG_PIXELS pixels). The kernel's
+    calls run on side streams, beside each other and the twin, and the
+    model after them; or with ``beside`` (a ``Beside``) the calls and the
+    model are queued there and compared when it closes. Where a round has
+    more than eight pivot passes (d = 1083 to 1875), the first round's
+    pivots of the pairs past the eighth pass, which a lane's second angle
+    step forms, must be non-zero on every pixel. Returns the max abs err
+    against the twin, or with ``beside`` a list that receives it."""
     import torch
     from bcd_tpu_torch.ops import solve_filter as ts
 
@@ -1265,41 +1360,79 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
               f"{-(-half // PIVOT_PAIRS_A_PASS)}) non-zero on all {pixels} "
               "pixels", flush=True)
         del w
-    t0 = time.perf_counter()
     counts = sorted({sweeps, model_sweeps})
-    streams, join = side_streams(dev, len(counts))
-    fields = {}
-    for st, s in zip(streams, counts):
-        with torch.cuda.stream(st):
-            fields[s] = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=s)
-    field, field_m = fields[sweeps], fields[model_sweeps]
+    pk = pm if model_pixels is None else [v[:model_pixels] for v in pm]
+
+    def launch():
+        streams, join = side_streams(dev, len(counts))
+        fields = {}
+        for st, s in zip(streams, counts):
+            with torch.cuda.stream(st):
+                fields[s] = ts.solve_filter_pm(*pm, 1e-8, npx=npx, sweeps=s)
+        return fields, join
+
+    def model():
+        return ts.solve_filter_pm_schedule(*pk, 1e-8, npx, model_sweeps)
+
+    def finish(launched, model_out, model_s, kernel_s=None, twin=None):
+        fields, join = launched
+        join()
+        if twin is None:
+            twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
+        field, field_m = fields[sweeps], fields[model_sweeps]
+        need(bool(torch.isfinite(field).all()),
+             f"synthetic d={d}: non-finite")
+        e_t = rmse(field.cpu(), twin.cpu())
+        n_m = model_out.shape[0]
+        e_m = rmse(field_m[:n_m].cpu(), model_out.cpu())
+        when = (f"the kernel's {len(counts)} calls beside the twin "
+                f"{kernel_s:.1f} s, then the model {model_s:.1f} s"
+                if kernel_s is not None else
+                f"the kernel's {len(counts)} calls beside (e)'s card run, "
+                f"then the model {model_s:.1f} s")
+        print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels): {name} at "
+              f"{model_sweeps} sweeps vs its fp32 schedule model on the "
+              f"first {n_m} rms {e_m:.3e} (limit {SMEM_MODEL_RMS:g}; {when}),"
+              f" model vs twin {rmse(model_out.cpu(), twin[:n_m].cpu()):.3e};"
+              f" at "
+              f"{sweeps} sweeps vs float64 twin rms {e_t:.3e} (limit "
+              f"{SYNTH_RMS:g})", flush=True)
+        need(e_m < SMEM_MODEL_RMS, f"synthetic d={d} vs the schedule model")
+        need(e_t < SYNTH_RMS, f"synthetic d={d} vs the float64 twin")
+        return float((field - twin).abs().max())
+
+    if beside is not None:
+        err = []
+        beside.add(launch, model,
+                   lambda *a: err.append(finish(*a)))
+        return err
+    t0 = time.perf_counter()
+    launched = launch()
     twin = ts.solve_filter_pm_plain(*pm, 1e-8, npx)
-    k = SYNTH_DIAG_PIXELS
-    pk = [v[:k] for v in pm]
-
-    def order_gap(model, s):
-        # the model against itself with the candidates reversed, on the
-        # first k pixels: the same schedule with M2 summed in another fp32
-        # order
-        rev = ts.solve_filter_pm_schedule(pk[0].flip(1), pk[1].flip(1),
-                                          *pk[2:], 1e-8, npx, s).flip(1)
-        return rmse(model[:k].cpu(), rev.cpu())
-
-    diag = diag and model_sweeps != sweeps
-    if diag:
-        model_d = ts.solve_filter_pm_schedule(*pk, 1e-8, npx, sweeps)
-    t1 = time.perf_counter()
-    model = ts.solve_filter_pm_schedule(*pm, 1e-8, npx, model_sweeps)
-    torch.cuda.current_stream(dev).synchronize()  # not the side streams
-    model_s = time.perf_counter() - t1
-    join()
+    # the fp32 model after the kernel's calls: beside the model a call ran
+    # about twice as long, both streaming from HBM (PERF.md)
+    launched[1]()
     torch.cuda.synchronize(dev)
     kernel_s = time.perf_counter() - t0
-    need(bool(torch.isfinite(field).all()), f"synthetic d={d}: non-finite")
-    e_t = rmse(field.cpu(), twin.cpu())
-    e_m = rmse(field_m.cpu(), model.cpu())
-    if diag:
+    t1 = time.perf_counter()
+    out = model()
+    torch.cuda.synchronize(dev)
+    model_s = time.perf_counter() - t1
+    if diag and model_sweeps != sweeps:
+        k = SYNTH_DIAG_PIXELS
+        pd = [v[:k] for v in pm]
+        field = launched[0][sweeps]
+
+        def order_gap(m, s):
+            # the model against itself with the candidates reversed, on the
+            # first k pixels: the same schedule with M2 summed in another
+            # fp32 order
+            rev = ts.solve_filter_pm_schedule(pd[0].flip(1), pd[1].flip(1),
+                                              *pd[2:], 1e-8, npx, s).flip(1)
+            return rmse(m[:k].cpu(), rev.cpu())
+
         t1 = time.perf_counter()
+        model_d = ts.solve_filter_pm_schedule(*pd, 1e-8, npx, sweeps)
         print(f"{tag} synthetic d={d} (O={O}, the first {k} pixels) at "
               f"{sweeps} sweeps, no limit: {name} vs its fp32 schedule model "
               f"rms {rmse(field[:k].cpu(), model_d.cpu()):.3e}, model vs "
@@ -1307,19 +1440,10 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
               f"itself with the candidates reversed "
               f"{order_gap(model_d, sweeps):.3e}; at {model_sweeps} sweeps "
               f"model vs itself with the candidates reversed "
-              f"{order_gap(model, model_sweeps):.3e} "
+              f"{order_gap(out, model_sweeps):.3e} "
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
         del model_d
-    print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels): {name} at "
-          f"{model_sweeps} sweeps vs its fp32 schedule model rms {e_m:.3e} "
-          f"(limit {SMEM_MODEL_RMS:g}; the model {model_s:.1f} s, the "
-          f"kernel's {len(counts)} calls beside the references "
-          f"{kernel_s:.1f} s), model vs twin "
-          f"{rmse(model.cpu(), twin.cpu()):.3e}; at {sweeps} sweeps vs "
-          f"float64 twin rms {e_t:.3e} (limit {SYNTH_RMS:g})", flush=True)
-    need(e_m < SMEM_MODEL_RMS, f"synthetic d={d} vs the schedule model")
-    need(e_t < SYNTH_RMS, f"synthetic d={d} vs the float64 twin")
-    return float((field - twin).abs().max())
+    return finish(launched, out, model_s, kernel_s, twin)
 
 
 def compare_smem_batch(label, x, main, sweeps, tag="[7]",
@@ -1328,21 +1452,23 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
                        bitwise_centers=None, tail_centers=None, part=False,
                        time_once=False, twin_centers=R3_TWIN_CENTERS,
-                       compact_centers=None):
-    """``name`` (solve_filter_pm at d = 147 to 1323) on one real batch: the
+                       compact_centers=None, beside=None):
+    """``name`` (solve_filter_pm at d = 147 to 1875) on one real batch: the
     engine's in-place call on the main-path rows, timed after a warm-up
     or, with ``time_once``, once (and so the twin's centers), and zero on
     every other row. The in-place call solves every main-path row, or with
     ``part`` only the first ``bitwise_centers`` and the last
     ``tail_centers`` of them (the rows at the stack's highest offsets; a
-    part of a batch too costly to time whole). One compact call on the
-    same rows, or on the first and last ``compact_centers`` / 2 of them,
-    run on a side stream beside the fp32 model, must give the same bits. The in-place field against the fp32 model on
-    at most ``model_centers`` centers and against the float64 twin on its
-    first ``twin_centers``. Returns (max_abs_err, ms, plain_ms, bound) on
-    the twin's centers (the in-place call's time where they are all its
-    rows), the in-place call's ms and its rows (printed beside its bound),
-    and the batch's main-path centers."""
+    part of a batch too costly to time whole). The in-place field against
+    the float64 twin on its first ``twin_centers``. One compact call on
+    the same rows, or on the first and last ``compact_centers`` / 2 of
+    them, run on a side stream beside the fp32 model, must give the same
+    bits, and the in-place field must lie within ``model_limit`` of the
+    model on at most ``model_centers`` centers; with ``beside`` (a
+    ``Beside``) those two are queued there. Returns (max_abs_err, ms,
+    plain_ms, bound) on the twin's centers (the in-place call's time
+    where they are all its rows), the in-place call's ms and its rows
+    (printed beside its bound), and the batch's main-path centers."""
     import torch
     from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
@@ -1381,27 +1507,57 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     if ms_batch is None:
         ms_batch = cuda_ms(batch, 1)
     bound_batch = bounds.solve_filter(n_rows, n_off, d, sweeps)
+    last = int(rows[sel[-1]])
+    on_rows = (f"the same {n_rows}" if sel.numel() == n_rows else
+               f"the first and last {sel.numel() // 2} of the same {n_rows}")
     # the compact call, on a side stream beside the fp32 model (neither is
     # timed: the call lasts about a pixel's latency, the model about as
     # long from d = 867)
     args_c = [v[sel].contiguous() for v in args_m]
-    (side,), join = side_streams(idx.device, 1)
-    t0 = time.perf_counter()
-    with torch.cuda.stream(side):
-        compact = ts.solve_filter_pm(*args_c, 1e-8, npx=npx, sweeps=sweeps)
-    model = ts.solve_filter_pm_schedule(
-        *(v[:model_centers] for v in args_m), 1e-8, npx, sweeps)
-    rel_m = rel_rms(field[:model_centers], model)
-    model_s = time.perf_counter() - t0
-    del model
-    join()
-    torch.cuda.synchronize(idx.device)
-    compact_s = time.perf_counter() - t0
-    need(torch.equal(field[sel], compact),
-         f"{label} {name}: rows in place differ from the compact stack "
-         f"(rows {int(rows[sel[0]])} to {int(rows[sel[-1]])}, last element "
-         f"{(int(rows[sel[-1]]) + 1) * n_off * d - 1})")
-    del compact, args_c
+    args_model = [v[:model_centers].contiguous() for v in args_m]
+    field_c, field_model = field[sel], field[:model_centers]
+
+    def launch():
+        (side,), join = side_streams(idx.device, 1)
+        with torch.cuda.stream(side):
+            compact = ts.solve_filter_pm(*args_c, 1e-8, npx=npx,
+                                         sweeps=sweeps)
+        return compact, join
+
+    def model():
+        return ts.solve_filter_pm_schedule(*args_model, 1e-8, npx, sweeps)
+
+    def finish(launched, model_out, model_s, compact_s=None):
+        compact, join = launched
+        join()
+        need(torch.equal(field_c, compact),
+             f"{label} {name}: rows in place differ from the compact stack "
+             f"(rows {int(rows[sel[0]])} to {last}, last element "
+             f"{(last + 1) * n_off * d - 1})")
+        rel_m = rel_rms(field_model, model_out)
+        when = (f"the call beside the model {compact_s:.1f} s"
+                if compact_s is not None else "the call beside (e)'s card "
+                "run")
+        print(f"{tag} {label} {name}: the engine's in-place rows bitwise "
+              f"equal to the compact call on {on_rows}, up to element "
+              f"{(last + 1) * n_off * d - 1} of the stack ({when}); field "
+              f"vs its fp32 schedule model on the first "
+              f"{min(model_centers, n_rows)} centers rel rms {rel_m:.3e} "
+              f"(limit {model_limit:g}; the model {model_s:.1f} s)",
+              flush=True)
+        need(rel_m < model_limit, f"{label} {name} vs its schedule model")
+
+    if beside is not None:
+        beside.add(launch, model, finish)
+    else:
+        t0 = time.perf_counter()
+        launched = launch()
+        out = model()
+        torch.cuda.current_stream(idx.device).synchronize()
+        model_s = time.perf_counter() - t0
+        launched[1]()
+        torch.cuda.synchronize(idx.device)
+        finish(launched, out, model_s, time.perf_counter() - t0)
     subt = [v[:twin_centers].contiguous() for v in args_m]
     sf = lambda: ts.solve_filter_pm(  # noqa: E731
         *subt, 1e-8, npx=npx, sweeps=sweeps)
@@ -1416,28 +1572,18 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     rel = rel_rms(got, ref)
     res = (float((got - ref).abs().max()), ms, plain_ms,
            bounds.solve_filter(twin_centers, n_off, d, sweeps))
-    last = int(rows[sel[-1]])
-    on_rows = (f"the same {n_rows}" if sel.numel() == n_rows else
-               f"the first and last {sel.numel() // 2} of the same {n_rows}")
     part_rows = (f" (the first {n_first}"
                  f"{f' and the last {n_last}' if n_last else ''}, a part of "
                  "the batch)") if part else ""
     print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
-          f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite; the "
-          f"engine's in-place rows bitwise equal to the compact call on "
-          f"{on_rows}, up to element {(last + 1) * n_off * d - 1} of the "
-          f"stack (the call and the model {compact_s:.1f} s); "
-          f"{ms_batch:.3f} ms for {n_rows} main "
+          f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite, zero "
+          f"on the rows not solved; {ms_batch:.3f} ms for {n_rows} main "
           f"rows in place{part_rows}, bound {bound_batch[0]:.3f} ms "
           f"({bound_batch[1]})", flush=True)
-    print(f"{tag} {label}: field vs its fp32 schedule model on the first "
-          f"{min(model_centers, n_rows)} centers rel rms {rel_m:.3e} "
-          f"(limit {model_limit:g}; the model {model_s:.1f} s); vs the "
-          f"float64 twin on the first {twin_centers} rel rms {rel:.3e} "
-          f"(limit {BATCH_REL_RMS:g}), max abs err {res[0]:.3e}; on those "
-          f"centers kernel {res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
-          f"{res[3][0]:.3f} ms", flush=True)
-    need(rel_m < model_limit, f"{label} {name} vs its schedule model")
+    print(f"{tag} {label}: field vs the float64 twin on the first "
+          f"{twin_centers} rel rms {rel:.3e} (limit {BATCH_REL_RMS:g}), max "
+          f"abs err {res[0]:.3e}; on those centers kernel {res[1]:.3f} ms, "
+          f"twin {res[2]:.3f} ms, bound {res[3][0]:.3f} ms", flush=True)
     need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
     return res, ms_batch, rows, idx.numel()
 
@@ -1523,7 +1669,7 @@ def r3_phase(dev, card, stats, clean, scene_path, cpu_refs):
     got = denoise_pipeline(*crop, dev, p3)
     need(torch.equal(got, denoise_pipeline(*crop, dev, p3)),
          "-w 3 crop not bitwise repeatable")
-    ref, cpu_s = cpu_refs.result(3)
+    ref, cpu_s, _ = cpu_refs.result(3)
     gap = rmse(got.cpu(), ref)
     print(f"[7] -w 3 pipeline on a {k}x{k} crop (b=6): card vs the port's CPU "
           f"pipeline (float64 twins, {cpu_s:.1f} s) rmse {gap:.3e} (limit "
@@ -1532,6 +1678,64 @@ def r3_phase(dev, card, stats, clean, scene_path, cpu_refs):
           "on the card", flush=True)
     need(gap < R2_CPU_RMSE, "-w 3 on the card against the CPU pipeline")
     return res, launches3
+
+
+def crop_scene_path(scene_path, radius) -> str:
+    """Where phase 8 to 16's crop of the scene is written for the CLI."""
+    return scene_path.replace(".exr", f"_w{radius}crop.exr")
+
+
+def load_scene(path):
+    """The three EXR files of ``write_scene`` read as the CLI reads them:
+    (color, nb, histo, cov)."""
+    from bcd_tpu_torch.io import image_io
+
+    color = image_io.load_exr(path)
+    histo, nb = image_io.separate_nb_of_samples_from_histogram(
+        image_io.load_multi_channels_exr(path.replace(".exr", "_hist.exr")))
+    cov = image_io.load_multi_channels_exr(path.replace(".exr", "_cov.exr"))
+    return color, nb, histo, cov
+
+
+def one_crop(c) -> bool:
+    """Whether a wide phase's traced CLI crop (c) is its CPU comparison's
+    (e) (from phase 10): (e) then runs the card once, on the CLI run's
+    inputs and parameters, and holds it bit for bit to that run."""
+    return c["crop"] == (c["cpu_crop"],) * 2 and bool(c.get("scales"))
+
+
+def cpu_pipeline_params(radius, b, scales=None):
+    """The pipeline parameters of ``bcd -w radius -b b [-s scales]``."""
+    from bcd_tpu_torch.params import PipelineParameters
+
+    pw = PipelineParameters()
+    pw.denoiser.monoscale.patch_radius = radius
+    pw.denoiser.monoscale.search_window_radius = b
+    if scales:
+        pw.denoiser.nb_of_scales = scales
+    return pw
+
+
+@contextlib.contextmanager
+def recorded_pipeline():
+    """Records the arguments and output of every ``denoise_pipeline`` call
+    inside it (the CLI looks the function up at each run) in the dict it
+    yields, with the function itself under ``run``."""
+    from bcd_tpu_torch.core import pipeline
+
+    run = pipeline.denoise_pipeline
+    record = {"run": run}
+
+    def recording(*args, **kwargs):
+        out = run(*args, **kwargs)
+        record.update(args=args, kwargs=kwargs, out=out)
+        return out
+
+    pipeline.denoise_pipeline = recording
+    try:
+        yield record
+    finally:
+        pipeline.denoise_pipeline = run
 
 
 def write_scene(path, color, nb, histo, cov) -> None:
@@ -1546,15 +1750,17 @@ def write_scene(path, color, nb, histo, cov) -> None:
 
 
 def wide_phases():
-    """Phases 8 to 15 by patch radius: the launch counter of the kernel the
+    """Phases 8 to 16 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
-    synthetic and real-batch checks; each phase times its batch once, not
-    after a warm-up (phase 8's after one until phase 14 needed the run's
-    time). From d = 363 on the last main rows of the batch are held in
+    synthetic and real-batch checks, the b of its gate's run (and the
+    (radius, b) of other runs that must take no solve); each phase times
+    its batch once, not after a warm-up (phase 8's after one until phase 14
+    needed the run's time). From d = 363 on the last main rows of the batch
+    are held in
     place to the compact call as well as the first. ``scales``, where
     given, is the ``-s`` of the crop's CLI runs (else the default)."""
-    # phases 10 to 14: the first and last PART_ROWS main rows, timed in
+    # phases 10 to 15: the first and last PART_ROWS main rows, timed in
     # place, held to one compact call on all of them and to the twin
     part = dict(bitwise_centers=PART_ROWS, tail_centers=PART_ROWS,
                 part=True, twin_centers=2 * PART_ROWS,
@@ -1607,8 +1813,9 @@ def wide_phases():
                 floor=R9_MAIN_FLOOR, batch_floor=R9_BATCH_FLOOR,
                 crop=R9_CROP, cpu_crop=R9_CPU_CROP, scales=R9_SCALES,
                 synth=dict(pixels=R9_SYNTH_PIXELS,
-                           model_sweeps=R9_MODEL_SWEEPS),
-                batch=dict(model_centers=R9_MODEL_CENTERS,
+                           model_sweeps=R9_MODEL_SWEEPS,
+                           model_pixels=LATE_MODEL_PIXELS),
+                batch=dict(model_centers=LATE_MODEL_PIXELS,
                            model_limit=R9_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 9 at b = 15 (961 offsets)
                 no_solve_b=15),
@@ -1616,8 +1823,9 @@ def wide_phases():
                  floor=R10_MAIN_FLOOR, batch_floor=R10_BATCH_FLOOR,
                  crop=R10_CROP, cpu_crop=R10_CPU_CROP, scales=R10_SCALES,
                  synth=dict(pixels=R10_SYNTH_PIXELS,
-                            model_sweeps=R10_MODEL_SWEEPS),
-                 batch=dict(model_centers=R10_MODEL_CENTERS,
+                            model_sweeps=R10_MODEL_SWEEPS,
+                            model_pixels=LATE_MODEL_PIXELS),
+                 batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R10_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 10 at b = 17 (1,225 offsets)
                  no_solve_b=17),
@@ -1625,23 +1833,35 @@ def wide_phases():
                  floor=R11_MAIN_FLOOR, batch_floor=R11_BATCH_FLOOR,
                  crop=R11_CROP, cpu_crop=R11_CPU_CROP, scales=R11_SCALES,
                  synth=dict(pixels=R11_SYNTH_PIXELS,
-                            model_sweeps=R11_MODEL_SWEEPS),
-                 batch=dict(model_centers=R11_MODEL_CENTERS,
-                            model_limit=R11_MODEL_BATCH_REL_RMS,
-                            bitwise_centers=R11_BITWISE_CENTERS,
-                            tail_centers=R11_BITWISE_CENTERS, part=True,
-                            twin_centers=R11_TWIN_CENTERS,
-                            compact_centers=COMPACT_CENTERS),
+                            model_sweeps=R11_MODEL_SWEEPS,
+                            model_pixels=LATE_MODEL_PIXELS),
+                 batch=dict(model_centers=LATE_MODEL_PIXELS,
+                            model_limit=R11_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 11 at b = 19 (1,521 offsets)
                  no_solve_b=19),
+        12: dict(tag="[16]", kernels=R12_KERNELS, O=2025, search=R12_SEARCH,
+                 floor=R12_MAIN_FLOOR, batch_floor=R12_BATCH_FLOOR,
+                 crop=R12_CROP, cpu_crop=R12_CPU_CROP, scales=R12_SCALES,
+                 synth=dict(pixels=R12_SYNTH_PIXELS,
+                            model_sweeps=R12_MODEL_SWEEPS,
+                            model_pixels=LATE_MODEL_PIXELS),
+                 batch=dict(model_centers=LATE_MODEL_PIXELS,
+                            model_limit=R12_MODEL_BATCH_REL_RMS,
+                            bitwise_centers=WAVE_ROWS,
+                            tail_centers=WAVE_ROWS, part=True,
+                            twin_centers=R12_TWIN_CENTERS,
+                            compact_centers=COMPACT_CENTERS),
+                 # no solve: -w 12 at b = 21 (1,849 offsets), and -w 13 at
+                 # b = 22, whose d = 2187 has no kernel
+                 no_solve_b=21, no_solve_more=(R13_NO_SOLVE,)),
     }
 
 
 def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     """Phase 8 (radius 4, d = 243), 9 (radius 5, d = 363), 10 (radius 6,
     d = 507), 11 (radius 7, d = 675), 12 (radius 8, d = 867), 13 (radius
-    9, d = 1083), 14 (radius 10, d = 1323) or 15 (radius 11, d = 1587):
-    the -w r path on the
+    9, d = 1083), 14 (radius 10, d = 1323), 15 (radius 11, d = 1587) or 16
+    (radius 12, d = 1875): the -w r path on the
     1088x1920 scene at the smallest b that reaches its main path, each
     step's time printed. (e)'s reference, the port's CPU pipeline on a
     crop, comes from ``cpu_refs`` (``CpuReferences``), computed on the
@@ -1679,14 +1899,17 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     pw.denoiser.monoscale.search_window_radius = b
     k = c["cpu_crop"]
 
-    # (a) synthetic
+    # (a) synthetic; from phase 10 its kernel calls and model are queued
+    # to run beside (e)'s card run (``Beside``), and so are (b)'s compact
+    # call and model
+    later = Beside(dev) if one_crop(c) else None
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
-                                   name=name, **c["synth"])
+                                   name=name, beside=later, **c["synth"])
     step_done("a")
     # (b) one real tile batch of the finest scale (after the prefilter): 16
-    # tiles, 8 at r = 6, 4 at r = 7, 2 at r = 8 and 9 and 1 at r = 10 and
-    # 11 (core/monoscale.STACK_BYTES), the batch that holds the tiles of
-    # phase 2's 16-tile batch 8 (at r = 10 and 11 its first tile)
+    # tiles, 8 at r = 6, 4 at r = 7, 2 at r = 8 and 9 and 1 at r = 10 to
+    # 12 (core/monoscale.STACK_BYTES), the batch that holds the tiles of
+    # phase 2's 16-tile batch 8 (at r = 10 to 12 its first tile)
     n_tiles = MonoscaleConfig(patch_radius=radius, search_radius=b).batch
     k_batch = 8 * STACK_TILE_BATCH // n_tiles
     thr = pw.denoiser.monoscale.histogram_distance_threshold
@@ -1711,8 +1934,8 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
          f"{k_batch} barely reaches the main path")
     res, batch_ms, timed_rows, _ = compare_smem_batch(
         f"full-size r={radius} b={b} {n_tiles}-tile batch {k_batch}", x,
-        main, sweeps=sweeps, tag=tag, name=name, time_once=True, **c["batch"])
-    res = (max(res[0], e_syn),) + res[1:]
+        main, sweeps=sweeps, tag=tag, name=name, time_once=True,
+        beside=later, **c["batch"])
     # the Jacobi's share: the same rows at 0 sweeps, timed once
     ms0 = timed_once(lambda: ts.solve_filter_pm(
         *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
@@ -1726,7 +1949,7 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
 
     # (c) bcd -w r -b b through the CLI's entry point on a crop, traced
     ch, cw = c["crop"]
-    crop_path = scene_path.replace(".exr", f"_w{radius}crop.exr")
+    crop_path = crop_scene_path(scene_path, radius)
     write_scene(crop_path, *(x[:ch, :cw] for x in stats))
     out_path = crop_path.replace(".exr", "_out.exr")
     argv = ["-i", crop_path, "-o", out_path, *w, *scales]
@@ -1734,9 +1957,10 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     _build.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cli_s, busy, rows = device_time_table(
-        f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop",
-        lambda: rcs.append(cli.main(argv)))
+    with recorded_pipeline() as record:
+        cli_s, busy, rows = device_time_table(
+            f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop",
+            lambda: rcs.append(cli.main(argv)))
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.LAUNCHES)
     need(rcs == [0], f"{' '.join(w)} CLI run")
@@ -1772,45 +1996,82 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     step_done("c")
 
     # (d) the gate: -w r on the crop at a b whose window cannot reach the
-    # solve, where no center reaches it
-    b0 = c["no_solve_b"]
-    out_path0 = crop_path.replace(".exr", f"_out_w{radius}b{b0}.exr")
-    argv0 = ["-i", crop_path, "-o", out_path0, "-w", str(radius), "-b",
-             str(b0), *scales]
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    rc = cli.main(argv0)
-    wall0 = time.perf_counter() - t0
-    launches0 = dict(_build.LAUNCHES)
-    need(rc == 0, f"-w {radius} (b = {b0}) CLI run")
-    need(not any(launches0[k] for k in SOLVE_KERNELS),
-         f"the -w {radius} b = {b0} run launched a solve kernel: {launches0}")
-    out0 = image_io.load_exr(out_path0)
-    need(out0.shape == clean_c.shape and np.isfinite(out0).all(),
-         f"-w {radius} (b = {b0}) CLI output shape / finiteness")
-    print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv0)}: rc 0, "
-          f"{wall0:.3f} s wall with EXR I/O; launches {launches0} (no solve: "
-          f"{(2 * b0 + 1) ** 2} offsets < {d + 1}); rmse vs clean "
-          f"{rmse(out0, clean_c):.5f}, noisy input {e_in_c:.5f}", flush=True)
+    # solve, where no center reaches it (and from r = 12 the next radius at
+    # this b, whose d has no kernel)
+    for r0, b0 in ((radius, c["no_solve_b"]), *c.get("no_solve_more", ())):
+        d0 = 3 * (2 * r0 + 1) ** 2
+        out_path0 = crop_path.replace(".exr", f"_out_w{r0}b{b0}.exr")
+        argv0 = ["-i", crop_path, "-o", out_path0, "-w", str(r0), "-b",
+                 str(b0), *scales]
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(argv0)
+        wall0 = time.perf_counter() - t0
+        launches0 = dict(_build.LAUNCHES)
+        need(rc == 0, f"-w {r0} (b = {b0}) CLI run")
+        need(not any(launches0[k] for k in SOLVE_KERNELS),
+             f"the -w {r0} b = {b0} run launched a solve kernel: "
+             f"{launches0}")
+        out0 = image_io.load_exr(out_path0)
+        need(out0.shape == clean_c.shape and np.isfinite(out0).all(),
+             f"-w {r0} (b = {b0}) CLI output shape / finiteness")
+        print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv0)}: rc 0, "
+              f"{wall0:.3f} s wall with EXR I/O; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+              f"launches {launches0} (no solve: {(2 * b0 + 1) ** 2} offsets "
+              f"< {d0 + 1}); rmse vs clean {rmse(out0, clean_c):.5f}, noisy "
+              f"input {e_in_c:.5f}", flush=True)
     step_done("d")
 
-    # (e) the crop on the card, twice, against the port's CPU pipeline
-    crop = [torch.as_tensor(x[:k, :k]).to(dev) for x in stats]
-    _build.reset_launches()
-    got = denoise_pipeline(*crop, dev, pw)
-    need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
-    need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
-         f"{' '.join(w)} crop not bitwise repeatable")
+    # (e) the crop on the card against the port's CPU pipeline, and bitwise
+    # repeatable: run twice, or from phase 10, where (c)'s crop is (e)'s,
+    # once on the inputs and parameters of (c)'s CLI run, whose output it
+    # must repeat, with (a)'s and (b)'s queued kernel calls beside it
+    if one_crop(c):
+        inputs, kwargs = record["args"], record["kwargs"]
+        need(all(np.array_equal(x, y) for x, y in zip(
+            inputs[:4], load_scene(crop_path)))
+             and inputs[5] == cpu_pipeline_params(radius, b, c["scales"])
+             and kwargs["tile"] is None and kwargs["skip_stride"] == 1,
+             f"{tag} the CLI's pipeline call is not the CPU reference's")
+        later.open()
+        _build.reset_launches()
+        got = record["run"](*inputs, **{
+            k: v for k, v in kwargs.items()
+            if k not in ("progress_callback", "stats")})
+        need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
+        need(torch.equal(got, record["out"]),
+             f"{' '.join(w)} crop: the card's run differs from the CLI's")
+        t0 = time.perf_counter()
+        window_s = later.close()
+        print(f"{tag} (a)'s and (b)'s kernel calls beside (e)'s card run: "
+              f"{window_s:.1f} s from their start, then their models "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        e_syn = e_syn[0]
+        repeat = "bitwise the CLI run's (c) on the card"
+    else:
+        crop = [torch.as_tensor(x[:k, :k]).to(dev) for x in stats]
+        _build.reset_launches()
+        got = denoise_pipeline(*crop, dev, pw)
+        need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
+        need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
+             f"{' '.join(w)} crop not bitwise repeatable")
+        repeat = "bitwise repeatable on the card"
+    res = (max(res[0], e_syn),) + res[1:]
     t0 = time.perf_counter()
-    ref, cpu_s = cpu_refs.result(radius)
+    ref, cpu_s, cpu_peak = cpu_refs.result(radius)
     print(f"{tag} waited {time.perf_counter() - t0:.1f} s for the CPU "
           "pipeline", flush=True)
     gap = rmse(got.cpu(), ref)
     print(f"{tag} {' '.join(w)} pipeline on a {k}x{k} crop: card vs the "
-          f"port's CPU pipeline (float64 twins, {cpu_s:.1f} s) rmse "
+          f"port's CPU pipeline (float64 twins, {cpu_tile(k)}x{cpu_tile(k)} "
+          f"tiles, {cpu_s:.1f} s, its "
+          f"process's peak resident memory so far {cpu_peak:.1f} GiB) rmse "
           f"{gap:.3e} (limit {R2_CPU_RMSE:g}), max abs "
-          f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
-          "on the card", flush=True)
+          f"{float((got.cpu() - ref).abs().max()):.3e}; {repeat}",
+          flush=True)
     need(gap < R2_CPU_RMSE, f"-w {radius} on the card against the CPU "
          "pipeline")
     step_done("e")
@@ -1818,47 +2079,70 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
 
 
 def cpu_reference_worker(conn, jobs, threads) -> None:
-    """The port's CPU pipeline on each (key, radius, b, crop) of ``jobs``, in
-    order, each result sent on ``conn`` as (key, output, seconds, error)."""
+    """The port's CPU pipeline on each (key, radius, b, scales, tile, crop)
+    of ``jobs``, in order, each result sent on ``conn`` as (key, output,
+    seconds, the process's peak resident memory in GiB, error)."""
+    import resource
     import traceback
 
     import torch
     from bcd_tpu_torch.core.pipeline import denoise_pipeline
-    from bcd_tpu_torch.params import PipelineParameters
 
     torch.set_num_threads(threads)
-    for key, radius, b, crop in jobs:
+    for key, radius, b, scales, tile, crop in jobs:
         t0 = time.perf_counter()
         try:
-            pw = PipelineParameters()
-            pw.denoiser.monoscale.patch_radius = radius
-            pw.denoiser.monoscale.search_window_radius = b
             out = denoise_pipeline(*(torch.as_tensor(x) for x in crop),
-                                   torch.device("cpu"), pw).numpy()
-            conn.send((key, out, time.perf_counter() - t0, None))
+                                   torch.device("cpu"),
+                                   cpu_pipeline_params(radius, b, scales),
+                                   tile=tile).numpy()
+            peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+            conn.send((key, out, time.perf_counter() - t0, peak, None))
         except Exception:  # reported where the result is read
-            conn.send((key, None, 0.0, traceback.format_exc()))
+            conn.send((key, None, 0.0, 0.0, traceback.format_exc()))
     conn.close()
+
+
+def cpu_tile(k: int) -> int:
+    """The core tile side of the CPU reference on a k x k crop: the
+    engine's 32 where k is a multiple of it, else as small as keeps the
+    number of 32-pixel tiles a side (20 at k = 40, 23 at 46 and 68, 31 at
+    62). The engine builds every center of a tile, also those past the
+    crop, so a 68x68 crop took 9,216 centers at its finest scale on 32x32
+    tiles and takes 4,761 on 23x23; the output is the same up to the
+    rounding of the overlap-add, whose order follows the tiles."""
+    n = -(-k // 32)
+    return -(-k // n)
 
 
 class CpuReferences:
     """The crops' references, the port's CPU pipeline on phase 5's 64x64
     crop at r = 2, phase 7's at r = 3 and each wide phase's at its radius
-    and b, computed one after another in a process of its own (spawned, so
-    it never touches the card) from its start, beside the card's work and
-    without the GIL of the process that drives the card. ``result(radius)``
-    waits for one; ``close()`` stops the process."""
+    and b (from phase 10 on (c)'s CLI run's inputs, the crop's EXR files
+    as the CLI reads them, at its scales), on ``cpu_tile`` tiles, computed
+    one after another in a process
+    of its own (spawned, so it never touches the card) from its start,
+    beside the card's work and without the GIL of the process that drives
+    the card. ``result(radius)`` waits for one; ``close()`` stops the
+    process."""
 
-    def __init__(self, stats, threads):
+    def __init__(self, stats, threads, scene_path):
         import multiprocessing
         import threading
 
-        crops = {2: (6, R2_CPU_CROP), 3: (6, R3_CPU_CROP)}
-        crops.update({radius: (c["search"], c["cpu_crop"])
-                      for radius, c in wide_phases().items()})
-        jobs = [(radius, radius, b,
+        jobs = [(radius, radius, 6, None, cpu_tile(k),
                  [np.ascontiguousarray(x[:k, :k]) for x in stats])
-                for radius, (b, k) in crops.items()]
+                for radius, k in ((2, R2_CPU_CROP), (3, R3_CPU_CROP))]
+        for radius, c in wide_phases().items():
+            k = c["cpu_crop"]
+            crop = [np.ascontiguousarray(x[:k, :k]) for x in stats]
+            if one_crop(c):  # (c)'s CLI run's inputs and parameters
+                path = crop_scene_path(scene_path, radius)
+                write_scene(path, *crop)
+                crop = list(load_scene(path))
+            jobs.append((radius, radius, c["search"],
+                         c["scales"] if one_crop(c) else None, cpu_tile(k),
+                         crop))
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe()
         self._proc = ctx.Process(target=cpu_reference_worker,
@@ -1882,7 +2166,8 @@ class CpuReferences:
                 return
 
     def result(self, radius):
-        """(output, seconds) of the crop's CPU pipeline at ``radius``."""
+        """(output, seconds, the process's peak resident memory in GiB so
+        far) of the crop's CPU pipeline at ``radius``."""
         import torch
 
         with self._cond:
@@ -1891,9 +2176,9 @@ class CpuReferences:
             got = self._done.get(radius)
         need(got is not None, f"the CPU reference process ended before "
              f"radius {radius}'s crop (exit code {self._proc.exitcode})")
-        out, secs, err = got
+        out, secs, peak, err = got
         need(err is None, f"the CPU pipeline at radius {radius}: {err}")
-        return torch.from_numpy(out), secs
+        return torch.from_numpy(out), secs, peak
 
     def close(self) -> None:
         self._proc.join(timeout=60)
@@ -1955,18 +2240,27 @@ def device_time_table(label, run) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_stop = time.perf_counter()
+    stop_s = time.perf_counter() - t_stop
 
-    def device_us(ev):
-        return (getattr(ev, "self_device_time_total", None)
-                or getattr(ev, "self_cuda_time_total", 0) or 0)
-
-    rows = sorted(((device_us(ev), ev.count, ev.key)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    # device time by kernel name, summed over the profiler's raw events:
+    # its per-event Python objects (key_averages(), events()) took 47-55 s
+    # on the 280,000 kernels of a traced -w 12 crop on an H100's machine
+    t1 = time.perf_counter()
+    totals = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            tot = totals.setdefault(ev.name(), [0.0, 0])
+            tot[0] += ev.duration_ns() / 1e3
+            tot[1] += 1
+    rows = sorted(((us, n, key) for key, (us, n) in totals.items()),
+                  reverse=True)
+    table_s = time.perf_counter() - t1
     busy = sum(r[0] for r in rows) / 1e6
     print(f"{label} traced run: wall {wall:.4f} s, device busy {busy:.4f} s "
-          f"(idle share {max(0.0, 1 - busy / wall):.3f}); top device time "
-          "by kernel:", flush=True)
+          f"(idle share {max(0.0, 1 - busy / wall):.3f}; the trace's "
+          f"collection {stop_s:.1f} s and its table {table_s:.1f} s after "
+          "the run); top device time by kernel:", flush=True)
     for us, calls, key in rows[:12]:
         print(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {key[:90]}",
               flush=True)
@@ -2218,7 +2512,7 @@ def card_line() -> str:
 
 
 def time_crop(height, width, radius=5) -> int:
-    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 15's radius r
+    """One timed ``bcd -w r -b b --stats`` run (phase 8's to 16's radius r
     and its search radius b) through the CLI's entry point on the
     scene's top-left height x width crop, the kernels built first: wall
     time with EXR I/O, launches, peak memory, rmse vs clean."""
@@ -2287,9 +2581,9 @@ def main() -> int:
                                     and sys.argv[4] == "--radius"
                                     and sys.argv[5] in ("4", "5", "6", "7",
                                                         "8", "9", "10",
-                                                        "11")),
+                                                        "11", "12")),
              "usage: chip_smoke.py --time-crop H W "
-             "[--radius 4|5|6|7|8|9|10|11]")
+             "[--radius 4|5|6|7|8|9|10|11|12]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -2301,7 +2595,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    log = _build.build_log()
+    # the build's nvcc processes run while this thread makes the scene, its
+    # statistics and its EXR files (host work that needs no kernel)
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(_build.build_log)
+        clean, stats = full_scene()
+        print(f"[1] beside the build: the 1088x1920 scene, 4 spp, statistics "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        os.makedirs(WORK, exist_ok=True)
+        paths = {k: os.path.join(WORK, f"scene{k}.exr")
+                 for k in ("", "_hist", "_cov", "_out")}
+        write_scene(paths[""], *stats)
+        print(f"[1] beside the build: wrote the scene's EXRs in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        log = build.result()
     print(f"[1] kernels built for sm_90a in {time.perf_counter() - t0:.1f} s "
           "(nvcc -Xptxas -v):", flush=True)
     entry, k2_spill = "", None
@@ -2346,10 +2654,6 @@ def main() -> int:
     res_g = compare_kernels(
         "golden", tile_batch_inputs(cfg, color, nb, histo, cov, dev),
         params, cfg, reps=10)
-    t0 = time.perf_counter()
-    clean, stats = full_scene()
-    print(f"[4] 1088x1920 scene, 4 spp, statistics in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     res_f = compare_kernels(
         "full-size", tile_batch_inputs(cfg, *stats, dev, batch=8),
         params, cfg, reps=5)
@@ -2397,18 +2701,7 @@ def main() -> int:
 
     # --- 4. the default bcd run through the CLI entry point --------------
     t_phase = time.perf_counter()
-    os.makedirs(WORK, exist_ok=True)
-    paths = {k: os.path.join(WORK, f"scene{k}.exr")
-             for k in ("", "_hist", "_cov", "_out")}
-    s_color, s_nb, s_histo, s_cov = stats
-    t0 = time.perf_counter()
-    image_io.write_exr(s_color, paths[""])
-    image_io.write_multi_channels_exr(
-        image_io.merge_histogram_and_nb_of_samples(s_histo, s_nb),
-        paths["_hist"])
-    image_io.write_multi_channels_exr(s_cov, paths["_cov"])
-    print(f"[4] wrote the scene's EXRs in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    s_color = stats[0]
     argv = ["-i", paths[""], "-o", paths["_out"]]
     need(cli.main(argv) == 0, "warm-up CLI run")
     _build.reset_launches()
@@ -2476,11 +2769,12 @@ def main() -> int:
     print(f"[4] phase 4 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # --- 5. the -w 2 path ---------------------------------------------------
-    # from here the crops' CPU references (phases 5, 7 and 8 to 15) are
+    # from here the crops' CPU references (phases 5, 7 and 8 to 16) are
     # computed in a process of its own, beside the card's work; this
     # process keeps two cores for the host side of its phases
     t_phase = time.perf_counter()
-    cpu_refs = CpuReferences(stats, max(1, (os.cpu_count() or 8) - 2))
+    cpu_refs = CpuReferences(stats, max(1, (os.cpu_count() or 8) - 2),
+                             paths[""])
     torch.set_num_threads(2)
     argv2 = argv[:2] + [paths["_out"].replace("_out", "_out_w2"), "-w", "2"]
     argv2[2:2] = ["-o"]
@@ -2528,7 +2822,7 @@ def main() -> int:
     got = denoise_pipeline(*crop, dev, p2)
     need(torch.equal(got, denoise_pipeline(*crop, dev, p2)),
          "-w 2 crop not bitwise repeatable")
-    ref, cpu_s = cpu_refs.result(2)
+    ref, cpu_s, _ = cpu_refs.result(2)
     gap = rmse(got.cpu(), ref)
     print(f"[5] -w 2 pipeline on a {R2_CPU_CROP}x{R2_CPU_CROP} crop (b=6): "
           f"card vs the port's CPU "
@@ -2552,7 +2846,7 @@ def main() -> int:
         dev, card, stats, clean, paths[""], cpu_refs)
     print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # --- 8 to 15. the -w 4 to -w 11 paths, and the batch rule after -w 7 ---
+    # --- 8 to 16. the -w 4 to -w 12 paths, and the batch rule after -w 7 ---
     wide_launches = {}
     for radius, c in wide_phases().items():
         t0 = time.perf_counter()
@@ -2606,6 +2900,9 @@ def main() -> int:
                               "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                               "bcd_tpu/ops/solve_filter_pallas.py:441"),
         "solve_filter_1587": ("solve_filter_1587",
+                              "bcd_tpu_torch/csrc/solve_filter_smem.cu",
+                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        "solve_filter_1875": ("solve_filter_1875",
                               "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                               "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }

@@ -178,7 +178,8 @@ def test_cli_refuses_use_cuda_value(capsys):
     (("-w", "9", "-b", "15"), False), (("-w", "9", "-b", "16"), False),
     (("-w", "10", "-b", "17"), False), (("-w", "10", "-b", "18"), False),
     (("-w", "11", "-b", "19"), False), (("-w", "11", "-b", "20"), False),
-    (("-w", "12", "-b", "21"), False), (("-w", "12", "-b", "22"), True),
+    (("-w", "12", "-b", "21"), False), (("-w", "12", "-b", "22"), False),
+    (("-w", "13", "-b", "22"), False), (("-w", "13", "-b", "23"), True),
 ])
 def test_cli_solve_gate_on_cuda(flags, refused, capsys, monkeypatch):
     """The decision the CLI takes on the card, without one (the device is

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
-shared-memory form at d = 147, 243, 363, 507, 675, 867, 1083, 1323 and 1587
-and the lane-form
+shared-memory form at d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587
+and 1875 and the lane-form
 solve_matrices) against their plain twins, and the solve kernels against
 the plain fp32 model of their own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
@@ -744,6 +744,81 @@ def test_schedule_sweeps_at_d1587(cuda):
     assert rms[0] > 2e-5 and rms[1] < 2e-5
 
 
+# d = 1875, as d = 1587: the model two sweeps past the engine's
+R12_MODEL_SWEEPS = solve_filter_sweeps(1875) + 2
+
+
+def test_solve_filter_1875_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 1875 (csrc/solve_filter_smem.cu with 3,735 of
+    the 3,752 rows of W and Q in a global slot and fifteen pivot passes a
+    round) on 8 synthetic pixels of 2,025 candidates: against the fp32
+    model of its schedule at R12_MODEL_SWEEPS, rms SMEM_MODEL_RMS, and
+    against the float64 twin at the engine's sweeps, rms 2e-4; it launches
+    the d = 1875 kernel only. The first round's pairs of the ninth to
+    fifteenth passes, seats (512 + p, 1450 + p) for p < 425 (p = 425 pairs
+    the padding row), have non-zero pivots on every pixel: lanes 0-6 of a
+    group form those angles besides their first pass's."""
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops.solve_filter import _cemp, _noise_bd
+
+    x = _stack_inputs(np.random.default_rng(1875), 2025, 1875, 8)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    mk = pm[1][..., None]
+    w = (_cemp(torch.einsum("poi,poj->pij", mk * pm[0], pm[0]), pm[4], pm[3])
+         - _noise_bd(pm[2], 625))
+    seats = torch.arange(512, 937, device=cuda)
+    assert bool((w[:, seats, seats + 938] != 0).all())
+    del w
+    _build.reset_launches()
+    got = solve_filter_pm(*pm, 1e-8, npx=625,
+                          sweeps=solve_filter_sweeps(1875))
+    assert _build.LAUNCHES["solve_filter_1875"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got, solve_filter_pm_plain(*pm, 1e-8, 625)) < 2e-4
+    got = solve_filter_pm(*pm, 1e-8, npx=625, sweeps=R12_MODEL_SWEEPS)
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, 625,
+                                              R12_MODEL_SWEEPS)) \
+        < SMEM_MODEL_RMS
+
+
+def test_schedule_sweeps_at_d1875(cuda):
+    """Why the engine runs solve_filter_sweeps(1875) sweeps at d = 1875:
+    the smallest count that keeps the fp32 schedule within 2e-5 rms of the
+    float64 twin, as at d = 147 to 1587, on 8 synthetic pixels of 2,025
+    candidates, read on the card (an H100: nine 3.591e-5, ten 3.277e-6)."""
+    x = _stack_inputs(np.random.default_rng(21), 2025, 1875, 8)
+    pm = [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+    want = solve_filter_pm_plain(*pm, 1e-8, 625)
+    sweeps = solve_filter_sweeps(1875)
+    rms = [_rms(solve_filter_pm_schedule(*pm, 1e-8, 625, s), want)
+           for s in (sweeps - 1, sweeps)]
+    print(f"d = 1875: {sweeps - 1} sweeps {rms[0]:.3e}, {sweeps} "
+          f"{rms[1]:.3e} rms from the float64 twin")
+    assert rms[0] > 2e-5 and rms[1] < 2e-5
+
+
+@pytest.mark.parametrize("d", [75, 507])
+def test_schedule_model_graph_is_its_rounds_op_by_op(cuda, d):
+    """On the card the fp32 model's Jacobi replays one captured round as a
+    CUDA graph (its rounds are bound by their launches op by op): the same
+    kernels on the same buffers, so the same bits as the rounds run one
+    operation at a time."""
+    from bcd_tpu_torch.ops.solve_filter import _jacobi_fp32
+
+    a = torch.randn(3, d, d, generator=torch.Generator().manual_seed(d))
+    a = (a + a.mT).to(cuda)
+    lam_g, q_g = _jacobi_fp32(a, 3)
+    lam_e, q_e = _jacobi_fp32(a, 3, graphs=False)
+    assert torch.equal(lam_g, lam_e) and torch.equal(q_g, q_e)
+
+
 def _smem_scratch_floats(d, n_blocks):
     """``Smem<D>::SCRATCH`` times n_blocks, by the struct's formulas
     (csrc/solve_filter_smem.cu): Cemp, H and the rows of W and Q that
@@ -757,22 +832,24 @@ def _smem_scratch_floats(d, n_blocks):
 
 def test_smem_scratch_floats_is_a_64_bit_count(cuda):
     """The kernel's scratch size, a 64-bit count: 1,326,659,664 floats for
-    132 blocks at d = 1587 (5.31 GB), the formula's; past 2^31 floats
-    (300 blocks) still exact; -1 for a d with no kernel."""
+    132 blocks at d = 1587 (5.31 GB) and 1,854,020,784 at d = 1875
+    (7.42 GB), the formula's; past 2^31 floats (300 blocks) still exact; -1
+    for a d with no kernel."""
     from bcd_tpu_torch.ops import _build
 
     lib = _build.library()
-    for d in (147, 243, 1323, 1587):
+    for d in (147, 243, 1323, 1587, 1875):
         for n_blocks in (1, 132, 300):
             assert lib.bcd_solve_filter_smem_scratch_floats(d, n_blocks) \
                 == _smem_scratch_floats(d, n_blocks)
     assert _smem_scratch_floats(1587, 132) == 1326659664
+    assert _smem_scratch_floats(1875, 132) == 1854020784
     assert lib.bcd_solve_filter_smem_scratch_floats(1587, 300) > 2 ** 31
-    assert lib.bcd_solve_filter_smem_scratch_floats(1875, 132) == -1
+    assert lib.bcd_solve_filter_smem_scratch_floats(2187, 132) == -1
 
 
 @pytest.mark.parametrize("d", [75, 147, 243, 363, 507, 675, 867, 1083,
-                               1323, 1587])
+                               1323, 1587, 1875])
 def test_solve_filter_pm_rows_in_place(cuda, d):
     """The engine's entry: with ``rows`` the kernel reads those pixels of the
     stacks in place and writes their fields, bit for bit those of the
@@ -780,7 +857,7 @@ def test_solve_filter_pm_rows_in_place(cuda, d):
     x = _stack_inputs(np.random.default_rng(31),
                       {243: 289, 363: 441, 507: 529, 675: 729,
                        867: 961, 1083: 1089, 1323: 1369,
-                       1587: 1681}.get(d, 169),
+                       1587: 1681, 1875: 2025}.get(d, 169),
                       d, 64)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -847,26 +924,26 @@ def test_wrappers_count_only_launches(cuda):
 
 def test_solve_filter_pm_empty_rows_at_any_d(cuda):
     """No pixel to solve (a batch where no center reaches the main path):
-    zeros and no launch, also at d = 1875, for which no kernel is built."""
+    zeros and no launch, also at d = 2187, for which no kernel is built."""
     from bcd_tpu_torch.ops import _build
 
-    x = _stack_inputs(np.random.default_rng(1), 9, 1875, 3)
+    x = _stack_inputs(np.random.default_rng(1), 9, 2187, 3)
     pm = [v.to(cuda) for v in (
         x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
         x["noise"].T.contiguous(), x["n"][0].contiguous(),
         x["m"].T.contiguous())]
     _build.reset_launches()
-    field = solve_filter_pm(*pm, 1e-8, npx=625, sweeps=9,
+    field = solve_filter_pm(*pm, 1e-8, npx=729, sweeps=9,
                             rows=torch.zeros(0, dtype=torch.long, device=cuda))
-    assert field.shape == (3, 9, 1875) and not bool(field.any())
+    assert field.shape == (3, 9, 2187) and not bool(field.any())
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    """d = 1875 (patch radius 12) with a pixel to solve: no kernel is
-    built for it (W and Q would take 28.1 MB a pixel); refused with the
-    reason, and the lane form at d = 147 too."""
-    d = 1875
+    """d = 2187 (patch radius 13) with a pixel to solve: no kernel is
+    built for it (W and Q would take 38.3 MB a pixel, and a round 18 pivot
+    passes); refused with the reason, and the lane form at d = 147 too."""
+    d = 2187
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
     pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
@@ -886,14 +963,14 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """Radius 3 to 11 run on the card now; radius 12 at b = 22, where a
-    center can reach the solve and no kernel is built for d = 1875, is
+    """Radius 3 to 12 run on the card now; radius 13 at b = 23, where a
+    center can reach the solve and no kernel is built for d = 2187, is
     refused before the inputs are read, with the shared-memory reason and
     the ROADMAP item, and the twin never runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "12", "-b", "22"]) == 1
+                     "13", "-b", "23"]) == 1
     out = capsys.readouterr().out
     assert "shared memory" in out and "ROADMAP.md Queue 2" in out
 
@@ -937,9 +1014,8 @@ def test_cli_accepts_radius_11_at_b19_on_cuda(cuda, tmp_path):
 
 def test_cli_accepts_radius_12_at_b21_on_cuda(cuda, tmp_path):
     """``bcd -w 12 -b 21`` (1,849 offsets, fewer than the 1,876 candidates
-    the d = 1875 main path needs) runs on the card though no kernel is
-    built for d = 1875: no solve kernel launches, and the output is the
-    CPU run's within rmse 1e-4."""
+    the d = 1875 main path needs) runs on the card: no solve kernel
+    launches, and the output is the CPU run's within rmse 1e-4."""
     _cli_fallback_only_matches_cpu(tmp_path, ["-w", "12", "-b", "21"])
 
 

@@ -42,7 +42,11 @@ R7_MAIN_FLOOR = 0.05
 R7_RMSE = 2e-4
 
 # the child process: argv = slabs (.npz), output (.npz), radius, b, tile,
-# threshold, then gy gx ly lx core_h core_w height width
+# threshold, then gy gx ly lx core_h core_w height width. The tile runs as
+# one jitted program: op by op, each of the fan-out's (2r + 1)^2 rolls is
+# compiled on its own, and at r = 12 (tests/test_torch_r12.py) the child
+# took 176 s so on an 8-core host where the jitted program takes 43 s (28 s
+# of it the compile); the port's tile sits 4.07e-6 from either
 _JAX_TILE = """
 import sys
 import jax
@@ -55,7 +59,8 @@ radius, b, tile = (int(a) for a in sys.argv[3:6])
 ints = [int(a) for a in sys.argv[7:15]]
 cfg = MonoscaleConfig(patch_radius=radius, search_radius=b, tile=tile,
                       eigh_impl="lax")
-out_sum, count = denoise_tile(
+tile_fn = jax.jit(denoise_tile, static_argnums=(0,) + tuple(range(5, 13)))
+out_sum, count = tile_fn(
     cfg, *(jnp.asarray(z[f"arr_{i}"]) for i in range(4)), *ints,
     jnp.float32(float(sys.argv[6])), jnp.float32(1e-8))
 np.savez(sys.argv[2], np.asarray(out_sum), np.asarray(count))

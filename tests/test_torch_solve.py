@@ -186,13 +186,13 @@ def test_solve_wrappers_refuse_bad_inputs():
 
 
 @pytest.mark.parametrize("d", [27, 75, 147, 243, 363, 507, 675, 867, 1083,
-                               1323, 1587, 1875])
+                               1323, 1587, 1875, 2187])
 def test_kernel_dims(d):
     """The CUDA solve kernels are built for patch radius 1, 2 (registers),
-    3 (shared memory), 4 to 11 (shared memory and a global slot); radius 12
-    (W and Q would take 28.1 MB) is refused with the reason and its
-    ROADMAP item."""
-    assert (d in ts.KERNEL_DIMS) == (d <= 1587)
+    3 (shared memory), 4 to 12 (shared memory and a global slot); radius 13
+    (W and Q would take 38.3 MB, and a round 18 pivot passes) is refused
+    with the reason and its ROADMAP item."""
+    assert (d in ts.KERNEL_DIMS) == (d <= 1875)
     if d in ts.KERNEL_DIMS:
         ts.check_kernel_dim(d)
     else:
@@ -224,7 +224,8 @@ def test_smem_build_units_cover_every_dim():
     (6, 10, True), (6, 11, True), (6, 13, True), (7, 12, True),
     (7, 13, True), (8, 14, True), (8, 15, True), (9, 15, True),
     (9, 16, True), (10, 17, True), (10, 18, True), (11, 19, True),
-    (11, 20, True), (12, 21, True), (12, 22, False),
+    (11, 20, True), (12, 21, True), (12, 22, True), (13, 22, True),
+    (13, 23, False),
 ])
 def test_solve_path_gate(r, b, accepted):
     """The CUDA engine's and CLI's gate: a center needs n >= d + 1 similar
@@ -232,18 +233,19 @@ def test_solve_path_gate(r, b, accepted):
     never launches a solve kernel and runs whatever d is (r = 4 at b <= 7,
     r = 5 at b <= 9, r = 6 at b <= 10, r = 7 at b <= 12, r = 8 at b <= 14,
     r = 9 at b <= 15, r = 10 at b <= 17, r = 11 at b <= 19, r = 12 at
-    b <= 21: every center takes the fallback, as in JAX); r = 5 at b = 10
-    runs the d = 363 kernel, r = 6 from b = 11 the d = 507 one, r = 7 from
-    b = 13 the d = 675 one, r = 8 from b = 15 the d = 867 one, r = 9 from
-    b = 16 the d = 1083 one, r = 10 from b = 18 the d = 1323 one, r = 11
-    from b = 20 the d = 1587 one; r = 12 at b = 22 (2,025 offsets >= 1,876)
-    would need the d = 1875 kernel the port lacks."""
+    b <= 21, r = 13 at b <= 22: every center takes the fallback, as in
+    JAX); r = 5 at b = 10 runs the d = 363 kernel, r = 6 from b = 11 the
+    d = 507 one, r = 7 from b = 13 the d = 675 one, r = 8 from b = 15 the
+    d = 867 one, r = 9 from b = 16 the d = 1083 one, r = 10 from b = 18 the
+    d = 1323 one, r = 11 from b = 20 the d = 1587 one, r = 12 from b = 22
+    the d = 1875 one; r = 13 at b = 23 (2,209 offsets >= 2,188) would need
+    the d = 2187 kernel the port lacks."""
     d, n_off = 3 * (2 * r + 1) ** 2, (2 * b + 1) ** 2
     if accepted:
         ts.check_solve_path(d, n_off)
     else:
         with pytest.raises(NotImplementedError,
-                           match="shared memory.*patch radius >= 12"):
+                           match="shared memory.*patch radius >= 13"):
             ts.check_solve_path(d, n_off)
 
 
@@ -338,15 +340,15 @@ def test_schedule_degenerate_pixels():
 
 
 @pytest.mark.parametrize("dp", [28, 76, 148, 244, 364, 508, 676, 868, 1084,
-                                1324, 1588])
+                                1324, 1588, 1876])
 def test_reseat_order_is_one_sweep_cycle(dp):
     """reseat_order is the TPU kernel's re-seating (the concatenation of
     solve_filter_pallas.py:184-187, written out on row labels): a
     permutation that keeps row 0 and moves the other rows along one cycle
     of length dp - 1, the round-robin order of a Brent-Luk sweep, at K2's
     dp = 28 and solve_filter's dp = 76, 148, 244, 364, 508, 676, 868, 1084,
-    1324 and 1588 (d = 75, 147, 243, 363, 507, 675, 867, 1083, 1323 and
-    1587)."""
+    1324, 1588 and 1876 (d = 75, 147, 243, 363, 507, 675, 867, 1083, 1323,
+    1587 and 1875)."""
     order = ts.reseat_order(dp)
     half = dp // 2
     u, dn = np.arange(half), np.arange(half, dp)

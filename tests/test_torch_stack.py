@@ -227,7 +227,7 @@ def test_tile_batch_leaves_the_image_bitwise(tile_batch):
     (6, 11, 32, 16, 16), (7, 13, 32, None, 4), (6, 18, 32, None, 4),
     (3, 33, 32, None, 4), (7, 30, 32, None, 1), (7, 33, 32, None, 1),
     (8, 15, 32, None, 2), (9, 16, 32, None, 2), (10, 18, 32, None, 1),
-    (11, 20, 32, None, 1),
+    (11, 20, 32, None, 1), (12, 22, 32, None, 1),
 ])
 def test_stack_batch_by_bytes(r, b, tile, tile_batch, batch):
     """The candidate-stack engine takes 16 tiles a batch, halved while the
@@ -240,8 +240,9 @@ def test_stack_batch_by_bytes(r, b, tile, tile_batch, batch):
     b = 16 (a 4-tile (4096, 1089, 1083) stack is 19.3 GB, 2 tiles
     9.66 GB); 1 at r = 10, b = 18 (a 2-tile (2048, 1369, 1323) stack is
     14.8 GB, one tile 7.42 GB), at r = 11, b = 20 (a 2-tile
-    (2048, 1681, 1587) stack is 21.9 GB, one tile 10.9 GB) and at r = 7,
-    b = 30 (10.3 GB a tile),
+    (2048, 1681, 1587) stack is 21.9 GB, one tile 10.9 GB), at r = 12,
+    b = 22 (one (1024, 2025, 1875) tile is 15.6 GB, 3.89e9 elements) and at
+    r = 7, b = 30 (10.3 GB a tile),
     and still 1 at b = 33, where one tile's 12.4 GB passes the limit (JAX
     refuses none). An explicit ``tile_batch`` wins, and the fused r = 1
     engine keeps its 128."""
