@@ -9,10 +9,11 @@ including the ``<input>_hist.exr`` / ``<input>_cov.exr`` inference when
 -h/-c are omitted (main.cpp:344-370) and its exit codes. ``--ncores`` and
 ``--use-cuda`` are recorded in the parameters only, as JAX's are.
 ``--device`` (default ``cuda``) picks where the denoise runs; with no CUDA
-device the run fails unless it says ``--device cpu``. On CUDA a patch
-radius of 13 or more fails with exit code 1 where the search window can
-reach the solve, (2b + 1)^2 >= d + 1 (the solve kernels are built for
-radius 1 to 12; with fewer offsets every center takes the fallback).
+device the run fails unless it says ``--device cpu``. On CUDA every patch
+radius runs; a run fails with exit code 1, before the inputs are read, only
+where the search window can reach the solve, (2b + 1)^2 >= d + 1, and one
+block of the solve kernel with one band of the candidate stack (a row of a
+tile's centers) would pass the card's memory (the message names the bytes).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def print_usage(prog: str) -> None:
     print("    -a <file>            The file path to the .bcd.json file containing arguments for the program")
     print(f"    -d <float>           Histogram patch distance threshold (default: {mono.histogram_distance_threshold})")
     print(f"    -b <int>             Radius of search windows (default: {mono.search_window_radius})")
-    print(f"    -w <int>             Radius of patches; on CUDA 1 to 12, or more where (2b+1)^2 <= 3(2w+1)^2 (default: {mono.patch_radius})")
+    print(f"    -w <int>             Radius of patches; any radius on CUDA, as far as the card's memory holds its solve (default: {mono.patch_radius})")
     print(f"    -r <0/1>             1 for random pixel order; accepted for compatibility, the engine is deterministic (default: {int(mono.use_random_pixel_order)})")
     print(f"    -p <0/1>             1 for a spike removal prefiltering (default: {int(d.prefiltering.perform_spike_removal)})")
     print(f"    --p-factor <float>   Spike prefilter threshold = factor * stddev (default: {d.prefiltering.spike_removal_threshold_stdev_factor})")
@@ -202,7 +203,8 @@ def launch(argv: List[str]) -> int:
         mono = args.pipeline.denoiser.monoscale
         try:
             check_solve_path(3 * (2 * mono.patch_radius + 1) ** 2,
-                             (2 * mono.search_window_radius + 1) ** 2)
+                             (2 * mono.search_window_radius + 1) ** 2,
+                             args.tile or 32)
         except NotImplementedError as e:
             print(f"ERROR: {e}")
             return 1

@@ -2,7 +2,8 @@
 
 Every ``.cu`` file is compiled by its own ``nvcc``, all started together
 (``csrc/solve_filter_smem.cu`` by one for each patch dimension it is built
-for and one for its C entries, ``SPLIT``), and the objects are linked into
+for and one for its C entries, ``SPLIT``; ``csrc/solve_filter_big.cu``,
+whose d is a runtime argument, is one unit), and the objects are linked into
 ONE shared library with a plain C interface
 (no PyTorch headers, so the build takes seconds) under ``build/kernels/``
 in the checkout, on first use, and loaded with ``ctypes``. The library's file name carries a hash of the sources and flags,
@@ -43,14 +44,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # solve_filter_smem, solve_filter_243, solve_filter_363, solve_filter_507,
 # solve_filter_675, solve_filter_867, solve_filter_1083, solve_filter_1323,
 # solve_filter_1587 and solve_filter_1875 are csrc/solve_filter_smem.cu at
-# d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587 and 1875
+# d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587 and 1875;
+# solve_filter_big is csrc/solve_filter_big.cu, d a runtime argument (the
+# engine's from d = 2187)
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
             "solve_filter_507": 0, "solve_filter_675": 0,
             "solve_filter_867": 0, "solve_filter_1083": 0,
             "solve_filter_1323": 0, "solve_filter_1587": 0,
-            "solve_filter_1875": 0}
+            "solve_filter_1875": 0, "solve_filter_big": 0}
 
 # sources compiled as several translation units at once: one for each
 # instance (-DBCD_SMEM_D=d) and one for the C entries
@@ -83,8 +86,16 @@ _SIGNATURES = {
                               _I, _P, _P],
     # d, n_blocks -> floats of scratch (a 64-bit count)
     "bcd_solve_filter_smem_scratch_floats": [_I, _I],
+    # the same arguments as bcd_solve_filter_smem, d any patch dimension
+    "bcd_solve_filter_big": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P,
+                             _I, _P, _P],
+    "bcd_solve_filter_big_scratch_floats": [_I, _I],
+    # d, out (6 int64: shared bytes, shared rows, global rows, shared
+    # vectors, global vector floats, slot floats a block) -> 0 or -1
+    "bcd_solve_filter_big_layout": [_I, _P],
 }
-_RESTYPES = {"bcd_solve_filter_smem_scratch_floats": ctypes.c_longlong}
+_RESTYPES = {"bcd_solve_filter_smem_scratch_floats": ctypes.c_longlong,
+             "bcd_solve_filter_big_scratch_floats": ctypes.c_longlong}
 
 _lib = None
 _log = ""

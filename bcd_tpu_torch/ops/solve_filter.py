@@ -27,10 +27,13 @@ kernel with the rows that do not fit there in a global slot of the block
 3.92 MB a block with Cemp and H; at d = 675, 1,280 of 1,352, 7.12 MB; at
 d = 867, 1,683 of 1,736, 11.9 MB; at d = 1083, 2,128 of 2,168, 18.6 MB; at
 d = 1323, 2,618 of 2,648, 27.9 MB; at d = 1587, 3,153 of 3,176, 40.2 MB; at
-d = 1875, 3,735 of 3,752, 56.2 MB); the lane ``solve_matrices``
-has no d = 147 kernel. Larger d is refused where a center could reach the
-solve (``check_solve_path``). The kernels' headers give the math, the design
-and what bounds them.
+d = 1875, 3,735 of 3,752, 56.2 MB), one compiled instance a d. From
+d = 2187 (r = 13) on, every patch dimension runs ``csrc/solve_filter_big.cu``,
+the same algorithm with d a runtime argument (at d = 2187, 4,363 of 4,376
+rows in the global slot, 76.5 MB a block); a d is refused only where one
+block's slot and one band of the stack pass the card's memory
+(``check_solve_path``). The lane ``solve_matrices`` has no d = 147 kernel.
+The kernels' headers give the math, the design and what bounds them.
 ``solve_schedule_core`` is the plain float32 model of every solve
 kernel's schedule (K2's too), the reference they are held to on the card
 beside the float64 twins.
@@ -64,17 +67,17 @@ DTRI = D * (D + 1) // 2
 MISC_CH = D + 6 * NPX + 2
 SMALL_CH = 2 * D + 2
 EIGH_CHUNK = 16384  # cuSOLVER's batched eigh refuses very large batches
-# patch dimensions solve_filter_pm has a kernel for: csrc/solve_filter.cu
-# (r = 1, 2; a thread's column of W or Q, d + 1 floats, in registers) and
-# csrc/solve_filter_smem.cu (r = 3; W and Q, 2 (d + 1)^2 floats, in shared
-# memory, 175 KB of a block's 227 KB; r = 4: 476 KB, 227 of the 488 rows in
-# shared memory, the others in a global slot of the block; r = 5: 1.06 MB,
-# 148 of the 728 rows in shared memory; r = 6: 2.06 MB, 103 of 1,016; r = 7:
-# 3.66 MB, 72 of 1,352; r = 8: 6.03 MB, 53 of 1,736; r = 9: 9.40 MB, 40 of
-# 2,168, nine pivot passes a round; r = 10: 14.0 MB, 30 of 2,648, eleven
-# pivot passes; r = 11: 20.2 MB, 23 of 3,176, thirteen pivot passes;
-# r = 12: 28.2 MB, 17 of 3,752, fifteen pivot passes, the most a round of
-# the kernel may have)
+# patch dimensions solve_filter_pm has a compiled kernel for:
+# csrc/solve_filter.cu (r = 1, 2; a thread's column of W or Q, d + 1
+# floats, in registers) and csrc/solve_filter_smem.cu (r = 3; W and Q,
+# 2 (d + 1)^2 floats, in shared memory, 175 KB of a block's 227 KB; r = 4:
+# 476 KB, 227 of the 488 rows in shared memory, the others in a global slot
+# of the block; r = 5: 1.06 MB, 148 of the 728 rows in shared memory; r = 6:
+# 2.06 MB, 103 of 1,016; r = 7: 3.66 MB, 72 of 1,352; r = 8: 6.03 MB, 53 of
+# 1,736; r = 9: 9.40 MB, 40 of 2,168, nine pivot passes a round; r = 10:
+# 14.0 MB, 30 of 2,648, eleven pivot passes; r = 11: 20.2 MB, 23 of 3,176,
+# thirteen pivot passes; r = 12: 28.2 MB, 17 of 3,752, fifteen pivot
+# passes, the most a round of that kernel may have)
 KERNEL_DIMS = (27, 75, 147, 243, 363, 507, 675, 867, 1083, 1323, 1587,
                1875)
 # the d that csrc/solve_filter_smem.cu runs, with each one's launch counter
@@ -83,10 +86,14 @@ SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243",
              675: "solve_filter_675", 867: "solve_filter_867",
              1083: "solve_filter_1083", 1323: "solve_filter_1323",
              1587: "solve_filter_1587", 1875: "solve_filter_1875"}
+# from this d (patch radius 13) solve_filter_pm runs csrc/solve_filter_big.cu,
+# d a runtime argument, at every patch dimension
+BIG_FROM_D = 2187
 # the lane solve_matrices' kernel (csrc/solve_filter.cu only)
 LANE_KERNEL_DIMS = (27, 75)
 SMEM_BYTES = 232448  # shared memory an H100 block may have
-ROADMAP_LARGE_D = ("ROADMAP.md Queue 2, solve_filter for patch radius >= 13")
+# the card's memory where no card is present (the CPU tests): an H100's
+CARD_BYTES = 80 * 10 ** 9
 ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
@@ -140,30 +147,81 @@ def _check_kernel_inputs(names, tensors) -> None:
             raise ValueError(f"{name} must be contiguous float32")
 
 
-def check_kernel_dim(d: int) -> None:
+def big_layout(d: int):
+    """``csrc/solve_filter_big.cu``'s layout at patch dimension d (its
+    ``make_layout``), or None for a d it cannot lay out (not a multiple of
+    3, or d + d % 2 not of 4: no patch dimension 3 (2r + 1)^2): shared
+    bytes a block, rows of W and Q in shared memory and in the global slot,
+    vectors in shared memory (of 9: m, noise, diag, f, neg, 1 / L, the seat
+    maps, the pair records, the staged pivot rows, in that order; the rest
+    in the slot) and their floats in the slot, and the slot's floats a
+    block (Cemp, H, the global rows and vectors). The kernel itself lays
+    out d up to 131,067 (its unsigned unit counts), where one block's slot
+    takes 275 GB, more than a card holds."""
+    dp = d + d % 2
+    if d < 3 or d % 3 or dp % 4:
+        return None
+    floats = SMEM_BYTES // 4
+    sizes = [dp, (6 * (d // 3) + 3) // 4 * 4, dp, dp, dp, dp, 2 * dp,
+             2 * dp, 2 * dp]
+    shared = k = 0
+    while k < len(sizes) and shared + sizes[k] <= floats:
+        shared += sizes[k]
+        k += 1
+    rs = min((floats - shared) // dp, 2 * dp)
+    gvec = sum(sizes[k:])
+    return {"smem_bytes": 4 * (rs * dp + shared), "shared_rows": rs,
+            "global_rows": 2 * dp - rs, "shared_vectors": k,
+            "global_vector_floats": gvec,
+            "slot_floats": 2 * dp * dp + (2 * dp - rs) * dp + gvec}
+
+
+def card_bytes() -> int:
+    """The card's memory, or an H100's (``CARD_BYTES``) on a host with
+    none."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(0).total_memory
+    return CARD_BYTES
+
+
+def check_kernel_dim(d: int, n_off: int = 0, centers: int = 0) -> None:
     """Raise NotImplementedError for a patch dimension ``solve_filter_pm``
-    has no CUDA kernel for."""
-    if d not in KERNEL_DIMS:
-        need = 2 * (d + d % 2) ** 2 * 4
+    cannot run on the card. Below ``BIG_FROM_D`` the compiled kernels take
+    the d in ``KERNEL_DIMS`` (patch radius 1 to 12); from it the runtime-d
+    kernel takes every patch dimension, unless one block's global slot
+    and the candidate stack of ``centers`` centers of ``n_off`` offsets
+    (the engine's least band: one row of a tile's centers) pass the card's
+    memory (``card_bytes()``): then the message names the bytes."""
+    if d in KERNEL_DIMS:
+        return
+    lay = big_layout(d) if d >= BIG_FROM_D else None
+    if lay is None:
         raise NotImplementedError(
-            f"patch dimension d = {d}: the CUDA solve kernels are built for "
-            f"d in {KERNEL_DIMS} (patch radius 1 to 12); the Jacobi's two "
-            f"working matrices take {need} bytes at this d, more than the "
-            f"{SMEM_BYTES} bytes of shared memory a block may have (the "
-            f"d = 243 to 1875 kernels keep the rows that do not fit there in "
-            f"a global slot, built for those d only); see {ROADMAP_LARGE_D}")
+            f"d = {d} is not a patch dimension 3 (2r + 1)^2: the CUDA solve "
+            f"kernels run d in {KERNEL_DIMS} and every patch dimension from "
+            f"{BIG_FROM_D} (patch radius 13) on")
+    slot, band = 4 * lay["slot_floats"], 4 * centers * n_off * d
+    total = card_bytes()
+    if slot + band > total:
+        raise NotImplementedError(
+            f"patch dimension d = {d}: one block of the solve kernel takes "
+            f"{slot} bytes of global memory and one band of the candidate "
+            f"stack ({centers} centers of {n_off} offsets) {band} bytes, "
+            f"{slot + band} bytes in all, more than the card's {total} bytes "
+            "of memory")
 
 
-def check_solve_path(d: int, n_off: int) -> None:
-    """The CUDA engine's gate, decided from the patch dimension ``d`` and
-    the window's ``n_off`` = (2b + 1)^2 offsets: a center takes the main
-    path, and so the solve kernel, only with n >= d + 1 similar
-    candidates, so with n_off <= d no kernel launches whatever d is (every
-    center takes the mean-patch fallback, as JAX's plain path runs it).
-    Raises ``check_kernel_dim``'s NotImplementedError only where a center
-    could reach a solve kernel the port lacks."""
+def check_solve_path(d: int, n_off: int, centers: int = 32) -> None:
+    """The CUDA engine's gate, decided from the patch dimension ``d``, the
+    window's ``n_off`` = (2b + 1)^2 offsets and the centers of the
+    engine's least band (a row of a tile: ``centers``, the tile's side): a
+    center takes the main path, and so the solve kernel, only with
+    n >= d + 1 similar candidates, so with n_off <= d no kernel launches
+    whatever d is (every center takes the mean-patch fallback, as JAX's
+    plain path runs it). Raises ``check_kernel_dim``'s NotImplementedError
+    only where a center could reach a solve the card cannot hold."""
     if n_off >= d + 1:
-        check_kernel_dim(d)
+        check_kernel_dim(d, n_off, centers)
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +484,68 @@ def solve_filter_plain(C_t, mask_t, noise_t, n_t, m_t, min_eigen: float,
         npx).permute(1, 2, 0).contiguous()
 
 
+def _pm_check(cand, mask, noise, n, m, npx: int):
+    """solve_filter_pm's argument checks; returns (P, O, d)."""
+    if cand.dim() != 3:
+        raise ValueError(f"cand must be (P, O, d), got {tuple(cand.shape)}")
+    p_total, n_off, d = cand.shape
+    if d != 3 * npx:
+        raise ValueError(f"d = {d} is not 3 * npx = {3 * npx}")
+    names = ("cand", "mask", "noise", "n", "m")
+    tensors = (cand, mask, noise, n, m)
+    for name, t, shape in zip(names, tensors, (
+            (p_total, n_off, d), (p_total, n_off), (p_total, 6 * npx),
+            (p_total,), (p_total, d))):
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    _check_kernel_inputs(names, tensors)
+    return p_total, n_off, d
+
+
+def _pm_field(cand, rows):
+    """The field solve_filter_pm returns on the card, the rows to solve
+    (int32 or None) and their count."""
+    p_total, n_off, d = cand.shape
+    if rows is None:
+        return torch.empty((p_total, n_off, d), device=cand.device), None, \
+            p_total
+    rows_i32 = rows.to(device=cand.device, dtype=torch.int32).contiguous()
+    return (torch.zeros((p_total, n_off, d), device=cand.device), rows_i32,
+            rows_i32.numel())
+
+
+def _launch_big(tensors, rows_i32, n_rows: int, min_eigen: float,
+                sweeps: int, field) -> None:
+    """csrc/solve_filter_big.cu on ``n_rows`` pixels: a persistent grid of
+    as many blocks as the SMs, the rows and the card's free memory allow,
+    each with its global slot."""
+    _, n_off, d = field.shape
+    lay = big_layout(d)
+    if lay is None:
+        check_kernel_dim(d)  # raises: d is no patch dimension
+    dev = field.device
+    slot = 4 * lay["slot_floats"]
+    free, _ = torch.cuda.mem_get_info(dev)
+    avail = (free + torch.cuda.memory_reserved(dev)
+             - torch.cuda.memory_allocated(dev))
+    n_blocks = min(n_rows, avail // slot, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    if n_blocks < 1:
+        raise NotImplementedError(
+            f"patch dimension d = {d}: one block of the solve kernel takes "
+            f"{slot} bytes of global memory, more than the card's {avail} "
+            "bytes free")
+    p, lib = _build.ptr, _build.library()
+    scratch = torch.empty(lib.bcd_solve_filter_big_scratch_floats(d, n_blocks),
+                          device=dev)
+    rc = lib.bcd_solve_filter_big(
+        *map(p, tensors), None if rows_i32 is None else p(rows_i32),
+        float(min_eigen), n_rows, n_off, d, int(sweeps), p(scratch), n_blocks,
+        p(field), _build.stream_of(field))
+    _build.LAUNCHES["solve_filter_big"] += 1
+    _build.check(rc, "solve_filter_big")
+
+
 def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
                     sweeps: int, rows=None):
     """Per-pixel solve and filter of every candidate, pixel-major: the
@@ -440,33 +560,21 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
     kernel's number of Jacobi sweeps; the twin's exact eigh has none. On
     CUDA, d = 27 and 75 run ``csrc/solve_filter.cu``, d = 147, 243, 363,
     507, 675, 867, 1083, 1323, 1587 and 1875 ``csrc/solve_filter_smem.cu``,
-    and any other d is refused (``check_kernel_dim``) unless no pixel is to
-    be solved (an empty ``rows``: no launch).
+    and every patch dimension from 2187 on ``csrc/solve_filter_big.cu``,
+    unless no pixel is to be solved (an empty ``rows``: no launch); a d
+    that is no patch dimension, or whose kernel's slot passes the card's
+    memory, is refused (``check_kernel_dim``). A failed launch raises.
     """
-    if cand.dim() != 3:
-        raise ValueError(f"cand must be (P, O, d), got {tuple(cand.shape)}")
-    p_total, n_off, d = cand.shape
-    if d != 3 * npx:
-        raise ValueError(f"d = {d} is not 3 * npx = {3 * npx}")
-    names = ("cand", "mask", "noise", "n", "m")
+    p_total, n_off, d = _pm_check(cand, mask, noise, n, m, npx)
     tensors = (cand, mask, noise, n, m)
-    for name, t, shape in zip(names, tensors, (
-            (p_total, n_off, d), (p_total, n_off), (p_total, 6 * npx),
-            (p_total,), (p_total, d))):
-        if t.shape != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    _check_kernel_inputs(names, tensors)
     if cand.device.type == "cpu":
         return solve_filter_pm_plain(cand, mask, noise, n, m, min_eigen, npx,
                                      rows)
-    if rows is None:
-        field = torch.empty((p_total, n_off, d), device=cand.device)
-        n_rows, rows_i32 = p_total, None
-    else:
-        field = torch.zeros((p_total, n_off, d), device=cand.device)
-        rows_i32 = rows.to(device=cand.device, dtype=torch.int32).contiguous()
-        n_rows = rows_i32.numel()
+    field, rows_i32, n_rows = _pm_field(cand, rows)
     if n_rows == 0:  # nothing to solve: no launch, whatever d is
+        return field
+    if d >= BIG_FROM_D:
+        _launch_big(tensors, rows_i32, n_rows, min_eigen, sweeps, field)
         return field
     check_kernel_dim(d)
     p, lib = _build.ptr, _build.library()
@@ -490,6 +598,25 @@ def solve_filter_pm(cand, mask, noise, n, m, min_eigen: float, npx: int,
         int(sweeps), p(field), _build.stream_of(cand))
     _build.LAUNCHES["solve_filter"] += 1
     _build.check(rc, "solve_filter")
+    return field
+
+
+def solve_filter_pm_big(cand, mask, noise, n, m, min_eigen: float, npx: int,
+                        sweeps: int, rows=None):
+    """``csrc/solve_filter_big.cu`` at any patch dimension, with
+    ``solve_filter_pm``'s arguments and result: the kernel that
+    ``solve_filter_pm`` runs from d = 2187, called directly at a smaller d
+    only by the checks that hold it to the compiled instances there
+    (``chip_smoke.py`` phase 17 (a), ``tests/test_torch_kernels_gpu.py``).
+    On the CPU the plain twin."""
+    _pm_check(cand, mask, noise, n, m, npx)
+    if cand.device.type == "cpu":
+        return solve_filter_pm_plain(cand, mask, noise, n, m, min_eigen, npx,
+                                     rows)
+    field, rows_i32, n_rows = _pm_field(cand, rows)
+    if n_rows:
+        _launch_big((cand, mask, noise, n, m), rows_i32, n_rows, min_eigen,
+                    sweeps, field)
     return field
 
 

@@ -6,9 +6,9 @@
 
 The second form times one ``bcd -w R -b B --stats`` run on the scene's
 top-left H x W crop through the CLI's entry point, after the kernels are
-built, and runs nothing else: R is phase 8's to 16's patch radius (4, 5,
-6, 7, 8, 9, 10, 11 or 12; 5 by default) and B its search radius (8, 10,
-11, 13, 15, 16, 18, 20 or 22).
+built, and runs nothing else: R is phase 8's to 17's patch radius (4, 5,
+6, 7, 8, 9, 10, 11, 12 or 13; 5 by default) and B its search radius (8,
+10, 11, 13, 15, 16, 18, 20, 22 or 23).
 
 Phases of the first, each printed on its own lines; any failure exits
 non-zero before the final line:
@@ -16,7 +16,7 @@ non-zero before the final line:
 1. The card (name, count, power limit) and the kernel build: nvcc's
    register, shared-memory and spill report for every kernel; K2's must
    show no spill (its Jacobi lives in registers). Beside the build, the
-   1088x1920 scene of phases 2 to 16, its statistics and EXR files.
+   1088x1920 scene of phases 2 to 17, its statistics and EXR files.
 2. Each kernel against its plain PyTorch twin, timed with CUDA events,
    beside its bound (``bcd_tpu_torch/ops/bounds.py``, from this run's
    shapes and mask counts); K2 also against the plain fp32 model of its own
@@ -154,22 +154,38 @@ non-zero before the final line:
    checked as phase 15 checks the -w 11 path: synthetic stacks against
    the float64 twin at the engine's sweeps and the fp32 model two sweeps
    past them; the real one-tile r = 12, b = 22 batch, its first and last
-   66 main-path rows (one wave) timed once in place, the last past
-   element 2^31 of the stack, held bit for bit to a compact call on 32 of
-   them; ``bcd -w 12 -b 22 -s 2`` on a 68x68 crop (launches only
-   solve_filter_1875; peak memory); ``bcd -w 12 -b 21 -s 2`` and ``bcd -w
-   13 -b 22 -s 2`` on that crop (no solve launch); that crop against the
-   port's CPU pipeline.
+   16 main-path rows timed once in place, the last past element 2^31 of
+   the stack, held bit for bit to a compact call on them; ``bcd -w 12 -b
+   22 -s 2`` on a 68x68 crop (launches only solve_filter_1875; peak
+   memory), with the kernel calls of (a) and (b) whose time is not read
+   beside it; ``bcd -w 12 -b 21 -s 2`` on that crop (no solve launch);
+   (c)'s output against the same pipeline on the card with the float64
+   twin in the kernel's place (the port's CPU pipeline took 347-429 s
+   there, and ended after the card's phases).
+17. The -w 13 path (d = 2187, the runtime-d kernel solve_filter_big of
+   csrc/solve_filter_big.cu, which runs every patch radius from 13 on;
+   4,363 of its 4,376 rows in the global slot, eighteen pivot passes a
+   round; a tile's centers solved in bands of 16 rows) at b = 23: (a) the
+   kernel forced to d = 147 and 363 through its test-only entry, bit for
+   bit the compiled instances and within the fp32 model; (b) 4 synthetic
+   pixels at d = 2187 (pivots of passes 9 to 18 non-zero) at the engine's
+   sweeps against the float64 twin and two past them against the fp32
+   model on 2, its kernel calls beside (c); (c) ``bcd -w 13 -b 23 -s 2`` on a
+   74x74 crop, traced on its own stream (launches only solve_filter_big;
+   the centers that reach the solve, its share of the device time, peak
+   memory, tiles and bands); (d) ``bcd -w 13 -b 22 -s 2`` on that crop (no
+   solve launch); (e) (c)'s output against the same pipeline on the card
+   with the float64 twin in the kernel's place.
 
-The crops' CPU references (phases 5, 7 and 8 to 16's (e)), the port's
+The crops' CPU references (phases 5, 7 and 8 to 15's (e)), the port's
 CPU pipeline on each crop, are computed one after another from phase 5's
 start in a process of their own (spawned; it never touches the card),
 beside the card's work, on tiles as small as the crop allows.
-From phase 8 on the frame's main-path fraction is read on an eighth of
+From phase 8 to 16 the frame's main-path fraction is read on an eighth of
 its tiles.
-Phases 10 to 15 time the first and last 16 main rows of their batch in
+Phases 10 to 16 time the first and last 16 main rows of their batch in
 place and hold them bit for bit to one compact call on the same rows and
-to the float64 twin; phase 16 times one wave. From phase 10, where (c)'s
+to the float64 twin. From phase 10, where (c)'s
 crop is (e)'s, (e) runs the card once, on the inputs and parameters of
 (c)'s CLI run, and holds it bit for bit to that run (else twice); the
 kernel calls of (a) and (b) whose time is not read run on side streams
@@ -273,7 +289,8 @@ SOLVE_KERNELS = ("solve_matrices_pm", "solve_filter", "solve_matrices",
                  "solve_filter_smem", "solve_filter_243", "solve_filter_363",
                  "solve_filter_507", "solve_filter_675", "solve_filter_867",
                  "solve_filter_1083", "solve_filter_1323",
-                 "solve_filter_1587", "solve_filter_1875")
+                 "solve_filter_1587", "solve_filter_1875",
+                 "solve_filter_big")
 # the smallest search radius whose window reaches the main path at r = 4:
 # 289 offsets, where n >= d + 1 = 244 similar candidates are needed (b = 6
 # offers 169, b = 7 225)
@@ -358,12 +375,6 @@ R6_SYNTH_PIXELS = 32
 # d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
 # convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
 R6_MODEL_BATCH_REL_RMS = 2e-5
-# phase 16 holds the rows it times in place bit for bit to a compact call
-# on the first and last COMPACT_CENTERS / 2 of them, which keeps the rows
-# at the stack's highest offsets (phase 15 did until phase 16, phases 10
-# to 14 until phase 15: see PART_ROWS); the float64 twin still runs on its
-# centers
-COMPACT_CENTERS = 32
 # centers of the real r = 6 batch the model runs on. The whole 8-tile
 # batch took 98.4 s on an H100, most of phase 10 (PERF.md): it is timed on
 # a part (PART_ROWS), its first and last 264 rows until phase 13 needed the
@@ -602,39 +613,73 @@ R12_MODEL_SWEEPS = 12
 R12_SYNTH_PIXELS = 8
 # the real r = 12 batch against the fp32 model: phase 15's limit
 R12_MODEL_BATCH_REL_RMS = 2e-5
-# the first and the last main-path rows of the one-tile r = 12 batch timed
-# in place: one wave of the persistent grid, whose 132 rows are the twin's
-# centers and the kernels line's, held bit for bit to the compact call
-# (COMPACT_CENTERS). The last lie past element 2^31 of the
-# (1024, 2025, 1875) stack
-WAVE_ROWS = 66
-R12_TWIN_CENTERS = 2 * WAVE_ROWS
+# the one-tile r = 12 batch is timed on a part in place (PART_ROWS; one
+# wave of 132 rows, 96937.016 ms on an H100, until phase 17 needed the
+# run's time), the last rows past element 2^31 of the (1024, 2025, 1875)
+# stack
 # the r = 12, b = 22 finest-scale main-path fraction of the frame's part and
 # of the one-tile batch must exceed these (stated before the first reading:
 # at r = 11 the frame's part read 0.6861 and its batch 1.0)
 R12_MAIN_FLOOR = 0.4
 R12_BATCH_FLOOR = 0.8
 # (e): the smallest top-left crop of the scene (after the prefilter) in
-# which a center reaches the solve at r = 12, b = 22
+# which a center reaches the solve at r = 12, b = 22; its reference is the
+# same pipeline on the card with the float64 twin in the kernel's place
+# (wide_phases' "reference"): the port's CPU pipeline took 347-429 s in the
+# reference process (33.4 GiB) and ended 96.9 s after phase 16 needed it
+# (an H100 run)
 R12_CPU_CROP = 68
 # (c): bcd -w 12 -b 22 -s 2 on (e)'s crop: its 34x34 coarse scale still
 # holds a 25x25 patch
 R12_CROP = (R12_CPU_CROP, R12_CPU_CROP)
 R12_SCALES = 2
-# (d): besides -w 12 -b 21, -w 13 -b 22 on the crop, where no center can
-# reach the d = 2187 solve (2,025 offsets), which has no kernel
-R13_NO_SOLVE = (13, 22)
+# phase 17, d = 2187 and up (csrc/solve_filter_big.cu, d a runtime
+# argument: 4,363 of the 4,376 rows of W and Q in a global slot, eighteen
+# pivot passes a round, a lane forming the angles of passes k, k + 8 and
+# k + 16), at the engine's sweeps
+R13_KERNELS = ("solve_filter_big",)
+# the smallest search radius whose window reaches the main path at r = 13:
+# 2,209 offsets, where n >= d + 1 = 2,188 similar candidates are needed
+# (b = 22 offers 2,025)
+R13_SEARCH = 23
+# (a): the runtime-d kernel forced to compiled instances' d through its
+# test-only entry (solve_filter_pm_big), on R13_SMALL_PIXELS synthetic
+# pixels: (O, d, the model's sweeps), the model two sweeps past the
+# engine's at d = 363, where phase 9's rank-deficient rows have converged
+R13_SMALL = ((169, 147, 8), (441, 363, 10))
+R13_SMALL_PIXELS = 8
+# (b): d = 2187 on R13_SYNTH_PIXELS synthetic pixels (pivots of passes 9 to
+# 18 non-zero), at the engine's sweeps against the float64 twin, and two
+# sweeps past them (12) against the fp32 model on LATE_MODEL_PIXELS, as
+# phases 13 to 16 hold theirs. Not at 2 sweeps: there the schedule is far from
+# converged, and the model against itself with the candidates reversed (two
+# fp32 summation orders of one schedule) parts by 9.5e-3 to 1.7e-2 rms at
+# d = 147 to 1083 (full masks; rank-deficient rows give NaN, their
+# negative directions not yet clamped), so no limit under that could hold
+# the kernel to its model there
+R13_SYNTH_PIXELS = 4
+# (c): the smallest top-left crop of the scene (after the prefilter) in
+# which a few centers reach the solve at r = 13, b = 23: 74x74, 4 centers
+# (73x73 holds 1, 72x72 none; an H100 run), in the finest scale's
+# tile 3 (of 9), in its first band of 16 rows
+R13_CROP = (74, 74)
+R13_SCALES = 2
+# (d): -w 13 at b = 22 on that crop, where no center can reach the solve
+# (2,025 offsets)
+# (e): the crop against the same pipeline on the card with the float64
+# twin in the kernel's place, within the CPU comparisons' R2_CPU_RMSE: the
+# port's CPU pipeline at r = 13 would take about 550 s in the reference
+# process (r = 12's took 347-419 s, 33.4 GiB), past the card's phases
 # phases 13 to 16 hold the kernel to the fp32 model on the first
 # LATE_MODEL_PIXELS of their synthetic pixels and of their batch's timed
 # rows (8 until phase 16 needed the run's time; the twin still on all):
 # replayed as a CUDA graph the model's rounds are bound by their HBM
 # traffic, which the pixels set
 LATE_MODEL_PIXELS = 2
-# phases 10 to 15 time the first and last PART_ROWS main rows of their
+# phases 10 to 16 time the first and last PART_ROWS main rows of their
 # batch in place and hold them bit for bit to one compact call on the same
-# rows and to the float64 twin (a wave of 132, or two, until phase 15 or 16
-# needed the run's time; their readings stay in PERF.md); phase 16 times a
-# wave
+# rows and to the float64 twin (a wave of 132, or two, until phase 15, 16
+# or 17 needed the run's time; their readings stay in PERF.md)
 PART_ROWS = 16
 # phases 8 to 16 read the frame's finest-scale main-path fraction on every
 # FRAME_PART-th 16-tile batch, an eighth of the frame's tiles spread over
@@ -1292,8 +1337,8 @@ class Beside:
     check's side streams and compares. Returns the seconds from ``open``
     to the models' start."""
 
-    def __init__(self, dev):
-        self.dev, self.checks = dev, []
+    def __init__(self, dev, label="(e)'s card run"):
+        self.dev, self.label, self.checks = dev, label, []
 
     def add(self, launch, model, finish):
         self.checks.append((launch, model, finish))
@@ -1388,7 +1433,7 @@ def compare_smem_synthetic(dev, sweeps, O=169, d=147, tag="[7]",
         when = (f"the kernel's {len(counts)} calls beside the twin "
                 f"{kernel_s:.1f} s, then the model {model_s:.1f} s"
                 if kernel_s is not None else
-                f"the kernel's {len(counts)} calls beside (e)'s card run, "
+                f"the kernel's {len(counts)} calls beside {beside.label}, "
                 f"then the model {model_s:.1f} s")
         print(f"{tag} synthetic d={d} (O={O}, {pixels} pixels): {name} at "
               f"{model_sweeps} sweeps vs its fp32 schedule model on the "
@@ -1536,8 +1581,8 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
              f"{(last + 1) * n_off * d - 1})")
         rel_m = rel_rms(field_model, model_out)
         when = (f"the call beside the model {compact_s:.1f} s"
-                if compact_s is not None else "the call beside (e)'s card "
-                "run")
+                if compact_s is not None else
+                f"the call beside {beside.label}")
         print(f"{tag} {label} {name}: the engine's in-place rows bitwise "
               f"equal to the compact call on {on_rows}, up to element "
               f"{(last + 1) * n_off * d - 1} of the stack ({when}); field "
@@ -1753,14 +1798,15 @@ def wide_phases():
     """Phases 8 to 16 by patch radius: the launch counter of the kernel the
     radius runs, its window's offsets, its search radius (the smallest that
     reaches the main path), limits and sizes, the keyword arguments of its
-    synthetic and real-batch checks, the b of its gate's run (and the
-    (radius, b) of other runs that must take no solve); each phase times
-    its batch once, not after a warm-up (phase 8's after one until phase 14
-    needed the run's time). From d = 363 on the last main rows of the batch
-    are held in
-    place to the compact call as well as the first. ``scales``, where
-    given, is the ``-s`` of the crop's CLI runs (else the default)."""
-    # phases 10 to 15: the first and last PART_ROWS main rows, timed in
+    synthetic and real-batch checks, the b of its gate's run; each phase
+    times its batch once, not after a warm-up (phase 8's after one until
+    phase 14 needed the run's time). From d = 363 on the last main rows of
+    the batch are held in place to the compact call as well as the first.
+    ``scales``, where given, is the ``-s`` of the crop's CLI runs (else the
+    default); ``reference`` "twin" holds the crop to the same pipeline on
+    the card with the float64 twin in the kernel's place, not to the port's
+    CPU pipeline."""
+    # phases 10 to 16: the first and last PART_ROWS main rows, timed in
     # place, held to one compact call on all of them and to the twin
     part = dict(bitwise_centers=PART_ROWS, tail_centers=PART_ROWS,
                 part=True, twin_centers=2 * PART_ROWS,
@@ -1846,14 +1892,9 @@ def wide_phases():
                             model_sweeps=R12_MODEL_SWEEPS,
                             model_pixels=LATE_MODEL_PIXELS),
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
-                            model_limit=R12_MODEL_BATCH_REL_RMS,
-                            bitwise_centers=WAVE_ROWS,
-                            tail_centers=WAVE_ROWS, part=True,
-                            twin_centers=R12_TWIN_CENTERS,
-                            compact_centers=COMPACT_CENTERS),
-                 # no solve: -w 12 at b = 21 (1,849 offsets), and -w 13 at
-                 # b = 22, whose d = 2187 has no kernel
-                 no_solve_b=21, no_solve_more=(R13_NO_SOLVE,)),
+                            model_limit=R12_MODEL_BATCH_REL_RMS, **part),
+                 # no solve: -w 12 at b = 21 (1,849 offsets)
+                 no_solve_b=21, reference="twin"),
     }
 
 
@@ -1902,7 +1943,8 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     # (a) synthetic; from phase 10 its kernel calls and model are queued
     # to run beside (e)'s card run (``Beside``), and so are (b)'s compact
     # call and model
-    later = Beside(dev) if one_crop(c) else None
+    later = (Beside(dev, "(c) to (e)") if c.get("reference") == "twin"
+             else Beside(dev) if one_crop(c) else None)
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, beside=later, **c["synth"])
     step_done("a")
@@ -1954,13 +1996,23 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     out_path = crop_path.replace(".exr", "_out.exr")
     argv = ["-i", crop_path, "-o", out_path, *w, *scales]
     rcs = []
-    _build.reset_launches()
+    twin_ref = c.get("reference") == "twin"
+
+    def run():
+        # with the card-twin reference, (a)'s and (b)'s queued calls run
+        # beside this run, started inside the trace (its start waits for
+        # the card to be idle) and before the counts are reset
+        if twin_ref:
+            later.open()
+        _build.reset_launches()
+        rcs.append(cli.main(argv))
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with recorded_pipeline() as record:
         cli_s, busy, rows = device_time_table(
-            f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop",
-            lambda: rcs.append(cli.main(argv)))
+            f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop", run,
+            own_stream=twin_ref)
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.LAUNCHES)
     need(rcs == [0], f"{' '.join(w)} CLI run")
@@ -1996,39 +2048,40 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     step_done("c")
 
     # (d) the gate: -w r on the crop at a b whose window cannot reach the
-    # solve, where no center reaches it (and from r = 12 the next radius at
-    # this b, whose d has no kernel)
-    for r0, b0 in ((radius, c["no_solve_b"]), *c.get("no_solve_more", ())):
-        d0 = 3 * (2 * r0 + 1) ** 2
-        out_path0 = crop_path.replace(".exr", f"_out_w{r0}b{b0}.exr")
-        argv0 = ["-i", crop_path, "-o", out_path0, "-w", str(r0), "-b",
-                 str(b0), *scales]
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rc = cli.main(argv0)
-        wall0 = time.perf_counter() - t0
-        launches0 = dict(_build.LAUNCHES)
-        need(rc == 0, f"-w {r0} (b = {b0}) CLI run")
-        need(not any(launches0[k] for k in SOLVE_KERNELS),
-             f"the -w {r0} b = {b0} run launched a solve kernel: "
-             f"{launches0}")
-        out0 = image_io.load_exr(out_path0)
-        need(out0.shape == clean_c.shape and np.isfinite(out0).all(),
-             f"-w {r0} (b = {b0}) CLI output shape / finiteness")
-        print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv0)}: rc 0, "
-              f"{wall0:.3f} s wall with EXR I/O; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
-              f"launches {launches0} (no solve: {(2 * b0 + 1) ** 2} offsets "
-              f"< {d0 + 1}); rmse vs clean {rmse(out0, clean_c):.5f}, noisy "
-              f"input {e_in_c:.5f}", flush=True)
+    # solve, where no center reaches it
+    no_solve_run(tag, crop_path, radius, c["no_solve_b"], scales, clean_c,
+                 e_in_c)
     step_done("d")
 
     # (e) the crop on the card against the port's CPU pipeline, and bitwise
     # repeatable: run twice, or from phase 10, where (c)'s crop is (e)'s,
     # once on the inputs and parameters of (c)'s CLI run, whose output it
-    # must repeat, with (a)'s and (b)'s queued kernel calls beside it
+    # must repeat, with (a)'s and (b)'s queued kernel calls beside it; or,
+    # where the CPU pipeline would end after the card's phases (r = 12),
+    # (c)'s output against the same pipeline on the card with the float64
+    # twin in the kernel's place, as phase 17
+    if twin_ref:
+        ref, twin_calls = twin_reference(tag, record, crop_path, radius, b,
+                                         c["scales"])
+        got = record["out"]
+        gap = rmse(got.cpu(), ref.cpu())
+        print(f"{tag} {' '.join(w)} pipeline on the {k}x{k} crop: (c)'s "
+              f"card output vs the same pipeline on the card with the "
+              f"float64 twin in the kernel's place (the reference; the "
+              f"port's CPU pipeline took 347-429 s, past the card's phases) "
+              f"rmse {gap:.3e} (limit {R2_CPU_RMSE:g}), max abs "
+              f"{float((got - ref).abs().max()):.3e}; the twin "
+              f"{sum(ms for _, ms in twin_calls):.3f} ms on "
+              f"{sum(n for n, _ in twin_calls)} centers", flush=True)
+        need(gap < R2_CPU_RMSE, f"-w {radius} on the card against its "
+             "reference")
+        t0 = time.perf_counter()
+        window_s = later.close()
+        print(f"{tag} (a)'s and (b)'s kernel calls beside (c) to (e): "
+              f"{window_s:.1f} s from their start, then their models "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        step_done("e")
+        return (max(res[0], e_syn[0]),) + res[1:], launches
     if one_crop(c):
         inputs, kwargs = record["args"], record["kwargs"]
         need(all(np.array_equal(x, y) for x, y in zip(
@@ -2076,6 +2129,251 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
          "pipeline")
     step_done("e")
     return res, launches
+
+
+def no_solve_run(tag, crop_path, radius, b, scales, clean_c, e_in_c) -> None:
+    """``bcd -w radius -b b`` through the CLI's entry point on a crop where
+    the window cannot reach the solve: it runs, launches no solve kernel
+    and gives a finite image; wall time and peak memory."""
+    import torch
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+
+    d = 3 * (2 * radius + 1) ** 2
+    out_path = crop_path.replace(".exr", f"_out_w{radius}b{b}.exr")
+    argv = ["-i", crop_path, "-o", out_path, "-w", str(radius), "-b",
+            str(b), *scales]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    need(rc == 0, f"-w {radius} (b = {b}) CLI run")
+    need(not any(launches[k] for k in SOLVE_KERNELS),
+         f"the -w {radius} b = {b} run launched a solve kernel: {launches}")
+    out = image_io.load_exr(out_path)
+    need(out.shape == clean_c.shape and np.isfinite(out).all(),
+         f"-w {radius} (b = {b}) CLI output shape / finiteness")
+    print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv)}: rc 0, "
+          f"{wall:.3f} s wall with EXR I/O; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
+          f"{launches} (no solve: {(2 * b + 1) ** 2} offsets < {d + 1}); "
+          f"rmse vs clean {rmse(out, clean_c):.5f}, noisy input "
+          f"{e_in_c:.5f}", flush=True)
+
+
+def twin_reference(tag, record, crop_path, radius, b, scales):
+    """The pipeline call of a traced CLI run (``recorded_pipeline``'s
+    ``record``), run again on the card with the float64 twin
+    ``solve_filter_pm_plain`` in the solve kernel's place: swapped here, in
+    the smoke's own run, not in the engine. Checks that the recorded call
+    is the CLI's on the crop's files and that no kernel launches. Returns
+    the output and the twin's (centers, ms) a solve call."""
+    import torch
+    from bcd_tpu_torch.core import monoscale
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    inputs, kwargs = record["args"], record["kwargs"]
+    need(all(np.array_equal(x, y) for x, y in zip(inputs[:4],
+                                                  load_scene(crop_path)))
+         and inputs[5] == cpu_pipeline_params(radius, b, scales)
+         and kwargs["tile"] is None and kwargs["skip_stride"] == 1,
+         f"{tag} the CLI's pipeline call is not the reference's")
+    twin_calls = []
+
+    def twin(cand, mask, noise, n, m, min_eigen, npx, sweeps, rows=None):
+        t0 = time.perf_counter()
+        field = ts.solve_filter_pm_plain(cand, mask, noise, n, m, min_eigen,
+                                         npx, rows)
+        torch.cuda.synchronize()
+        twin_calls.append((0 if rows is None else int(rows.numel()),
+                           (time.perf_counter() - t0) * 1e3))
+        return field
+
+    engine_solve = monoscale.solve_filter_pm
+    _build.reset_launches()
+    monoscale.solve_filter_pm = twin
+    try:
+        ref = record["run"](*inputs, **{
+            k: v for k, v in kwargs.items()
+            if k not in ("progress_callback", "stats")})
+    finally:
+        monoscale.solve_filter_pm = engine_solve
+    need(not any(_build.LAUNCHES.values()),
+         f"{tag} the reference run launched a kernel: {_build.LAUNCHES}")
+    return ref, twin_calls
+
+
+def big_phase(dev, card, stats, clean, scene_path, radius=13, b=R13_SEARCH,
+              crop=R13_CROP):
+    """Phase 17: the -w 13 path (d = 2187, the runtime-d kernel
+    ``solve_filter_big``) at b = 23, each step's time printed (another
+    ``radius``, ``b`` and ``crop`` rehearse it on the host at a small size,
+    with the card's calls stubbed). Returns the kernels line's entry
+    (max_abs_err, ms, plain_ms, bound) and the crop's launch counts."""
+    import torch
+    from bcd_tpu_torch import cli
+    from bcd_tpu_torch.core import monoscale
+    from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
+                                              solve_filter_sweeps)
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build, bounds
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    tag, (name,) = "[17]", R13_KERNELS
+    d = 3 * (2 * radius + 1) ** 2
+    npx, n_off = d // 3, (2 * b + 1) ** 2
+    sweeps = solve_filter_sweeps(d)
+    w = ["-w", str(radius), "-b", str(b)]
+    scales = ["-s", str(R13_SCALES)]
+    t_step = [time.perf_counter()]
+
+    def step_done(step):
+        now = time.perf_counter()
+        print(f"{tag} ({step}) in {now - t_step[0]:.1f} s", flush=True)
+        t_step[0] = now
+
+    # (a) the runtime-d kernel at compiled instances' d, forced through its
+    # test-only entry: bit for bit the instance (the same pair arithmetic,
+    # pivot sums and reduction order), and against the fp32 model
+    err = 0.0
+    for O, d0, model_sweeps in R13_SMALL:
+        pm = pm_of(stack_inputs(np.random.default_rng(d0), O, d0,
+                                R13_SMALL_PIXELS, dev))
+        s0 = solve_filter_sweeps(d0)
+        big = ts.solve_filter_pm_big(*pm, 1e-8, npx=d0 // 3, sweeps=s0)
+        inst = ts.solve_filter_pm(*pm, 1e-8, npx=d0 // 3, sweeps=s0)
+        big_m = big if model_sweeps == s0 else ts.solve_filter_pm_big(
+            *pm, 1e-8, npx=d0 // 3, sweeps=model_sweeps)
+        model = ts.solve_filter_pm_schedule(*pm, 1e-8, d0 // 3,
+                                            model_sweeps)
+        e_m = rmse(big_m.cpu(), model.cpu())
+        print(f"{tag} synthetic d={d0} (O={O}, {R13_SMALL_PIXELS} pixels): "
+              f"{name} at {s0} sweeps bitwise the compiled instance's field: "
+              f"{torch.equal(big, inst)} (max abs "
+              f"{float((big - inst).abs().max()):.3e}); at {model_sweeps} "
+              f"vs its fp32 schedule model rms {e_m:.3e} (limit "
+              f"{SMEM_MODEL_RMS:g})", flush=True)
+        need(torch.equal(big, inst), f"d={d0}: {name} differs from the "
+             "compiled instance")
+        need(e_m < SMEM_MODEL_RMS, f"d={d0}: {name} vs its schedule model")
+    step_done("a")
+
+    # (b) d = 2187 on synthetic pixels, queued to run beside (c): at the
+    # engine's sweeps against the float64 twin, two past them against the
+    # model
+    later = Beside(dev, "(c) to (e)")
+    e_syn = compare_smem_synthetic(
+        dev, sweeps, O=n_off, d=d, tag=tag, name=name,
+        pixels=R13_SYNTH_PIXELS, model_sweeps=sweeps + 2,
+        model_pixels=LATE_MODEL_PIXELS, beside=later)
+    step_done("b, its inputs")
+
+    # (c) bcd -w 13 -b 23 -s 2 through the CLI's entry point on the crop,
+    # traced on its own stream, with (b)'s kernel calls beside it; the
+    # centers each solve call takes, read by a wrapper that calls the
+    # engine's own
+    ch, cw = crop
+    crop_path = crop_scene_path(scene_path, radius)
+    write_scene(crop_path, *(x[:ch, :cw] for x in stats))
+    out_path = crop_path.replace(".exr", "_out.exr")
+    argv = ["-i", crop_path, "-o", out_path, *w, *scales]
+    rcs, solved = [], []
+    engine_solve = monoscale.solve_filter_pm
+
+    def counted(*args, rows=None, **kwargs):
+        solved.append(0 if rows is None else int(rows.numel()))
+        return engine_solve(*args, rows=rows, **kwargs)
+
+    cfg = MonoscaleConfig(patch_radius=radius, search_radius=b)
+
+    def run():
+        # (b)'s calls start inside the trace: its start waits for the
+        # card to be idle (launched before it, they ran alone first), and
+        # the counts are reset after them, just before the path
+        later.open()
+        _build.reset_launches()
+        rcs.append(cli.main(argv))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    monoscale.solve_filter_pm = counted
+    try:
+        with recorded_pipeline() as record:
+            cli_s, busy, rows = device_time_table(
+                f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop", run,
+                own_stream=True)
+    finally:
+        monoscale.solve_filter_pm = engine_solve
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    need(rcs == [0], f"{' '.join(w)} CLI run")
+    k_us = sum(us for us, _, key in rows if "solve_filter_big_kernel" in key)
+    n_c = sum(solved)
+    print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv)}: rc 0, "
+          f"{cli_s:.3f} s wall with EXR I/O and the profiler on {card}, to the "
+          f"end of (b)'s calls beside it (which hold about 1 GB of the "
+          f"peak); peak "
+          f"memory {peak / 2**20:.1f} MiB; {cfg.batch} tile a batch, bands "
+          f"of {cfg.band} rows ({-(-cfg.tile // cfg.band)} a tile); {n_c} "
+          f"centers "
+          f"reach the solve, in {sum(1 for n in solved if n)} of "
+          f"{len(solved)} solve calls; launches of the run "
+          f"{ {k: v for k, v in launches.items() if v} }; {name} "
+          f"{k_us / 1e6:.4f} s of {busy:.4f} s device time on the run's "
+          f"stream (share {k_us / 1e6 / max(busy, 1e-9):.3f})", flush=True)
+    need(launches[name] > 0,
+         f"kernel {name} was not launched by the {' '.join(w)} path")
+    for other in R1_KERNELS + SOLVE_KERNELS:
+        if other != name:
+            need(launches[other] == 0,
+                 f"the {' '.join(w)} path launched {other}")
+    out = image_io.load_exr(out_path)
+    clean_c = clean[:ch, :cw]
+    need(out.shape == clean_c.shape and np.isfinite(out).all(),
+         f"{' '.join(w)} CLI output shape / finiteness")
+    e_out, e_in_c = rmse(out, clean_c), rmse(stats[0][:ch, :cw], clean_c)
+    print(f"{tag} rmse vs clean on the crop: {' '.join(w)} output "
+          f"{e_out:.5f}, noisy input {e_in_c:.5f}", flush=True)
+    need(e_out < e_in_c, f"the {' '.join(w)} output is not closer to the "
+         "clean image")
+    step_done("c")
+
+    # (d) the gate: -w 13 at b = 22 on the crop, no solve
+    no_solve_run(tag, crop_path, radius, b - 1, scales, clean_c, e_in_c)
+    step_done("d")
+
+    # (e) the crop against the same pipeline on the card, on (c)'s inputs
+    # and parameters, with the float64 twin in the kernel's place
+    ref, twin_calls = twin_reference(tag, record, crop_path, radius, b,
+                                     R13_SCALES)
+    need(sum(n for n, _ in twin_calls) == n_c,
+         f"the reference solved {twin_calls}, (c) {solved}")
+    plain_ms = sum(ms for n, ms in twin_calls if n)
+    got = record["out"]
+    gap = rmse(got.cpu(), ref.cpu())
+    print(f"{tag} {' '.join(w)} pipeline on the {ch}x{cw} crop: (c)'s card "
+          f"output vs the same pipeline on the card with the float64 twin "
+          f"in the kernel's place (the reference; the port's CPU pipeline "
+          f"would take about 550 s) rmse {gap:.3e} (limit {R2_CPU_RMSE:g}), "
+          f"max abs {float((got - ref).abs().max()):.3e}; the twin "
+          f"{plain_ms:.3f} ms on the {n_c} centers", flush=True)
+    need(gap < R2_CPU_RMSE, f"-w {radius} on the card against its reference")
+    t0 = time.perf_counter()
+    window_s = later.close()
+    print(f"{tag} (b)'s kernel calls beside (c) to (e): {window_s:.1f} s "
+          f"from their start, then their model {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    step_done("e")
+    bound = bounds.solve_filter(n_c, n_off, d, sweeps)
+    print(f"{tag} {name} on (c)'s {n_c} centers: {k_us / 1e3:.3f} ms, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}), {k_us / 1e3 / bound[0]:.1f}x; "
+          f"the twin {plain_ms:.3f} ms", flush=True)
+    return (e_syn[0], k_us / 1e3, plain_ms, bound), launches
 
 
 def cpu_reference_worker(conn, jobs, threads) -> None:
@@ -2134,6 +2432,8 @@ class CpuReferences:
                  [np.ascontiguousarray(x[:k, :k]) for x in stats])
                 for radius, k in ((2, R2_CPU_CROP), (3, R3_CPU_CROP))]
         for radius, c in wide_phases().items():
+            if c.get("reference") == "twin":  # its reference is the card's
+                continue
             k = c["cpu_crop"]
             crop = [np.ascontiguousarray(x[:k, :k]) for x in stats]
             if one_crop(c):  # (c)'s CLI run's inputs and parameters
@@ -2228,9 +2528,11 @@ def batch_rule_run(card, stats, clean, scene_path) -> None:
          "image")
 
 
-def device_time_table(label, run) -> None:
+def device_time_table(label, run, own_stream=False) -> None:
     """One traced ``run()``: wall, device busy and idle share, and the top
-    device time by kernel."""
+    device time by kernel; with ``own_stream`` of the events of the stream
+    that ran the most kernels only (the run's, where other calls run
+    beside it on side streams)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2247,17 +2549,26 @@ def device_time_table(label, run) -> None:
     # its per-event Python objects (key_averages(), events()) took 47-55 s
     # on the 280,000 kernels of a traced -w 12 crop on an H100's machine
     t1 = time.perf_counter()
+    events = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CUDA]
+    if own_stream:
+        per = {}
+        for ev in events:
+            per[ev.device_resource_id()] = per.get(
+                ev.device_resource_id(), 0) + 1
+        mine = max(per, key=per.get)
+        events = [ev for ev in events if ev.device_resource_id() == mine]
     totals = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == DeviceType.CUDA:
-            tot = totals.setdefault(ev.name(), [0.0, 0])
-            tot[0] += ev.duration_ns() / 1e3
-            tot[1] += 1
+    for ev in events:
+        tot = totals.setdefault(ev.name(), [0.0, 0])
+        tot[0] += ev.duration_ns() / 1e3
+        tot[1] += 1
     rows = sorted(((us, n, key) for key, (us, n) in totals.items()),
                   reverse=True)
     table_s = time.perf_counter() - t1
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"{label} traced run: wall {wall:.4f} s, device busy {busy:.4f} s "
+    print(f"{label} traced run: wall {wall:.4f} s, device busy {busy:.4f} s"
+          f"{' on its stream' if own_stream else ''} "
           f"(idle share {max(0.0, 1 - busy / wall):.3f}; the trace's "
           f"collection {stop_s:.1f} s and its table {table_s:.1f} s after "
           "the run); top device time by kernel:", flush=True)
@@ -2521,7 +2832,8 @@ def time_crop(height, width, radius=5) -> int:
     from bcd_tpu_torch.io import image_io
     from bcd_tpu_torch.ops import _build
 
-    search = wide_phases()[radius]["search"]
+    search = {**{r: c["search"] for r, c in wide_phases().items()},
+              13: R13_SEARCH}[radius]
     card = card_line()
     _build.library()
     clean, stats = full_scene()
@@ -2581,9 +2893,9 @@ def main() -> int:
                                     and sys.argv[4] == "--radius"
                                     and sys.argv[5] in ("4", "5", "6", "7",
                                                         "8", "9", "10",
-                                                        "11", "12")),
+                                                        "11", "12", "13")),
              "usage: chip_smoke.py --time-crop H W "
-             "[--radius 4|5|6|7|8|9|10|11|12]")
+             "[--radius 4|5|6|7|8|9|10|11|12|13]")
         return time_crop(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[5]) if len(sys.argv) == 6 else 5)
 
@@ -2860,6 +3172,12 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     cpu_refs.close()
 
+    # --- 17. the -w 13 path, the runtime-d kernel ---------------------------
+    t0 = time.perf_counter()
+    kernels["solve_filter_2187"], launches13 = big_phase(
+        dev, card, stats, clean, paths[""])
+    print(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
@@ -2905,11 +3223,16 @@ def main() -> int:
         "solve_filter_1875": ("solve_filter_1875",
                               "bcd_tpu_torch/csrc/solve_filter_smem.cu",
                               "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        # every d from 2187 on; its numbers are phase 17's crop's
+        "solve_filter_2187": ("solve_filter_big",
+                              "bcd_tpu_torch/csrc/solve_filter_big.cu",
+                              "bcd_tpu/ops/solve_filter_pallas.py:441"),
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
             "solve_filter_smem": launches3["solve_filter_smem"],
-            **{name: counts[name] for name, counts in wide_launches.items()}}
+            **{name: counts[name] for name, counts in wide_launches.items()},
+            "solve_filter_big": launches13["solve_filter_big"]}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],

@@ -179,20 +179,25 @@ def test_cli_refuses_use_cuda_value(capsys):
     (("-w", "10", "-b", "17"), False), (("-w", "10", "-b", "18"), False),
     (("-w", "11", "-b", "19"), False), (("-w", "11", "-b", "20"), False),
     (("-w", "12", "-b", "21"), False), (("-w", "12", "-b", "22"), False),
-    (("-w", "13", "-b", "22"), False), (("-w", "13", "-b", "23"), True),
+    (("-w", "13", "-b", "22"), False), (("-w", "13", "-b", "23"), False),
+    (("-w", "14", "-b", "25"), False), (("-w", "45", "-b", "79"), True),
+    (("-w", "45", "-b", "79", "--tile", "16"), False),
 ])
 def test_cli_solve_gate_on_cuda(flags, refused, capsys, monkeypatch):
     """The decision the CLI takes on the card, without one (the device is
-    resolved to CUDA, and nothing reaches it): a patch radius is refused
-    only where a center can reach the solve and no kernel is built for d,
-    before the inputs are read; else the run goes on to read them (here a
-    missing file, exit code 1 with the loader's message)."""
+    resolved to CUDA, and nothing reaches it): every patch radius runs
+    (``-w 13 -b 23`` on the runtime-d kernel); a run is refused, before the
+    inputs are read, only where a center can reach the solve and one block
+    of the solve kernel with a row of a tile's centers' stack passes the
+    card's memory (an H100's 80 GB here: ``-w 45 -b 79`` with 32x32 tiles,
+    not with 16x16); else the run goes on to read them (here a missing
+    file, exit code 1 with the loader's message)."""
     monkeypatch.setattr(cli, "resolve_device",
                         lambda name: torch.device("cuda"))
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr",
                      *flags]) == 1
     out = capsys.readouterr().out
-    assert ("shared memory" in out and "ROADMAP" in out) == refused
+    assert ("bytes in all" in out and "memory" in out) == refused
     assert ("couldn't load input images" in out) == (not refused)
 
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
 shared-memory form at d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587
-and 1875 and the lane-form
+and 1875, its runtime-d form from d = 2187 and the lane-form
 solve_matrices) against their plain twins, and the solve kernels against
 the plain fp32 model of their own schedule, on the card. Run on a machine
 with an NVIDIA Hopper card:
@@ -18,7 +18,8 @@ from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
 from bcd_tpu_torch.ops import fused as tfused
 from bcd_tpu_torch.ops.solve_filter import (
     D, MISC_CH, SMALL_CH, solve_filter, solve_filter_plain, solve_filter_pm,
-    solve_filter_pm_plain, solve_filter_pm_schedule, solve_matrices,
+    solve_filter_pm_big, solve_filter_pm_plain, solve_filter_pm_schedule,
+    solve_matrices,
     solve_matrices_pm,
     solve_matrices_pm_plain, solve_matrices_pm_schedule, solve_matrices_plain,
     solve_matrices_schedule)
@@ -922,39 +923,54 @@ def test_wrappers_count_only_launches(cuda):
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
+def _pm_light(rng, O, d, P, cuda):
+    """Pixel-major stacks (cand, mask, noise, n, m) on the card without the
+    raw moments (at d = 77,763 those would take 145 GB)."""
+    cand = torch.from_numpy(rng.standard_normal((P, O, d), np.float32))
+    mask = torch.ones((P, O))
+    n = mask.sum(1)
+    noise = torch.full((P, 6 * (d // 3)), 0.05)
+    return [v.to(cuda) for v in (cand, mask, noise, n, cand.mean(1))]
+
+
+# a patch dimension the card's memory refuses: r = 80, whose runtime-d
+# kernel's slot alone takes 96.8 GB a block (at r = 77 it takes 83.1 GB,
+# which an H100 80GB's 85 GB would hold)
+D_REFUSED = 3 * 161 ** 2
+
+
 def test_solve_filter_pm_empty_rows_at_any_d(cuda):
     """No pixel to solve (a batch where no center reaches the main path):
-    zeros and no launch, also at d = 2187, for which no kernel is built."""
+    zeros and no launch, also at d = 77,763, whose one block of the solve
+    kernel the card's memory cannot hold."""
     from bcd_tpu_torch.ops import _build
 
-    x = _stack_inputs(np.random.default_rng(1), 9, 2187, 3)
-    pm = [v.to(cuda) for v in (
-        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
-        x["noise"].T.contiguous(), x["n"][0].contiguous(),
-        x["m"].T.contiguous())]
+    pm = _pm_light(np.random.default_rng(1), 9, D_REFUSED, 3, cuda)
     _build.reset_launches()
-    field = solve_filter_pm(*pm, 1e-8, npx=729, sweeps=9,
+    field = solve_filter_pm(*pm, 1e-8, npx=D_REFUSED // 3, sweeps=11,
                             rows=torch.zeros(0, dtype=torch.long, device=cuda))
-    assert field.shape == (3, 9, 2187) and not bool(field.any())
+    assert field.shape == (3, 9, D_REFUSED) and not bool(field.any())
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_solve_filter_kernel_refuses_large_patches(cuda):
-    """d = 2187 (patch radius 13) with a pixel to solve: no kernel is
-    built for it (W and Q would take 38.3 MB a pixel, and a round 18 pivot
-    passes); refused with the reason, and the lane form at d = 147 too."""
-    d = 2187
-    x = {k: v.to(cuda) for k, v in
-         _stack_inputs(np.random.default_rng(0), 9, d, 2).items()}
-    pm = [x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
-          x["noise"].T.contiguous(), x["n"][0].contiguous(),
-          x["m"].T.contiguous()]
-    with pytest.raises(NotImplementedError, match="shared memory.*ROADMAP"):
-        solve_filter_pm(*pm, 1e-8, npx=d // 3, sweeps=8,
+    """d = 77,763 (patch radius 80) with a pixel to solve: one block of the
+    runtime-d kernel takes 96.8 GB, more than the card holds; refused with
+    the bytes named, before any launch; and the lane form at d = 147 still
+    has no kernel."""
+    from bcd_tpu_torch.ops import _build
+
+    pm = _pm_light(np.random.default_rng(0), 9, D_REFUSED, 2, cuda)
+    _build.reset_launches()
+    with pytest.raises(NotImplementedError, match="bytes"):
+        solve_filter_pm(*pm, 1e-8, npx=D_REFUSED // 3, sweeps=11,
                         rows=torch.tensor([1], device=cuda))
-    with pytest.raises(NotImplementedError, match="shared memory.*ROADMAP"):
-        solve_filter(*(x[k] for k in ("C", "mask", "noise", "n", "m")), 1e-8,
-                     npx=d // 3, sweeps=8)
+    lane = [pm[0].permute(1, 2, 0).contiguous(), pm[1].T.contiguous(),
+            pm[2].T.contiguous(), pm[3][None].contiguous(),
+            pm[4].T.contiguous()]
+    with pytest.raises(NotImplementedError, match="bytes"):
+        solve_filter(*lane, 1e-8, npx=D_REFUSED // 3, sweeps=11)
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, 147, 2).items()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -963,16 +979,209 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
-    """Radius 3 to 12 run on the card now; radius 13 at b = 23, where a
-    center can reach the solve and no kernel is built for d = 2187, is
-    refused before the inputs are read, with the shared-memory reason and
-    the ROADMAP item, and the twin never runs."""
+    """Every patch radius runs on the card now; ``-w 45 -b 79``, where a
+    center can reach the solve and one block of the solve kernel with a
+    row of 32 centers' stack (80.4 GB) passes the card's memory, is refused
+    before the inputs are read, with the bytes named, and nothing runs."""
     from bcd_tpu_torch import cli
 
     assert cli.main(["-i", "/nonexistent/x.exr", "-o", "y.exr", "-w",
-                     "13", "-b", "23"]) == 1
+                     "45", "-b", "79"]) == 1
     out = capsys.readouterr().out
-    assert "shared memory" in out and "ROADMAP.md Queue 2" in out
+    assert "bytes in all" in out and "card's" in out
+
+
+# ---------------------------------------------------------------------------
+# the runtime-d solve_filter (csrc/solve_filter_big.cu)
+# ---------------------------------------------------------------------------
+
+
+def _pm_of(x, cuda):
+    return [v.to(cuda) for v in (
+        x["C"].permute(2, 0, 1).contiguous(), x["mask"].T.contiguous(),
+        x["noise"].T.contiguous(), x["n"][0].contiguous(),
+        x["m"].T.contiguous())]
+
+
+@pytest.mark.parametrize("O,d,model_sweeps", [(169, 147, 8), (441, 363, 10)])
+def test_solve_filter_big_kernel_matches_smem_and_schedule(cuda, O, d,
+                                                           model_sweeps):
+    """The runtime-d kernel forced to d = 147 and 363 (its test-only entry
+    ``solve_filter_pm_big``) on 8 synthetic pixels: at the engine's sweeps
+    bit for bit the compiled ``Smem<147>`` and ``Smem<363>`` (the same
+    pair arithmetic, pivot sums and reduction order), and against the fp32
+    model of its schedule within SMEM_MODEL_RMS (at d = 363 two sweeps past
+    the engine's, where the rank-deficient synthetic rows have converged:
+    phase 9); it launches only its own kernel; in place on some rows it
+    gives the compact call's bits."""
+    from bcd_tpu_torch.ops import _build
+
+    pm = _pm_of(_stack_inputs(np.random.default_rng(d), O, d, 8), cuda)
+    sweeps = solve_filter_sweeps(d)
+    _build.reset_launches()
+    got = solve_filter_pm_big(*pm, 1e-8, npx=d // 3, sweeps=sweeps)
+    assert _build.LAUNCHES["solve_filter_big"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert torch.equal(got, solve_filter_pm(*pm, 1e-8, npx=d // 3,
+                                            sweeps=sweeps))
+    got = solve_filter_pm_big(*pm, 1e-8, npx=d // 3, sweeps=model_sweeps)
+    assert _rms(got, solve_filter_pm_schedule(*pm, 1e-8, d // 3,
+                                              model_sweeps)) < SMEM_MODEL_RMS
+    rows = torch.tensor([1, 4, 6], device=cuda)
+    part = solve_filter_pm_big(*pm, 1e-8, npx=d // 3, sweeps=sweeps,
+                               rows=rows)
+    assert torch.equal(part[rows], got[rows] if model_sweeps == sweeps else
+                       solve_filter_pm_big(*[v[rows].contiguous()
+                                             for v in pm], 1e-8,
+                                           npx=d // 3, sweeps=sweeps))
+    rest = torch.ones(8, dtype=torch.bool, device=cuda)
+    rest[rows] = False
+    assert not bool(part[rest].any())
+
+
+def test_solve_filter_2187_kernel_matches_schedule(cuda):
+    """solve_filter_pm at d = 2187 (the runtime-d kernel: 4,363 of the
+    4,376 rows of W and Q in a global slot, eighteen pivot passes a round)
+    on 4 synthetic pixels of 2,209 candidates: at the engine's sweeps
+    against the float64 twin, rms 2e-4, and two sweeps past them against
+    the fp32 model of its schedule on 2 of them, rms SMEM_MODEL_RMS, as at
+    d = 1875; it launches the runtime-d kernel only. The first round's
+    pairs of the ninth to eighteenth passes, seats (512 + p, 1606 + p) for
+    p < 581 (p = 581 pairs the padding row), have non-zero pivots on every
+    pixel: a lane forms the angles of passes k, k + 8 and k + 16."""
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops.solve_filter import _cemp, _noise_bd
+
+    pm = _pm_of(_stack_inputs(np.random.default_rng(2187), 2209, 2187, 4),
+                cuda)
+    mk = pm[1][..., None]
+    w = (_cemp(torch.einsum("poi,poj->pij", mk * pm[0], pm[0]), pm[4], pm[3])
+         - _noise_bd(pm[2], 729))
+    seats = torch.arange(512, 1093, device=cuda)
+    assert bool((w[:, seats, seats + 1094] != 0).all())
+    del w
+    sweeps = solve_filter_sweeps(2187)
+    _build.reset_launches()
+    got = solve_filter_pm(*pm, 1e-8, npx=729, sweeps=sweeps)
+    assert _build.LAUNCHES["solve_filter_big"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert bool(torch.isfinite(got).all())
+    e_t = _rms(got, solve_filter_pm_plain(*pm, 1e-8, 729))
+    got = solve_filter_pm(*pm, 1e-8, npx=729, sweeps=sweeps + 2)
+    e_m = _rms(got[:2], solve_filter_pm_schedule(*[v[:2] for v in pm], 1e-8,
+                                                 729, sweeps + 2))
+    print(f"d = 2187: {sweeps} sweeps vs the twin {e_t:.3e}, {sweeps + 2} "
+          f"vs the fp32 model {e_m:.3e}")
+    assert e_t < 2e-4 and e_m < SMEM_MODEL_RMS
+
+
+def test_schedule_sweeps_at_d2187(cuda):
+    """Why the engine runs solve_filter_sweeps(2187) sweeps at d = 2187:
+    the smallest count that keeps the fp32 schedule within 2e-5 rms of the
+    float64 twin, as at d = 147 to 1875, on 8 synthetic pixels of 2,209
+    candidates, read on the card (an H100: nine 3.951e-05, ten 3.816e-06,
+    eleven 1.826e-06)."""
+    x = _stack_inputs(np.random.default_rng(21), 2209, 2187, 8)
+    pm = _pm_of(x, cuda)
+    want = solve_filter_pm_plain(*pm, 1e-8, 729)
+    sweeps = solve_filter_sweeps(2187)
+    rms = [_rms(solve_filter_pm_schedule(*pm, 1e-8, 729, s), want)
+           for s in (sweeps - 1, sweeps, sweeps + 1)]
+    print(f"d = 2187: {sweeps - 1} sweeps {rms[0]:.3e}, {sweeps} "
+          f"{rms[1]:.3e}, {sweeps + 1} {rms[2]:.3e} rms from the float64 "
+          "twin")
+    assert rms[0] > 2e-5 and rms[1] < 2e-5
+
+
+def test_big_scratch_floats_is_a_64_bit_count(cuda):
+    """The runtime-d kernel's scratch, a 64-bit count: 2,523,963,024 floats
+    for 132 blocks at d = 2187 (10.1 GB), past 2^31; -1 for a d it cannot
+    lay out."""
+    from bcd_tpu_torch.ops import _build
+
+    lib = _build.library()
+    assert lib.bcd_solve_filter_big_scratch_floats(2187, 132) \
+        == 2_523_963_024 > 2 ** 31
+    assert lib.bcd_solve_filter_big_scratch_floats(2187, 1) == 19_120_932
+    assert lib.bcd_solve_filter_big_scratch_floats(2188, 1) == -1
+
+
+def test_big_layout_entry_matches_the_formula(cuda):
+    """The kernel's layout entry (no launch) at every patch radius 3 to 30
+    is ``ops/solve_filter.big_layout``'s: shared bytes within a block's
+    232,448, rows and vectors split between shared memory and the slot, the
+    slot's floats 2 (d + 1)^2 + (global rows) (d + 1) + (global vector
+    floats)."""
+    import ctypes
+
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops.solve_filter import SMEM_BYTES, big_layout
+
+    lib = _build.library()
+    out = (ctypes.c_longlong * 6)()
+    for r in range(3, 31):
+        d = 3 * (2 * r + 1) ** 2
+        assert lib.bcd_solve_filter_big_layout(d, out) == 0
+        lay = big_layout(d)
+        assert list(out) == [lay[k] for k in (
+            "smem_bytes", "shared_rows", "global_rows", "shared_vectors",
+            "global_vector_floats", "slot_floats")]
+        assert out[0] <= SMEM_BYTES
+        assert out[5] == 2 * (d + 1) ** 2 + out[2] * (d + 1) + out[4]
+    assert lib.bcd_solve_filter_big_layout(2000, out) == -1
+
+
+def test_solve_filter_big_matches_smem_at_d1875(cuda):
+    """The runtime-d kernel forced to d = 1875 on 4 synthetic pixels of
+    2,025 candidates, then ``Smem<1875>`` on the same pixels: bit for bit
+    its field at the engine's sweeps, and each call's time (CUDA events,
+    one after the other: launched beside each other on two streams, the
+    second call's time held the first's; a call on a few pixels lasts a
+    pixel's latency) for PERF.md's speed note."""
+    pm = _pm_of(_stack_inputs(np.random.default_rng(1875), 2025, 1875, 4),
+                cuda)
+    sweeps = solve_filter_sweeps(1875)
+    out, ms = {}, {}
+    for name, fn in (("big", solve_filter_pm_big), ("smem", solve_filter_pm)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out[name] = fn(*pm, 1e-8, npx=625, sweeps=sweeps)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms[name] = ev[0].elapsed_time(ev[1])
+    print(f"d = 1875 on 4 pixels at {sweeps} sweeps: the runtime-d kernel "
+          f"{ms['big']:.3f} ms, Smem<1875> {ms['smem']:.3f} ms")
+    assert torch.equal(out["big"], out["smem"])
+
+
+def test_solve_filter_2187_wave_against_its_bound(cuda):
+    """One wave of the persistent grid at d = 2187 (132 synthetic pixels of
+    2,209 candidates, the engine's sweeps), timed once, beside its bound
+    (``ops/bounds.solve_filter``): for PERF.md's table, too costly for the
+    smoke (a pixel's latency is the wave's). Finite, and 2 of its pixels
+    against the float64 twin within 2e-4."""
+    import time
+
+    from bcd_tpu_torch.ops import bounds
+
+    pm = _pm_of(_stack_inputs(np.random.default_rng(2188), 2209, 2187, 132),
+                cuda)
+    sweeps = solve_filter_sweeps(2187)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = solve_filter_pm(*pm, 1e-8, npx=729, sweeps=sweeps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = solve_filter_pm_plain(*[v[:2] for v in pm], 1e-8, 729)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound = bounds.solve_filter(132, 2209, 2187, sweeps)
+    print(f"d = 2187 wave: 132 pixels at {sweeps} sweeps {ms:.3f} ms, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}), {ms / bound[0]:.1f}x; the twin "
+          f"on 2 pixels {plain_ms:.3f} ms")
+    assert bool(torch.isfinite(got).all())
+    assert _rms(got[:2], want) < 2e-4
 
 
 def test_cli_accepts_radius_4_at_b6_on_cuda(cuda, tmp_path):
@@ -1181,3 +1390,58 @@ def test_api_on_cuda_launches_the_kernels(cuda):
                     _build.LAUNCHES
         assert outs[0].dtype == np.float32 and outs[0].shape == (32, 32, 3)
         assert np.sqrt(np.mean((outs[0] - outs[1]) ** 2)) < 1e-4
+
+
+def test_api_and_batch_at_radius_3_match_the_cli_on_cuda(cuda, tmp_path):
+    """The API and the batch CLI at a radius past 2 on the card:
+    ``core/api.Denoiser`` and a one-frame ``--batch`` preset (patchRadius
+    3, one scale, no prefilter, threshold 2.25) on a 48x48 golden crop's
+    EXR files, each bit for bit ``bcd -w 3 -s 1 -p 0 -d 2.25`` on the same
+    files (the CLI's output EXR holds half floats: the API's output is
+    sanitized as the CLI's and rounded to half), each launching
+    solve_filter_smem."""
+    import json
+
+    from bcd_tpu_torch import batch_cli, cli
+    from bcd_tpu_torch.core.api import Denoiser, DenoiserInputs
+    from bcd_tpu_torch.core.pipeline import sanitize_output
+    from bcd_tpu_torch.io import image_io
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.params import DenoiserParameters
+
+    color, nb, histo, cov = _golden_crop(48)
+    src = str(tmp_path / "in.exr")
+    image_io.write_exr(color, src)
+    image_io.write_multi_channels_exr(
+        image_io.merge_histogram_and_nb_of_samples(histo, nb),
+        str(tmp_path / "in_hist.exr"))
+    image_io.write_multi_channels_exr(cov, str(tmp_path / "in_cov.exr"))
+    _build.reset_launches()
+    assert cli.main(["-i", src, "-o", str(tmp_path / "cli.exr"), "-w", "3",
+                     "-s", "1", "-p", "0", "-d", "2.25"]) == 0
+    assert _build.LAUNCHES["solve_filter_smem"] > 0, _build.LAUNCHES
+    want = image_io.load_exr(str(tmp_path / "cli.exr"))
+
+    preset = tmp_path / "r3.bcd.json"
+    preset.write_text(json.dumps({
+        "patchRadius": 3, "nbOfScales": 1,
+        "performSpikeRemovalPrefiltering": False,
+        "histoDistanceThreshold": 2.25}))
+    _build.reset_launches()
+    assert batch_cli.main(["-a", str(preset), "-o", str(tmp_path / "out"),
+                           "--batch", src]) == 0
+    assert _build.LAUNCHES["solve_filter_smem"] > 0, _build.LAUNCHES
+    got = image_io.load_exr(str(tmp_path / "out" / "in_BCDfiltered.exr"))
+    np.testing.assert_array_equal(got, want)
+
+    den = Denoiser(device=cuda)
+    den.set_inputs(DenoiserInputs(*batch_cli.load_frame(src)))
+    den.set_parameters(DenoiserParameters(
+        patch_radius=3, histogram_distance_threshold=2.25))
+    _build.reset_launches()
+    assert den.denoise()
+    assert _build.LAUNCHES["solve_filter_smem"] > 0, _build.LAUNCHES
+    out = sanitize_output(torch.from_numpy(
+        den.get_outputs().denoised_colors)).numpy()
+    np.testing.assert_array_equal(out.astype(np.float16).astype(np.float32),
+                                  want)

@@ -186,25 +186,75 @@ def test_solve_wrappers_refuse_bad_inputs():
 
 
 @pytest.mark.parametrize("d", [27, 75, 147, 243, 363, 507, 675, 867, 1083,
-                               1323, 1587, 1875, 2187])
+                               1323, 1587, 1875, 2187, 2523, 4107, 4563,
+                               11163])
 def test_kernel_dims(d):
-    """The CUDA solve kernels are built for patch radius 1, 2 (registers),
-    3 (shared memory), 4 to 12 (shared memory and a global slot); radius 13
-    (W and Q would take 38.3 MB, and a round 18 pivot passes) is refused
-    with the reason and its ROADMAP item."""
+    """The CUDA solve kernels: compiled for patch radius 1, 2 (registers),
+    3 (shared memory), 4 to 12 (shared memory and a global slot); from
+    radius 13 (d = 2187) the runtime-d kernel takes every patch dimension,
+    also past radius 18 (d = 4,107), where its vectors begin to move to the
+    global slot, and at radius 30 (d = 11,163): none is refused for a
+    layout."""
     assert (d in ts.KERNEL_DIMS) == (d <= 1875)
-    if d in ts.KERNEL_DIMS:
-        ts.check_kernel_dim(d)
-    else:
+    assert (d >= ts.BIG_FROM_D) == (d not in ts.KERNEL_DIMS)
+    ts.check_kernel_dim(d)
+    ts.check_kernel_dim(d, n_off=(int(np.sqrt(d)) + 2) ** 2, centers=32)
+
+
+@pytest.mark.parametrize("d,shared_vectors,global_rows,slot_floats", [
+    (2187, 9, 4363, 19_120_932), (4107, 9, 8215, 67_498_548),
+    (4563, 8, 9127, 83_324_948), (11163, 4, 22328, 498_628_896),
+])
+def test_big_layout(d, shared_vectors, global_rows, slot_floats):
+    """The runtime-d kernel's layout (``big_layout``, the kernel's
+    ``make_layout``): every vector in shared memory through patch radius 18
+    (d = 4,107, one shared row of W), from radius 19 (d = 4,563) the staged
+    pivot rows in the global slot, at radius 30 five of the nine vectors;
+    at d = 2187 13 of the 4,376 rows in shared memory and a slot of
+    2 (d + 1)^2 + 4,363 (d + 1) floats a block (76.5 MB; 132 blocks take
+    2,523,963,024 floats, past 2^31). The shared bytes never pass a
+    block's 232,448."""
+    lay = ts.big_layout(d)
+    dp = d + 1
+    assert lay["shared_vectors"] == shared_vectors
+    assert lay["global_rows"] == global_rows
+    assert lay["slot_floats"] == slot_floats == (
+        2 * dp * dp + global_rows * dp + lay["global_vector_floats"])
+    assert lay["smem_bytes"] <= ts.SMEM_BYTES
+    assert lay["shared_rows"] + global_rows == 2 * dp
+    assert ts.big_layout(2187)["slot_floats"] * 132 == 2_523_963_024
+    assert ts.big_layout(2188) is None and ts.big_layout(2186) is None
+
+
+@pytest.mark.parametrize("d,n_off,centers,refused", [
+    (2187, 2209, 32, False), (24843, 25281, 32, True),
+    (24843, 25281, 16, False), (77763, 0, 0, True), (2187, 361201, 32, True),
+])
+def test_kernel_dim_refused_only_for_memory(d, n_off, centers, refused):
+    """A patch dimension is refused only where one block's global slot of
+    the runtime-d kernel and one band of the candidate stack (``centers``
+    centers of ``n_off`` offsets) pass the card's memory (on a host with
+    no card an H100's 80 GB), and the message names the bytes: r = 45
+    (d = 24,843) at its smallest window reaching the solve, b = 79, with a
+    row of 32 centers (80.4 GB of stack), not with 16; r = 80 (d = 77,763),
+    whose slot alone takes 96.8 GB; r = 13 at b = 300 (361,201 offsets,
+    101 GB a row). A d that is no patch dimension is refused as such."""
+    if refused:
         with pytest.raises(NotImplementedError,
-                           match="shared memory.*ROADMAP"):
-            ts.check_kernel_dim(d)
+                           match="bytes in all, more than the card's"):
+            ts.check_kernel_dim(d, n_off, centers)
+    else:
+        ts.check_kernel_dim(d, n_off, centers)
+    with pytest.raises(NotImplementedError, match="not a patch dimension"):
+        ts.check_kernel_dim(2000)
 
 
 def test_smem_build_units_cover_every_dim():
     """The library's build compiles csrc/solve_filter_smem.cu once for each
     d that ``solve_filter_pm`` sends it (``SMEM_DIMS``) and once for its C
-    entries, and the file instantiates and dispatches every one of them."""
+    entries, and the file instantiates and dispatches every one of them;
+    csrc/solve_filter_big.cu, the runtime-d kernel, is one unit of its own
+    with its own launch counter and C entries."""
     from bcd_tpu_torch.ops import _build
 
     one, entries, dims = _build.SPLIT["solve_filter_smem.cu"]
@@ -217,6 +267,15 @@ def test_smem_build_units_cover_every_dim():
     for d in dims:
         assert f"d == {d}" in text and f"launch<{d}>(" in text
         assert f"Smem<{d}>::SCRATCH" in text
+    big = _build.CSRC / "solve_filter_big.cu"
+    assert "solve_filter_big.cu" not in _build.SPLIT
+    assert _build._units([big]) == [(big, [], "solve_filter_big")]
+    assert "solve_filter_big" in _build.LAUNCHES
+    text = big.read_text()
+    for entry in ("bcd_solve_filter_big", "bcd_solve_filter_big_layout",
+                  "bcd_solve_filter_big_scratch_floats"):
+        assert f'extern "C" ' in text and f" {entry}(" in text
+        assert entry in _build._SIGNATURES
 
 
 @pytest.mark.parametrize("r,b,accepted", [
@@ -225,7 +284,8 @@ def test_smem_build_units_cover_every_dim():
     (7, 13, True), (8, 14, True), (8, 15, True), (9, 15, True),
     (9, 16, True), (10, 17, True), (10, 18, True), (11, 19, True),
     (11, 20, True), (12, 21, True), (12, 22, True), (13, 22, True),
-    (13, 23, False),
+    (13, 23, True), (14, 25, True), (30, 53, True), (45, 79, False),
+    (13, 300, False),
 ])
 def test_solve_path_gate(r, b, accepted):
     """The CUDA engine's and CLI's gate: a center needs n >= d + 1 similar
@@ -238,14 +298,17 @@ def test_solve_path_gate(r, b, accepted):
     d = 507 one, r = 7 from b = 13 the d = 675 one, r = 8 from b = 15 the
     d = 867 one, r = 9 from b = 16 the d = 1083 one, r = 10 from b = 18 the
     d = 1323 one, r = 11 from b = 20 the d = 1587 one, r = 12 from b = 22
-    the d = 1875 one; r = 13 at b = 23 (2,209 offsets >= 2,188) would need
-    the d = 2187 kernel the port lacks."""
+    the d = 1875 one; r = 13 from b = 23 (2,209 offsets >= 2,188) the
+    runtime-d one, and so every larger radius, r = 14 from b = 25 and r = 30
+    from b = 53, until one block's slot and a row of 32 centers' stack pass
+    the card's memory (an H100's 80 GB here): r = 45 at b = 79, r = 13 at
+    b = 300."""
     d, n_off = 3 * (2 * r + 1) ** 2, (2 * b + 1) ** 2
     if accepted:
         ts.check_solve_path(d, n_off)
     else:
         with pytest.raises(NotImplementedError,
-                           match="shared memory.*patch radius >= 13"):
+                           match="bytes in all, more than the card's"):
             ts.check_solve_path(d, n_off)
 
 

@@ -227,7 +227,7 @@ def test_tile_batch_leaves_the_image_bitwise(tile_batch):
     (6, 11, 32, 16, 16), (7, 13, 32, None, 4), (6, 18, 32, None, 4),
     (3, 33, 32, None, 4), (7, 30, 32, None, 1), (7, 33, 32, None, 1),
     (8, 15, 32, None, 2), (9, 16, 32, None, 2), (10, 18, 32, None, 1),
-    (11, 20, 32, None, 1), (12, 22, 32, None, 1),
+    (11, 20, 32, None, 1), (12, 22, 32, None, 1), (13, 23, 32, None, 1),
 ])
 def test_stack_batch_by_bytes(r, b, tile, tile_batch, batch):
     """The candidate-stack engine takes 16 tiles a batch, halved while the
@@ -244,8 +244,49 @@ def test_stack_batch_by_bytes(r, b, tile, tile_batch, batch):
     b = 22 (one (1024, 2025, 1875) tile is 15.6 GB, 3.89e9 elements) and at
     r = 7, b = 30 (10.3 GB a tile),
     and still 1 at b = 33, where one tile's 12.4 GB passes the limit (JAX
-    refuses none). An explicit ``tile_batch`` wins, and the fused r = 1
-    engine keeps its 128."""
+    refuses none), and at r = 13, b = 23 (19.8 GB a tile, solved in bands:
+    ``test_stack_band_by_bytes``). An explicit ``tile_batch`` wins, and the
+    fused r = 1 engine keeps its 128."""
     cfg = tmono.MonoscaleConfig(patch_radius=r, search_radius=b, tile=tile,
                                 tile_batch=tile_batch)
     assert cfg.batch == batch
+
+
+@pytest.mark.parametrize("r,b,tile,band", [
+    (1, 6, 32, 32), (2, 6, 32, 32), (7, 33, 32, 32), (11, 20, 32, 32),
+    (12, 22, 32, 32), (12, 23, 32, 16), (13, 22, 32, 16), (13, 23, 32, 16),
+    (13, 23, 8, 8), (14, 25, 32, 8), (20, 40, 32, 2),
+])
+def test_stack_band_by_bytes(r, b, tile, band):
+    """Below one tile: a tile's centers are solved a band of rows at a
+    time only where one tile's fp32 stack passes r = 12, b = 22's 15.55 GB
+    (BAND_FROM_BYTES), every setting that ran whole before running whole
+    (r = 12, b = 22 and r = 7, b = 33: 12.4 GB); the band is the tile
+    halved until its stack fits STACK_BYTES (12 GB): 16 rows at r = 13,
+    b = 23 (19.8 GB a tile, 9.89 GB a band) and b = 22 (18.1 GB), and at
+    r = 12, b = 23 (17.0 GB); 8 at r = 14, b = 25 (26.9 GB); an 8x8 tile
+    at r = 13, b = 23 (4.9 GB) runs whole."""
+    cfg = tmono.MonoscaleConfig(patch_radius=r, search_radius=b, tile=tile)
+    assert cfg.band == band
+    assert (band < tile) == (tile * cfg.row_stack > tmono.BAND_FROM_BYTES)
+    assert tmono.BAND_FROM_BYTES == 15_552_000_000
+
+
+@pytest.mark.parametrize("tile,rows", [(8, 4), (8, 1), (10, 3)])
+def test_bands_leave_the_image(tile, rows, monkeypatch):
+    """The bands change how many centers each solve takes and how the
+    field is folded into the candidate frame, not the image: at r = 2 with
+    the byte bounds patched so that a tile's centers go ``rows`` rows at a
+    time (on 10x10 tiles three bands of 3 and one of 1), the image is the
+    one tile at a time gives, within rms 1e-6. Not bit for bit: each band's
+    fold is summed on its own and added to the frame, where one fold of
+    the whole tile sums a frame pixel's contributions in kernel order."""
+    cfg = tmono.MonoscaleConfig(patch_radius=2, search_radius=5, tile=tile)
+    args = to_device(*scene20(), CPU)
+    whole = to_numpy(tmono.denoise_image(cfg, *args, R2_THRESHOLD, 1e-8))
+    monkeypatch.setattr(tmono, "BAND_FROM_BYTES", 0)
+    monkeypatch.setattr(tmono, "STACK_BYTES", rows * cfg.row_stack)
+    assert cfg.band == rows
+    got = to_numpy(tmono.denoise_image(cfg, *args, R2_THRESHOLD, 1e-8))
+    assert np.isfinite(got).all()
+    assert rmse(got, whole) < 1e-6

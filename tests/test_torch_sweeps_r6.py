@@ -29,16 +29,18 @@ def test_schedule_sweeps_at_d507():
 @pytest.mark.parametrize("d,sweeps", [(27, 6), (75, 6), (147, 8), (243, 8),
                                       (363, 8), (507, 9), (675, 9),
                                       (867, 9), (1083, 10), (1323, 10),
-                                      (1587, 10), (1875, 10)])
+                                      (1587, 10), (1875, 10), (2187, 10),
+                                      (2523, 11), (11163, 11)])
 def test_sweeps_by_patch_dimension(d, sweeps):
-    """The engine's sweeps for each patch radius 1 to 12: 9 at d = 507,
-    675 and 867, 10 at d = 1083, 1323, 1587 and 1875 (at d = 675 to 1083,
-    at 1587 and at 1875 the smallest count within 2e-5 rms of the float64
+    """The engine's sweeps for each patch radius: 9 at d = 507, 675 and
+    867, 10 at d = 1083, 1323, 1587, 1875 and 2187 (at d = 675 to 1083, at
+    1587, 1875 and 2187 the smallest count within 2e-5 rms of the float64
     twin, read on the card:
     tests/test_torch_kernels_gpu.py::test_schedule_sweeps_at_d675,
     ::test_schedule_sweeps_at_d867, ::test_schedule_sweeps_at_d1083,
-    ::test_schedule_sweeps_at_d1587 and ::test_schedule_sweeps_at_d1875; at
-    d = 1323 the smallest that holds there and at d = 1083,
-    ::test_schedule_sweeps_at_d1323), and d = 27 to 363 keep the counts
-    their results were read at."""
+    ::test_schedule_sweeps_at_d1587, ::test_schedule_sweeps_at_d1875 and
+    ::test_schedule_sweeps_at_d2187; at d = 1323 the smallest that holds
+    there and at d = 1083, ::test_schedule_sweeps_at_d1323), and d = 27 to
+    363 keep the counts their results were read at. Past d = 2187 (r = 14
+    and up) no count was read: one sweep more than there."""
     assert solve_filter_sweeps(d) == sweeps
