@@ -20,6 +20,15 @@
 //   field_o = mask_o (c_o - X2^T c_o + b2) for every candidate o.
 // Everything is fp32 with IEEE division and square root (no fast math).
 //
+// The same kernel, instanced with kMoments, is the lane solve_matrices at
+// every d (replacing bcd_tpu/ops/solve_filter_pallas.py::solve_matrices,
+// core _two_step_solve, at d >= 147; d = 27 and 75 run csrc/solve_filter.cu):
+// its front reads M2 (as given, not mirrored), the patch sums and the noise
+// sums, and forms m = msum / max(n, 1), the mean noise and Cemp from them;
+// its back writes A2^T = I - X2 and b2 = X2^T m in place of the field. The
+// Jacobi, the clamp and both Cholesky solves are the same code, so the same
+// fp32 model holds it (ops/solve_filter.py::solve_matrices_schedule).
+//
 // Why d is a runtime value here. solve_filter_smem.cu's Smem<D> fixes d,
 // the rows shared memory holds and a round's pivot passes at compile
 // time, and loads all of a round's passes together: at most sixteen
@@ -319,12 +328,21 @@ __device__ __forceinline__ void chol_solve(const Layout& L, SRow S, YRow Y, cons
   __syncthreads();
 }
 
+// kMoments = false: solve_filter (cand, mask, noise, n_in, m_in, rows,
+// n_off -> field); b2_out is not read. kMoments = true: the lane
+// solve_matrices from the moments, read through the same arguments: cand is
+// m2 (P, d, d), mask msum (P, d), noise the noise sums (P, 6 npx), both not
+// yet divided by n; m_in, rows and n_off are not read; field is a2t
+// (P, d, d) and b2_out b2 (P, d). b2_out comes last so that the other
+// arguments keep their places, and the solve_filter instance its code.
+template <bool kMoments>
 __global__ void __launch_bounds__(THREADS, 1)
 solve_filter_big_kernel(const float* __restrict__ cand, const float* __restrict__ mask,
                         const float* __restrict__ noise, const float* __restrict__ n_in,
                         const float* __restrict__ m_in, const int* __restrict__ rows, float eps,
                         int n_rows, int n_off, int sweeps, float* scratch,
-                        float* __restrict__ field, const Layout L) {
+                        float* __restrict__ field, const Layout L,
+                        float* __restrict__ b2_out) {
   const int D = L.d, DP = L.dp, HALF = L.half, Q4 = L.q4, T = THREADS;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -363,72 +381,90 @@ solve_filter_big_kernel(const float* __restrict__ cand, const float* __restrict_
     float* fp = field + p * n_off * D;
     const float n = n_in[p];
     __syncthreads();  // the previous pixel is done with every buffer
-    for (int i = tid; i < DP; i += T) mv[i] = i < D ? m_in[p * D + i] : 0.f;
-    for (int i = tid; i < L.nov; i += T) nov[i] = noise[p * L.nov + i];
+    if constexpr (kMoments) {
+      // m = msum / max(n, 1) and the mean noise, as a product with the
+      // reciprocal (the d = 27 and 75 lane kernel's and the TPU kernel's)
+      const float inv_n = 1.f / fmaxf(n, 1.f);
+      for (int i = tid; i < DP; i += T) mv[i] = i < D ? mask[p * D + i] * inv_n : 0.f;
+      for (int i = tid; i < L.nov; i += T) nov[i] = noise[p * L.nov + i] * inv_n;
+    } else {
+      for (int i = tid; i < DP; i += T) mv[i] = i < D ? m_in[p * D + i] : 0.f;
+      for (int i = tid; i < L.nov; i += T) nov[i] = noise[p * L.nov + i];
+    }
 
     // M2 = sum_o (w_o c_o) c_o^T over chunks of DP candidates (W rows: c_o,
     // Q rows: w_o c_o), NTP_M2 lower tiles a thread a pass; Cemp to the
-    // scratch, mirrored from the lower tiles; then W = Cemp - BD, Q = I
+    // scratch, mirrored from the lower tiles; or, from the moments, Cemp
+    // from M2 row by row as given; then W = Cemp - BD, Q = I
     {
-      constexpr int NT = NTP_M2;
       const float nm1 = fmaxf(n - 1.f, 1.f);
-#pragma unroll 1
-      for (int pass = 0; pass < L.m2_passes; ++pass) {  // uniform: it holds barriers
-        const int t0 = tid + pass * NT * T;
-        int ti[NT], tj[NT];
-        float acc[NT][16];
-#pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          ti[u] = tj[u] = 0;
-          if (t0 + u * T < L.tri) tri_tile(t0 + u * T, ti[u], tj[u]);
-#pragma unroll
-          for (int e = 0; e < 16; ++e) acc[u][e] = 0.f;
+      if constexpr (kMoments) {
+        __syncthreads();  // m is whole
+        const float* mp = cand + p * D * D;
+        for (long long e = tid; e < MAT; e += T) {
+          const int i = (int)(e / DP), j = (int)(e - (long long)i * DP);
+          cemp[e] = (i < D && j < D) ? (mp[(size_t)i * D + j] - n * mv[i] * mv[j]) / nm1 : 0.f;
         }
+      } else {
+        constexpr int NT = NTP_M2;
 #pragma unroll 1
-        for (int o0 = 0; o0 < n_off; o0 += DP) {
-          const int cnt = min(DP, n_off - o0);
-          __syncthreads();
-          for (long long e = tid; e < (long long)cnt * DP; e += T) {
-            const int o = (int)(e / DP), i = (int)(e - (long long)o * DP);
-            const float c = i < D ? cp[(size_t)(o0 + o) * D + i] : 0.f;
-            W(o)[i] = c;
-            Q(o)[i] = wp[o0 + o] * c;
+        for (int pass = 0; pass < L.m2_passes; ++pass) {  // uniform: it holds barriers
+          const int t0 = tid + pass * NT * T;
+          int ti[NT], tj[NT];
+          float acc[NT][16];
+#pragma unroll
+          for (int u = 0; u < NT; ++u) {
+            ti[u] = tj[u] = 0;
+            if (t0 + u * T < L.tri) tri_tile(t0 + u * T, ti[u], tj[u]);
+#pragma unroll
+            for (int e = 0; e < 16; ++e) acc[u][e] = 0.f;
           }
-          __syncthreads();
 #pragma unroll 1
-          for (int o = 0; o < cnt; ++o) {
-            const float* qo = Q(o);
-            const float* wo = W(o);
+          for (int o0 = 0; o0 < n_off; o0 += DP) {
+            const int cnt = min(DP, n_off - o0);
+            __syncthreads();
+            for (long long e = tid; e < (long long)cnt * DP; e += T) {
+              const int o = (int)(e / DP), i = (int)(e - (long long)o * DP);
+              const float c = i < D ? cp[(size_t)(o0 + o) * D + i] : 0.f;
+              W(o)[i] = c;
+              Q(o)[i] = wp[o0 + o] * c;
+            }
+            __syncthreads();
+#pragma unroll 1
+            for (int o = 0; o < cnt; ++o) {
+              const float* qo = Q(o);
+              const float* wo = W(o);
 #pragma unroll
-            for (int u = 0; u < NT; ++u) {
-              if (t0 + u * T < L.tri) {
-                const float4 a = *reinterpret_cast<const float4*>(qo + 4 * ti[u]);
-                const float4 b = *reinterpret_cast<const float4*>(wo + 4 * tj[u]);
-                const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+              for (int u = 0; u < NT; ++u) {
+                if (t0 + u * T < L.tri) {
+                  const float4 a = *reinterpret_cast<const float4*>(qo + 4 * ti[u]);
+                  const float4 b = *reinterpret_cast<const float4*>(wo + 4 * tj[u]);
+                  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-                for (int r = 0; r < 4; ++r)
+                  for (int r = 0; r < 4; ++r)
 #pragma unroll
-                  for (int s = 0; s < 4; ++s)
-                    acc[u][4 * r + s] = fmaf(av[r], bv[s], acc[u][4 * r + s]);
+                    for (int s = 0; s < 4; ++s)
+                      acc[u][4 * r + s] = fmaf(av[r], bv[s], acc[u][4 * r + s]);
+                }
               }
             }
           }
-        }
-        __syncthreads();  // every thread is done with the candidates
+          __syncthreads();  // every thread is done with the candidates
 #pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          if (t0 + u * T >= L.tri) continue;
+          for (int u = 0; u < NT; ++u) {
+            if (t0 + u * T >= L.tri) continue;
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+            for (int r = 0; r < 4; ++r)
 #pragma unroll
-            for (int s = 0; s < 4; ++s) {
-              const int i = 4 * ti[u] + r, j = 4 * tj[u] + s;
-              if (j > i) continue;  // the upper half of a diagonal tile
-              const float ce =
-                  (i < D && j < D) ? (acc[u][4 * r + s] - n * mv[i] * mv[j]) / nm1 : 0.f;
-              cemp[(size_t)i * DP + j] = ce;
-              cemp[(size_t)j * DP + i] = ce;
-            }
+              for (int s = 0; s < 4; ++s) {
+                const int i = 4 * ti[u] + r, j = 4 * tj[u] + s;
+                if (j > i) continue;  // the upper half of a diagonal tile
+                const float ce =
+                    (i < D && j < D) ? (acc[u][4 * r + s] - n * mv[i] * mv[j]) / nm1 : 0.f;
+                cemp[(size_t)i * DP + j] = ce;
+                cemp[(size_t)j * DP + i] = ce;
+              }
+          }
         }
       }
       __syncthreads();  // Cemp is whole
@@ -627,6 +663,21 @@ solve_filter_big_kernel(const float* __restrict__ cand, const float* __restrict_
                  });
     __syncthreads();  // every thread has read A1^T before the solve writes Q
     chol_solve(L, W, Q, nov, rv, pv, eps);  // Q rows: X2
+    if constexpr (kMoments) {
+      // a2t[k][j] = delta_kj - X2[k][j] (= A2[j][k]) and b2[c] =
+      // sum_k X2[k][c] m[k], pixel-major
+      float* ap = field + p * D * D;
+      for (long long e = tid; e < (long long)D * D; e += T) {
+        const int k = (int)(e / D), j = (int)(e - (long long)k * D);
+        ap[e] = (k == j ? 1.f : 0.f) - Q(k)[j];
+      }
+      for (int c = tid; c < D; c += T) {
+        float s = 0.f;
+        for (int k = 0; k < D; ++k) s = fmaf(Q(k)[c], mv[k], s);
+        b2_out[p * D + c] = s;
+      }
+      continue;
+    }
     // b2[c] = sum_k X2[k][c] m[k]
     for (int c = tid; c < DP; c += T) {
       float s = 0.f;
@@ -703,9 +754,31 @@ extern "C" int bcd_solve_filter_big(const float* cand, const float* mask, const 
   if (n_rows <= 0) return (int)cudaGetLastError();
   const int bytes = 4 * L.smem_floats;
   const cudaError_t err = cudaFuncSetAttribute(
-      solve_filter_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      solve_filter_big_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  solve_filter_big_kernel<<<n_blocks, THREADS, bytes, (cudaStream_t)stream>>>(
-      cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch, field, L);
+  solve_filter_big_kernel<false><<<n_blocks, THREADS, bytes, (cudaStream_t)stream>>>(
+      cand, mask, noise, n, m, rows, eps, n_rows, n_off, sweeps, scratch, field, L, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The lane solve_matrices at any patch dimension d (d = 27 and 75 run
+// csrc/solve_filter.cu), pixel-major: m2 (P, d, d) raw masked second
+// moments, msum (P, d) masked patch sums, nov (P, 6 npx) masked noise sums,
+// n (P) -> a2t (P, d, d) with a2t[p][k][j] = A2[p][j][k], b2 (P, d). The
+// same persistent grid, layout and per-block slot as bcd_solve_filter_big
+// (bcd_solve_filter_big_scratch_floats(d, n_blocks) floats of scratch).
+extern "C" int bcd_solve_matrices_big(const float* m2, const float* msum, const float* nov,
+                                      const float* n, float eps, int n_pixels, int d, int sweeps,
+                                      float* scratch, int n_blocks, float* a2t, float* b2,
+                                      void* stream) {
+  Layout L;
+  if (!make_layout(d, &L) || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (n_pixels <= 0) return (int)cudaGetLastError();
+  const int bytes = 4 * L.smem_floats;
+  const cudaError_t err = cudaFuncSetAttribute(
+      solve_filter_big_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  solve_filter_big_kernel<true><<<n_blocks, THREADS, bytes, (cudaStream_t)stream>>>(
+      m2, msum, nov, n, nullptr, nullptr, eps, n_pixels, 0, sweeps, scratch, a2t, L, b2);
   return (int)cudaGetLastError();
 }

@@ -46,14 +46,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # solve_filter_1587 and solve_filter_1875 are csrc/solve_filter_smem.cu at
 # d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587 and 1875;
 # solve_filter_big is csrc/solve_filter_big.cu, d a runtime argument (the
-# engine's from d = 2187)
+# engine's from d = 2187), and solve_matrices_big the same kernel as the lane
+# solve_matrices (every d but 27 and 75); probe_* are csrc/probes.cu's
+# microbenchmarks of the TPU-compiler probes, one counter a variant
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
             "solve_filter_507": 0, "solve_filter_675": 0,
             "solve_filter_867": 0, "solve_filter_1083": 0,
             "solve_filter_1323": 0, "solve_filter_1587": 0,
-            "solve_filter_1875": 0, "solve_filter_big": 0}
+            "solve_filter_1875": 0, "solve_filter_big": 0,
+            "solve_matrices_big": 0, "probe_transpose_a": 0,
+            "probe_transpose_b": 0, "probe_transpose_c": 0,
+            "probe_transpose_d": 0, "probe_mosaic_aligned": 0,
+            "probe_mosaic_unaligned": 0, "probe_banded_batched": 0,
+            "probe_banded_loop": 0}
 
 # sources compiled as several translation units at once: one for each
 # instance (-DBCD_SMEM_D=d) and one for the C entries
@@ -66,6 +73,7 @@ SPLIT = {"solve_filter_smem.cu": ("BCD_SMEM_D", "BCD_SMEM_ENTRIES",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # histo, nb, color, pixcov, valid, thr, n_tiles, t, h, b, nbins,
     # mask bits, masks, m2, misc, stream
@@ -90,6 +98,21 @@ _SIGNATURES = {
     "bcd_solve_filter_big": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P,
                              _I, _P, _P],
     "bcd_solve_filter_big_scratch_floats": [_I, _I],
+    # m2, msum, nov, n, eps, n_pixels, d, sweeps, scratch, n_blocks, a2t, b2,
+    # stream (the lane solve_matrices on the runtime-d kernel)
+    "bcd_solve_matrices_big": [_P, _P, _P, _P, _F, _I, _I, _I, _P, _I, _P, _P,
+                               _P],
+    # csrc/probes.cu: m2, expand (or index), P, K, M, lanes, back, stream
+    "bcd_probe_transpose_mma": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "bcd_probe_transpose_gather": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # m2, floats in, floats out, lanes, back, stream
+    "bcd_probe_transpose_copy": [_P, _L, _L, _P, _P, _P],
+    # g, rows of g, columns, rows out, window rows, weights (host arrays),
+    # windows, out, stream
+    "bcd_probe_mosaic": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    # b, s, Y, T, C, out, stream (the loop: band before out)
+    "bcd_probe_banded_mma": [_P, _P, _I, _I, _I, _P, _P],
+    "bcd_probe_banded_loop": [_P, _P, _I, _I, _I, _I, _P, _P],
     # d, out (6 int64: shared bytes, shared rows, global rows, shared
     # vectors, global vector floats, slot floats a block) -> 0 or -1
     "bcd_solve_filter_big_layout": [_I, _P],

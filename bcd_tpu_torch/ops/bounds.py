@@ -107,15 +107,32 @@ def accumulate(n_pixels: int, spp: int, nbins: int):
                     4 * n_pixels * (3 * spp + 1 + 3 + 6 + 3 * nbins))
 
 
+# the mosaic probe's 13 windows of 2208 rows of a (2896, 729) slab, 48 rows
+# apart: the rows they span, from the first window's first row to the last
+# one's end; the aligned form also reads each at dx = -3 to 5 (8 rows more)
+MOSAIC_WINDOWS, MOSAIC_STEP, MOSAIC_NPIX, MOSAIC_C = 13, 48, 2208, 729
+
+
+def mosaic_span(aligned: bool) -> int:
+    """The slab rows the mosaic's windows span (the rows it must read)."""
+    return (MOSAIC_WINDOWS - 1) * MOSAIC_STEP + MOSAIC_NPIX + 8 * aligned
+
+
 def probes() -> dict[str, tuple[float, str]]:
-    """The four TPU-compiler probes in scripts/ (not ported; ROADMAP Queue
-    2) at the shapes their scripts run."""
-    tri_in = 4 * (2304 * DTRI + D * D * DTRI)
+    """The four TPU-compiler probes in scripts/ at the shapes their scripts
+    run, each its script's whole function (``probe_variants`` has one bound
+    for each of the port's microbenchmark variants). The transpose's
+    expansion needs only its 729 gather indices, not the (729, 378) 0/1
+    matrix the script multiplies by; the mosaic reads only the rows its
+    windows span (``mosaic_span``)."""
+    tri_in = 4 * (2304 * DTRI + D * D)
     return {
         # expand and transpose 2304 pixel rows of K1's moments: a data move
         "probe_transpose": bound_ms(0, tri_in + 4 * 2 * D * D * 2304),
-        # 13 shifted row reads of a (2896, 729) slab summed into (2208, 729)
-        "probe_mosaic": bound_ms(13 * 2208 * 729, 4 * (2896 + 2208) * 729),
+        # 13 shifted row windows of a (2896, 729) slab summed into (2208, 729)
+        "probe_mosaic": bound_ms(
+            MOSAIC_WINDOWS * MOSAIC_NPIX * MOSAIC_C,
+            4 * (mosaic_span(False) + MOSAIC_NPIX) * MOSAIC_C),
         # (60, 64, 64) 13-wide banded masks times (60, 64, 768) slabs
         "probe_banded_dot": bound_ms(60 * 64 * 13 * 768 * 2,
                                      4 * 60 * 64 * (64 + 2 * 768)),
@@ -124,6 +141,39 @@ def probes() -> dict[str, tuple[float, str]]:
     }
 
 
+def probe_variants() -> dict[str, tuple[float, str]]:
+    """Each variant of the port's probe microbenchmarks
+    (``ops/probes.py``, ``csrc/probes.cu``) at its script's shapes: the
+    bytes its function must move (none of them needs the operations to
+    bound it). The transpose variants move P = 2304 pixel rows of K1's
+    packed moments (2304, 378): A, B and D's function needs them and the
+    expansion's 729 gather indices (A and D multiply by the (729, 378) 0/1
+    matrix, but the same function needs only the index); A and B write the
+    lane-major (729, 2304) and pixel-major (2304, 729) expansions, D the
+    lane-major one only; C reads no index. The mosaic sums 39 weighted
+    windows (aligned) or 13 windows (unaligned) of a (2896, 729) slab into
+    (2208, 729), reading the rows they span; the banded dot's two variants
+    compute one function."""
+    p, tri, full = 2304, DTRI, D * D
+    m2, lanes = 4 * p * tri, 4 * full * p
+    band = probes()["probe_banded_dot"]
+
+    def mosaic(aligned: bool, n_windows: int, per_window: int):
+        return bound_ms(n_windows * per_window * MOSAIC_NPIX * MOSAIC_C,
+                        4 * (mosaic_span(aligned) + MOSAIC_NPIX) * MOSAIC_C)
+
+    return {
+        "probe_transpose_a": bound_ms(0, m2 + 4 * full + 2 * lanes),
+        "probe_transpose_b": bound_ms(0, m2 + 4 * full + 2 * lanes),
+        "probe_transpose_c": bound_ms(0, m2 + 2 * lanes),
+        "probe_transpose_d": bound_ms(0, m2 + 4 * full + lanes),
+        "probe_mosaic_aligned": mosaic(True, 3 * MOSAIC_WINDOWS, 2),
+        "probe_mosaic_unaligned": mosaic(False, MOSAIC_WINDOWS, 1),
+        "probe_banded_batched": band,
+        "probe_banded_loop": band,
+    }
+
+
 if __name__ == "__main__":
-    for name, (ms, by) in probes().items():
+    for name, (ms, by) in {**probes(), **probe_variants()}.items():
         print(f"{name}: bound {ms:.6f} ms ({by})")

@@ -32,8 +32,9 @@ d = 2187 (r = 13) on, every patch dimension runs ``csrc/solve_filter_big.cu``,
 the same algorithm with d a runtime argument (at d = 2187, 4,363 of 4,376
 rows in the global slot, 76.5 MB a block); a d is refused only where one
 block's slot and one band of the stack pass the card's memory
-(``check_solve_path``). The lane ``solve_matrices`` has no d = 147 kernel.
-The kernels' headers give the math, the design and what bounds them.
+(``check_solve_path``). The lane ``solve_matrices`` runs
+``csrc/solve_filter.cu`` at d = 27 and 75 and the runtime-d kernel, fed by
+the moments, at every other patch dimension. The kernels' headers give the math, the design and what bounds them.
 ``solve_schedule_core`` is the plain float32 model of every solve
 kernel's schedule (K2's too), the reference they are held to on the card
 beside the float64 twins.
@@ -89,12 +90,13 @@ SMEM_DIMS = {147: "solve_filter_smem", 243: "solve_filter_243",
 # from this d (patch radius 13) solve_filter_pm runs csrc/solve_filter_big.cu,
 # d a runtime argument, at every patch dimension
 BIG_FROM_D = 2187
-# the lane solve_matrices' kernel (csrc/solve_filter.cu only)
-LANE_KERNEL_DIMS = (27, 75)
+# the d csrc/solve_filter.cu is built for (a thread's column of W or Q in
+# registers); the lane solve_matrices runs csrc/solve_filter_big.cu at every
+# other d
+REGISTER_DIMS = (27, 75)
 SMEM_BYTES = 232448  # shared memory an H100 block may have
 # the card's memory where no card is present (the CPU tests): an H100's
 CARD_BYTES = 80 * 10 ** 9
-ROADMAP_LANE_D = ("ROADMAP.md Queue 2, the lane solve_matrices at d = 147")
 
 
 def _sym_apply(mats: torch.Tensor, fn) -> torch.Tensor:
@@ -514,27 +516,35 @@ def _pm_field(cand, rows):
             rows_i32.numel())
 
 
-def _launch_big(tensors, rows_i32, n_rows: int, min_eigen: float,
-                sweeps: int, field) -> None:
-    """csrc/solve_filter_big.cu on ``n_rows`` pixels: a persistent grid of
-    as many blocks as the SMs, the rows and the card's free memory allow,
-    each with its global slot."""
-    _, n_off, d = field.shape
+def _big_blocks(d: int, n_rows: int, dev) -> int:
+    """Blocks of csrc/solve_filter_big.cu's persistent grid for ``n_rows``
+    pixels at patch dimension d: as many as the SMs, the rows and the card's
+    free memory allow, each with its global slot. Raises NotImplementedError
+    for a d that is no patch dimension, or, where there is a pixel to solve,
+    whose one slot passes the memory the card has free (naming the
+    bytes)."""
     lay = big_layout(d)
     if lay is None:
         check_kernel_dim(d)  # raises: d is no patch dimension
-    dev = field.device
     slot = 4 * lay["slot_floats"]
     free, _ = torch.cuda.mem_get_info(dev)
     avail = (free + torch.cuda.memory_reserved(dev)
              - torch.cuda.memory_allocated(dev))
-    n_blocks = min(n_rows, avail // slot, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    if n_blocks < 1:
+    if n_rows > 0 and avail < slot:
         raise NotImplementedError(
             f"patch dimension d = {d}: one block of the solve kernel takes "
             f"{slot} bytes of global memory, more than the card's {avail} "
             "bytes free")
+    return min(n_rows, avail // slot, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+
+
+def _launch_big(tensors, rows_i32, n_rows: int, min_eigen: float,
+                sweeps: int, field) -> None:
+    """csrc/solve_filter_big.cu on ``n_rows`` pixels (``_big_blocks``)."""
+    _, n_off, d = field.shape
+    dev = field.device
+    n_blocks = _big_blocks(d, n_rows, dev)
     p, lib = _build.ptr, _build.library()
     scratch = torch.empty(lib.bcd_solve_filter_big_scratch_floats(d, n_blocks),
                           device=dev)
@@ -685,7 +695,15 @@ def solve_matrices(m2_t, msum_t, nov_t, n_t, min_eigen: float, npx: int,
     """Lane-form moment solve (``solve_filter_pallas.py:594-607``): m2_t
     (d, d, P) raw masked second moments, msum_t (d, P) masked patch sums,
     nov_t (6 npx, P) masked noise sums, n_t (1, P) set sizes. Returns
-    (a2t (d, d, P) with a2t[k, j, p] = A2[p][j, k], b2 (1, d, P))."""
+    (a2t (d, d, P) with a2t[k, j, p] = A2[p][j, k], b2 (1, d, P)).
+
+    On CUDA, d = 27 and 75 run ``csrc/solve_filter.cu`` and every other
+    patch dimension the runtime-d kernel ``csrc/solve_filter_big.cu`` fed by
+    the moments (``bcd_solve_matrices_big``), unless P = 0 (no launch). A d
+    that is no patch dimension, or whose one block of the runtime-d kernel
+    passes the card's free memory, is refused before any launch (the
+    message names the bytes). ``sweeps`` is the kernel's number of Jacobi
+    sweeps; the twin's exact eigh has none."""
     if m2_t.dim() != 3:
         raise ValueError(f"m2_t must be (d, d, P), got {tuple(m2_t.shape)}")
     d, _, p_total = m2_t.shape
@@ -698,26 +716,35 @@ def solve_matrices(m2_t, msum_t, nov_t, n_t, min_eigen: float, npx: int,
             (1, p_total))):
         if t.shape != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    _check_kernel_inputs(names, tensors)
-    if m2_t.device.type == "cpu":
-        return solve_matrices_plain(m2_t, msum_t, nov_t, n_t, min_eigen, npx)
-    if d not in LANE_KERNEL_DIMS:
-        raise NotImplementedError(
-            f"patch dimension d = {d}: the lane solve_matrices' CUDA kernel "
-            f"is built for d in {LANE_KERNEL_DIMS}; see {ROADMAP_LANE_D}")
     dev = m2_t.device
+    # a d the card cannot hold is refused first, whatever the inputs' layout
+    n_blocks = (_big_blocks(d, p_total, dev) if dev.type == "cuda"
+                and d not in REGISTER_DIMS else 0)
+    _check_kernel_inputs(names, tensors)
+    if dev.type == "cpu":
+        return solve_matrices_plain(m2_t, msum_t, nov_t, n_t, min_eigen, npx)
     # pixel rows for the kernel, held here until the launch is queued
     rows = [m2_t.permute(2, 0, 1).contiguous(), msum_t.T.contiguous(),
             nov_t.T.contiguous(), n_t]
     a2t = torch.empty((p_total, d, d), device=dev)
     b2 = torch.empty((p_total, d), device=dev)
     if p_total > 0:  # else nothing to solve: no launch
-        p = _build.ptr
-        rc = _build.library().bcd_solve_matrices(
-            *map(p, rows), float(min_eigen), p_total, d, int(sweeps), p(a2t),
-            p(b2), _build.stream_of(m2_t))
-        _build.LAUNCHES["solve_matrices"] += 1
-        _build.check(rc, "solve_matrices")
+        p, lib = _build.ptr, _build.library()
+        if d in REGISTER_DIMS:
+            rc = lib.bcd_solve_matrices(
+                *map(p, rows), float(min_eigen), p_total, d, int(sweeps),
+                p(a2t), p(b2), _build.stream_of(m2_t))
+            name = "solve_matrices"
+        else:
+            scratch = torch.empty(
+                lib.bcd_solve_filter_big_scratch_floats(d, n_blocks),
+                device=dev)
+            rc = lib.bcd_solve_matrices_big(
+                *map(p, rows), float(min_eigen), p_total, d, int(sweeps),
+                p(scratch), n_blocks, p(a2t), p(b2), _build.stream_of(m2_t))
+            name = "solve_matrices_big"
+        _build.LAUNCHES[name] += 1
+        _build.check(rc, name)
     return a2t.permute(1, 2, 0).contiguous(), b2.T[None].contiguous()
 
 
@@ -728,10 +755,11 @@ def solve_matrices_schedule(m2_t, msum_t, nov_t, n_t, min_eigen: float,
     f32 = torch.float32
     d = m2_t.shape[0]
     n = n_t.to(f32)[0]
-    nsafe = n.clamp(min=1.0)[:, None]
-    m = msum_t.to(f32).T / nsafe
+    # the mean patch and noise as the kernels form them: times 1 / max(n, 1)
+    inv_n = 1.0 / n.clamp(min=1.0)[:, None]
+    m = msum_t.to(f32).T * inv_n
     x2, b2 = solve_schedule_core(
         _cemp(m2_t.to(f32).permute(2, 0, 1), m, n),
-        _noise_bd(nov_t.to(f32).T / nsafe, npx), m, min_eigen, sweeps)
+        _noise_bd(nov_t.to(f32).T * inv_n, npx), m, min_eigen, sweeps)
     a2t = torch.eye(d, dtype=f32, device=m2_t.device) - x2  # a2t[p, k, j]
     return a2t.permute(1, 2, 0).contiguous(), b2.T[None].contiguous()

@@ -176,6 +176,21 @@ non-zero before the final line:
    memory, tiles and bands); (d) ``bcd -w 13 -b 22 -s 2`` on that crop (no
    solve launch); (e) (c)'s output against the same pipeline on the card
    with the float64 twin in the kernel's place.
+18. The lane solve_matrices on the runtime-d kernel (every d but 27 and
+   75, csrc/solve_filter_big.cu fed by the moments, launch counter
+   solve_matrices_big) and the TPU-compiler probes' microbenchmarks
+   (csrc/probes.cu, ops/probes.py): (a) the lane form at d = 147, 363 and
+   675 on 4 synthetic pixels each whose similar sets outnumber d + 1,
+   against the float64 twin at the engine's sweeps, its filter against
+   solve_filter_pm_big's field on the same stack, and against the fp32
+   model of its schedule at the sweeps phases 7, 9 and 11 hold
+   solve_filter to, and timed at d = 147 on 2,048 centers beside its
+   bound and twin; (b) every probe variant (transpose A to D, mosaic
+   aligned and unaligned, banded dot batched and loop) at its script's
+   shapes against its plain version (B, C and D bit for bit, the others
+   within fp32 rounding) and the float64 reference (transpose A's
+   exactness both ways), timed beside its bound, its plain version and the
+   one PyTorch call that computes its function, where there is one.
 
 The crops' CPU references (phases 5, 7 and 8 to 15's (e)), the port's
 CPU pipeline on each crop, are computed one after another from phase 5's
@@ -710,6 +725,25 @@ INGEST_SPP = 16
 ACC_MEAN_RTOL = 1e-5
 ACC_COV_REL = 1e-5
 ACC_HISTO_ATOL = 2e-4
+
+# phase 18 (a): the lane solve_matrices on the runtime-d kernel at (O, d, the
+# model's sweeps): stack_inputs' masks keep about 0.7 O candidates, more
+# than d + 1 (289, 625 and 1,089 offsets are windows of b = 8, 12 and 16),
+# so the main path's rank holds; the model at the sweeps phases 7, 9 and 11
+# hold solve_filter to at that d (two past the engine's from d = 363). Not
+# past d = 675: a call lasts a pixel's latency (about 68 s at d = 2187 on an
+# NVIDIA H100 80GB HBM3 at 700 W), so d = 1875 and 2187 are gpu tests
+LANE_BIG = ((289, 147, 8), (625, 363, 10), (1089, 675, 11))
+LANE_PIXELS = 4
+# the lane form's filter, mask (A2 c + b2), against solve_filter's field on
+# the same stack: tests/test_torch_solve.py's limit at d = 27 and 75
+LANE_CONSISTENT_RMS = 2e-4
+# the TPU kernel each probe variant's microbenchmark stands for, by the
+# second word of its name
+PROBE_SCRIPTS = {"transpose": "scripts/probe_transpose.py:86",
+                 "mosaic": "scripts/probe_mosaic.py:65",
+                 "banded": "scripts/probe_banded_dot.py:52"}
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -2376,6 +2410,131 @@ def big_phase(dev, card, stats, clean, scene_path, radius=13, b=R13_SEARCH,
     return (e_syn[0], k_us / 1e3, plain_ms, bound), launches
 
 
+def lane_phase(dev):
+    """Phase 18 (a): the lane solve_matrices on the runtime-d kernel
+    (``bcd_solve_matrices_big``) at LANE_BIG's d on LANE_PIXELS synthetic
+    pixels whose similar sets outnumber d + 1: driven once at the engine's
+    sweeps (the launches counted), then held to the float64 twin there, to
+    the fp32 model of its schedule at the sweeps phases 7, 9 and 11 hold
+    solve_filter to, and to ``solve_filter_pm_big``'s field on the same
+    stack; then timed at d = 147 on LANE_CENTERS synthetic centers, held to
+    the twin there too. Returns ((max_abs_err, ms, plain_ms, bound),
+    launches)."""
+    import torch
+    from bcd_tpu_torch.core.monoscale import solve_filter_sweeps
+    from bcd_tpu_torch.ops import _build, bounds
+    from bcd_tpu_torch.ops import solve_filter as ts
+
+    cases = []
+    for O, d, model_sweeps in LANE_BIG:
+        x = stack_inputs(np.random.default_rng(d), O, d, LANE_PIXELS, dev)
+        need(float(x["n"].min()) >= d + 1,
+             f"[18] d={d}: a synthetic pixel has fewer than d + 1 similar "
+             "candidates")
+        cases.append((x, lane_moments(x), O, d, model_sweeps))
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [ts.solve_matrices(*mom, 1e-8, npx=d // 3,
+                              sweeps=solve_filter_sweeps(d))
+            for _, mom, _, d, _ in cases]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[18] (a) the lane solve_matrices at d = "
+          f"{', '.join(str(c[3]) for c in cases)} on {LANE_PIXELS} pixels "
+          f"each at the engine's sweeps: {time.perf_counter() - t0:.1f} s; "
+          f"launches { {k: n for k, n in launches.items() if n} }",
+          flush=True)
+    need(launches["solve_matrices_big"] == len(cases)
+         and sum(launches.values()) == len(cases),
+         "the lane solve_matrices did not launch the runtime-d kernel "
+         "alone, once a d")
+    err = 0.0
+    for (x, mom, O, d, model_sweeps), got in zip(cases, outs):
+        npx, sweeps = d // 3, solve_filter_sweeps(d)
+        need(all(bool(torch.isfinite(g).all()) for g in got),
+             f"[18] d={d}: non-finite lane output")
+        twin = ts.solve_matrices_plain(*mom, 1e-8, npx=npx)
+        e_t = max(rmse(g.cpu(), r.cpu()) for g, r in zip(got, twin))
+        err = max(err, max(float((g - r).abs().max())
+                           for g, r in zip(got, twin)))
+        field = ts.solve_filter_pm_big(*pm_of(x), 1e-8, npx,
+                                       sweeps).permute(1, 2, 0)
+        e_c = rmse(lane_field(got, x).cpu(), field.cpu())
+        got_m = ts.solve_matrices(*mom, 1e-8, npx=npx, sweeps=model_sweeps)
+        model = ts.solve_matrices_schedule(
+            *(v[..., :LATE_MODEL_PIXELS] for v in mom), 1e-8, npx,
+            model_sweeps)
+        e_m = max(rmse(g[..., :LATE_MODEL_PIXELS].cpu(), r.cpu())
+                  for g, r in zip(got_m, model))
+        print(f"[18] (a) d={d} (O={O}, n >= {int(x['n'].min())}): vs the "
+              f"float64 twin at {sweeps} sweeps rms {e_t:.3e} (limit "
+              f"{SYNTH_RMS:g}); its filter vs solve_filter_pm_big's field "
+              f"rms {e_c:.3e} (limit {LANE_CONSISTENT_RMS:g}); at "
+              f"{model_sweeps} sweeps vs the fp32 model on "
+              f"{LATE_MODEL_PIXELS} rms {e_m:.3e} (limit "
+              f"{SMEM_MODEL_RMS:g})", flush=True)
+        need(e_t < SYNTH_RMS, f"[18] d={d}: the lane form vs its twin")
+        need(e_c < LANE_CONSISTENT_RMS,
+             f"[18] d={d}: the lane form vs solve_filter_pm_big")
+        need(e_m < SMEM_MODEL_RMS, f"[18] d={d}: the lane form vs its model")
+    del cases, outs
+
+    O, d, _ = LANE_BIG[0]
+    npx, sweeps = d // 3, solve_filter_sweeps(d)
+    x = stack_inputs(np.random.default_rng(LANE_CENTERS), O, d, LANE_CENTERS,
+                     dev)
+    mom = lane_moments(x)
+    del x
+    sm = lambda: ts.solve_matrices(  # noqa: E731
+        *mom, 1e-8, npx=npx, sweeps=sweeps)
+    got = sm()
+    ms = cuda_ms(sm, 3)
+    twin, plain_ms = timed_once(lambda: ts.solve_matrices_plain(
+        *mom, 1e-8, npx=npx))
+    rel = max(rel_rms(g, r) for g, r in zip(got, twin))
+    err = max(err, max(float((g - r).abs().max()) for g, r in zip(got, twin)))
+    bound = bounds.solve_matrices(LANE_CENTERS, d, sweeps)
+    print(f"[18] (a) d={d} on {LANE_CENTERS} centers at {sweeps} sweeps: "
+          f"{ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
+          f"{ms / bound[0]:.1f}x; the twin {plain_ms:.3f} ms, rel rms "
+          f"{rel:.3e} from it (limit {BATCH_REL_RMS:g})", flush=True)
+    need(rel < BATCH_REL_RMS, "[18] the lane form on 2,048 centers vs its twin")
+    return (err, ms, plain_ms, bound), launches
+
+
+def probe_phase(dev):
+    """Phase 18 (b): every variant of the probe microbenchmarks
+    (``ops/probes.variants``) at its script's shapes, driven once (the
+    launches counted), then measured by ``probes.measure``: held to its
+    plain version (bit for bit, or within fp32 rounding) and to the float64
+    reference, and timed beside its bound, its plain version and the one
+    PyTorch call that computes its function. Returns ({name: (max abs err,
+    ms, plain ms, bound, library ms)}, launches)."""
+    import torch
+    from bcd_tpu_torch.ops import _build, probes
+
+    vs = probes.variants(dev)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    for v in vs:
+        v.run()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[18] (b) the probe microbenchmarks, each once: launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    readings, lines = probes.measure(dev)
+    res = {}
+    for r in readings:
+        need(launches[r.name] == 1, f"{r.name} did not launch once")
+        res[r.name] = (r.err, r.ms, r.plain_ms, r.bound, r.library_ms)
+        print(f"[18] (b) {r.line}", flush=True)
+        need(r.ok, f"{r.name} against its plain version")
+    for line in lines:
+        print(f"[18] (b) {line}", flush=True)
+    return res, launches
+
+
 def cpu_reference_worker(conn, jobs, threads) -> None:
     """The port's CPU pipeline on each (key, radius, b, scales, tile, crop)
     of ``jobs``, in order, each result sent on ``conn`` as (key, output,
@@ -3178,6 +3337,13 @@ def main() -> int:
         dev, card, stats, clean, paths[""])
     print(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- 18. the lane solve_matrices at d >= 147, the probes ----------------
+    t0 = time.perf_counter()
+    kernels["solve_matrices_big"], launches18 = lane_phase(dev)
+    probe_res, launches18b = probe_phase(dev)
+    kernels.update(probe_res)
+    print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
@@ -3227,20 +3393,31 @@ def main() -> int:
         "solve_filter_2187": ("solve_filter_big",
                               "bcd_tpu_torch/csrc/solve_filter_big.cu",
                               "bcd_tpu/ops/solve_filter_pallas.py:441"),
+        # the lane form at every d but 27 and 75 (phase 18 (a))
+        "solve_matrices_big": ("solve_matrices_big",
+                               "bcd_tpu_torch/csrc/solve_filter_big.cu",
+                               "bcd_tpu/ops/solve_filter_pallas.py:594"),
+        # the probes' microbenchmarks (phase 18 (b))
+        **{name: (name, "bcd_tpu_torch/csrc/probes.cu", PROBE_SCRIPTS[
+            name.split("_")[1]]) for name in probe_res},
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
             "solve_filter_smem": launches3["solve_filter_smem"],
             **{name: counts[name] for name, counts in wide_launches.items()},
-            "solve_filter_big": launches13["solve_filter_big"]}
+            "solve_filter_big": launches13["solve_filter_big"],
+            "solve_matrices_big": launches18["solve_matrices_big"],
+            **{name: launches18b[name] for name in probe_res}}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
          "launches": runs[meta[k][0]], "max_abs_err": kernels[k][0],
          "ms": kernels[k][1], "plain_ms": kernels[k][2],
          "bound_ms": kernels[k][3][0], "bound_by": kernels[k][3][1],
-         # no single PyTorch call computes any of these functions (PERF.md)
-         "library_ms": None} for k in meta]}),
+         # one PyTorch call computes only some probes' functions; none
+         # computes the other kernels' (PERF.md)
+         "library_ms": kernels[k][4] if len(kernels[k]) > 4 else None}
+        for k in meta]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """The port's CUDA kernels (K1, K2, K4, solve_filter at d = 27 and 75, its
 shared-memory form at d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587
-and 1875, its runtime-d form from d = 2187 and the lane-form
-solve_matrices) against their plain twins, and the solve kernels against
-the plain fp32 model of their own schedule, on the card. Run on a machine
-with an NVIDIA Hopper card:
+and 1875, its runtime-d form from d = 2187, the lane-form solve_matrices
+at d = 27 and 75 and on the runtime-d kernel at every other d, and the
+TPU-compiler probes' microbenchmarks) against their plain twins, and the
+solve kernels against the plain fp32 model of their own schedule, on the
+card. Run on a machine with an NVIDIA Hopper card:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
@@ -956,8 +957,9 @@ def test_solve_filter_pm_empty_rows_at_any_d(cuda):
 def test_solve_filter_kernel_refuses_large_patches(cuda):
     """d = 77,763 (patch radius 80) with a pixel to solve: one block of the
     runtime-d kernel takes 96.8 GB, more than the card holds; refused with
-    the bytes named, before any launch; and the lane form at d = 147 still
-    has no kernel."""
+    the bytes named, before any launch, by solve_filter and by the lane
+    solve_matrices (on stride-0 views: its moments alone would take 24 GB a
+    pixel); and the lane form at d = 147 runs, on the runtime-d kernel."""
     from bcd_tpu_torch.ops import _build
 
     pm = _pm_light(np.random.default_rng(0), 9, D_REFUSED, 2, cuda)
@@ -970,12 +972,37 @@ def test_solve_filter_kernel_refuses_large_patches(cuda):
             pm[4].T.contiguous()]
     with pytest.raises(NotImplementedError, match="bytes"):
         solve_filter(*lane, 1e-8, npx=D_REFUSED // 3, sweeps=11)
+    zero = torch.zeros(1, device=cuda)
+    with pytest.raises(NotImplementedError, match="bytes"):
+        solve_matrices(zero.expand(D_REFUSED, D_REFUSED, 2),
+                       zero.expand(D_REFUSED, 2),
+                       zero.expand(2 * D_REFUSED, 2), torch.ones(
+                           (1, 2), device=cuda), 1e-8, npx=D_REFUSED // 3,
+                       sweeps=11)
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
     x = {k: v.to(cuda) for k, v in
          _stack_inputs(np.random.default_rng(0), 9, 147, 2).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_matrices(*(x[k] for k in ("m2", "msum", "nov", "n")), 1e-8,
-                       npx=49, sweeps=8)
+    a2t, b2 = solve_matrices(*(x[k] for k in ("m2", "msum", "nov", "n")),
+                             1e-8, npx=49, sweeps=8)
+    assert a2t.shape == (147, 147, 2) and b2.shape == (1, 147, 2)
+    assert _build.LAUNCHES["solve_matrices_big"] == 1
+
+
+def test_solve_matrices_big_empty_makes_no_launch(cuda):
+    """The lane form with no pixel (P = 0) at d = 147 and at d = 77,763,
+    whose one block the card cannot hold: empty results, no launch, no
+    refusal."""
+    from bcd_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    for d in (147, D_REFUSED):
+        a2t, b2 = solve_matrices(
+            torch.zeros((d, d, 0), device=cuda), torch.zeros((d, 0),
+                                                             device=cuda),
+            torch.zeros((2 * d, 0), device=cuda),
+            torch.zeros((1, 0), device=cuda), 1e-8, npx=d // 3, sweeps=8)
+        assert a2t.shape == (d, d, 0) and b2.shape == (1, d, 0)
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_cli_refuses_radius_3_on_cuda(cuda, capsys):
@@ -1182,6 +1209,89 @@ def test_solve_filter_2187_wave_against_its_bound(cuda):
           f"on 2 pixels {plain_ms:.3f} ms")
     assert bool(torch.isfinite(got).all())
     assert _rms(got[:2], want) < 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the lane solve_matrices on the runtime-d kernel (bcd_solve_matrices_big)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("O,d,P,model_sweeps,consistent", [
+    (289, 147, 4, 8, True), (625, 363, 4, 10, True),
+    (2025, 1875, 2, 12, True), (2209, 2187, 2, 12, False)])
+def test_solve_matrices_big_matches_twin_model_and_solve_filter(
+        cuda, O, d, P, model_sweeps, consistent):
+    """The lane solve_matrices at d = 147, 363, 1875 and 2187 on P synthetic
+    pixels, the runtime-d kernel fed by the moments (one launch, counted as
+    solve_matrices_big): at the engine's sweeps within 2e-4 rms of the
+    float64 twin and, but at d = 2187 (a call lasts about 70 s there on an
+    NVIDIA H100 80GB HBM3 at 700 W), its
+    filter mask (A2 c + b2) within 2e-4 of solve_filter_pm_big's field on
+    the same stack; at the sweeps the smoke holds solve_filter to at that d
+    (two past the engine's from d = 363) within SMEM_MODEL_RMS of the fp32
+    model of its schedule on 2 pixels (1 at d = 2187)."""
+    from bcd_tpu_torch.ops import _build
+
+    x = _stack_inputs(np.random.default_rng(d + 3), O, d, P)
+    mom = [x[k].to(cuda) for k in ("m2", "msum", "nov", "n")]
+    npx, sweeps = d // 3, solve_filter_sweeps(d)
+    _build.reset_launches()
+    got = solve_matrices(*mom, 1e-8, npx=npx, sweeps=sweeps)
+    assert _build.LAUNCHES["solve_matrices_big"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    twin = solve_matrices_plain(*mom, 1e-8, npx=npx)
+    e_t = max(_rms(g, r) for g, r in zip(got, twin))
+    e_c = None
+    if consistent:
+        field = solve_filter_pm_big(*_pm_of(x, cuda), 1e-8, npx=npx,
+                                    sweeps=sweeps).cpu()
+        a2 = got[0].cpu().permute(2, 1, 0)  # (P, j, k)
+        want = x["mask"][:, None, :] * (
+            torch.einsum("pjk,okp->ojp", a2, x["C"]) + got[1].cpu()[0][None])
+        e_c = _rms(field.permute(1, 2, 0), want)
+    n_m = 1 if d == 2187 else 2
+    got = solve_matrices(*mom, 1e-8, npx=npx, sweeps=model_sweeps)
+    model = solve_matrices_schedule(*(v[..., :n_m] for v in mom), 1e-8, npx,
+                                    model_sweeps)
+    e_m = max(_rms(g[..., :n_m], w) for g, w in zip(got, model))
+    print(f"lane solve_matrices d = {d}: {sweeps} sweeps vs the twin "
+          f"{e_t:.3e}, its filter vs solve_filter_pm_big "
+          f"{'not read' if e_c is None else f'{e_c:.3e}'}; "
+          f"{model_sweeps} sweeps vs the fp32 model {e_m:.3e}")
+    assert e_t < 2e-4 and (e_c is None or e_c < 2e-4)
+    assert e_m < SMEM_MODEL_RMS
+
+
+# ---------------------------------------------------------------------------
+# the TPU-compiler probes' microbenchmarks (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [
+    "probe_transpose_a", "probe_transpose_b", "probe_transpose_c",
+    "probe_transpose_d", "probe_mosaic_aligned", "probe_mosaic_unaligned",
+    "probe_banded_batched", "probe_banded_loop"])
+def test_probe_variant_matches_its_plain_version(cuda, name):
+    """Each probe variant at its script's shapes, one launch counted under
+    its name, against its plain version: transpose B, C and D bit for bit,
+    the others within fp32 rounding (``probes.FP32_REL`` of the largest
+    magnitude); transpose A and D exact against float64 (the expansion and
+    its transpose move values; A's products of exactly split TF32 parts
+    each hold one non-zero term)."""
+    from bcd_tpu_torch.ops import _build, probes
+
+    (v,) = [v for v in probes.variants(cuda) if v.name == name]
+    _build.reset_launches()
+    got = v.run()
+    assert _build.LAUNCHES[name] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    ok, err, limit = probes.held(v, got, v.plain())
+    print(f"{name}: {probes.exactness(got, v.ref64())} vs float64; vs its "
+          f"plain version {err:.3e} (limit {limit:.3e})")
+    assert ok
+    if name in ("probe_transpose_a", "probe_transpose_d"):
+        assert probes.max_err(got, v.ref64()) == 0.0
 
 
 def test_cli_accepts_radius_4_at_b6_on_cuda(cuda, tmp_path):

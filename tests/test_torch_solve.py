@@ -148,6 +148,49 @@ def test_solve_matrices_consistent_with_solve_filter(O, d):
     assert _rms(field, want) < 2e-4
 
 
+def test_solve_matrices_twin_matches_jax_reference_at_d147():
+    """The lane form at d = 147, where the card runs the runtime-d kernel
+    fed by the moments (csrc/solve_filter_big.cu): the twin (what the
+    wrapper returns on the CPU) against JAX's ``solve_matrices_reference``
+    on 6 pixels of 289 candidates, within 2e-4 rms. The JAX reference and
+    not its Pallas kernel in interpret mode, which would be slow at this
+    d."""
+    import jax.numpy as jnp
+    from bcd_tpu.ops.solve_filter_pallas import solve_matrices_reference
+
+    m2, msum, nov, n, *_ = _moment_inputs(np.random.default_rng(147), O=289,
+                                          d=147, npx=49, P=6)
+    got = ts.solve_matrices(*_t(m2, msum, nov, n), 1e-8, npx=49, sweeps=8)
+    ref = solve_matrices_reference(
+        *(jnp.asarray(a) for a in (m2, msum, nov, n)), 1e-8, npx=49)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rms(g.numpy(), np.asarray(r)) < 2e-4
+
+
+@pytest.mark.parametrize("d", [147, 363])
+def test_solve_matrices_takes_every_patch_dimension(d):
+    """The lane form is refused by no d: on the CPU it takes any d = 3 npx
+    (on the card every d but 27 and 75 runs the runtime-d kernel, refused
+    only for the card's memory), with its shapes checked; the refusal by d
+    and its names are gone."""
+    npx = d // 3
+    m2, msum, nov, n, *_ = _moment_inputs(np.random.default_rng(d), O=25,
+                                          d=d, npx=npx, P=2)
+    a2t, b2 = ts.solve_matrices(*_t(m2, msum, nov, n), 1e-8, npx=npx,
+                                sweeps=solve_filter_sweeps(d))
+    assert a2t.shape == (d, d, 2) and b2.shape == (1, d, 2)
+    assert bool(torch.isfinite(a2t).all() and torch.isfinite(b2).all())
+    with pytest.raises(ValueError, match="3 \\* npx"):
+        ts.solve_matrices(*_t(m2, msum, nov, n), 1e-8, npx=npx + 1, sweeps=8)
+    with pytest.raises(ValueError, match="nov_t"):
+        ts.solve_matrices(*_t(m2, msum, nov[:-6], n), 1e-8, npx=npx,
+                          sweeps=8)
+    assert not hasattr(ts, "LANE_KERNEL_DIMS")
+    assert not hasattr(ts, "ROADMAP_LANE_D")
+    assert ts.REGISTER_DIMS == (27, 75)
+
+
 @pytest.mark.parametrize("O,d", [(49, 27), (121, 75)])
 def test_solve_twins_degenerate_pixels_finite(O, d):
     """Every pixel the kernels see must come out finite: the engine
