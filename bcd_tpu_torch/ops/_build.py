@@ -48,7 +48,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # solve_filter_big is csrc/solve_filter_big.cu, d a runtime argument (the
 # engine's from d = 2187), and solve_matrices_big the same kernel as the lane
 # solve_matrices (every d but 27 and 75); probe_* are csrc/probes.cu's
-# microbenchmarks of the TPU-compiler probes, one counter a variant
+# microbenchmarks of the TPU-compiler probes, one counter a variant;
+# bisect_* csrc/bisect.cu's staged solve, one counter a stage
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
@@ -60,7 +61,8 @@ LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "probe_transpose_b": 0, "probe_transpose_c": 0,
             "probe_transpose_d": 0, "probe_mosaic_aligned": 0,
             "probe_mosaic_unaligned": 0, "probe_banded_batched": 0,
-            "probe_banded_loop": 0}
+            "probe_banded_loop": 0, "bisect_m2": 0, "bisect_bd": 0,
+            "bisect_jacobi": 0, "bisect_recon": 0, "bisect_chol": 0}
 
 # sources compiled as several translation units at once: one for each
 # instance (-DBCD_SMEM_D=d) and one for the C entries
@@ -113,6 +115,8 @@ _SIGNATURES = {
     # b, s, Y, T, C, out, stream (the loop: band before out)
     "bcd_probe_banded_mma": [_P, _P, _I, _I, _I, _P, _P],
     "bcd_probe_banded_loop": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # csrc/bisect.cu: C, mask, noise, n, m, O, P, last stage, out, stream
+    "bcd_bisect": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # d, out (6 int64: shared bytes, shared rows, global rows, shared
     # vectors, global vector floats, slot floats a block) -> 0 or -1
     "bcd_solve_filter_big_layout": [_I, _P],
@@ -222,6 +226,27 @@ def build_log() -> str:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
+
+
+def launched(name: str, rc: int) -> None:
+    """Count a launch under ``name``, then raise if it failed."""
+    LAUNCHES[name] += 1
+    check(rc, name)
+
+
+def check_inputs(names, tensors, dtypes) -> torch.device:
+    """The device of ``tensors``, all on it; ValueError for a device other
+    than the CPU or CUDA, a tensor elsewhere, another dtype, or one that is
+    not contiguous on the card."""
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for name, t, dtype in zip(names, tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype or (dev.type == "cuda" and not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype}")
+    return dev
 
 
 def stream_of(t) -> ctypes.c_void_p:

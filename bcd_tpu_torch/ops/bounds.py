@@ -119,7 +119,7 @@ def mosaic_span(aligned: bool) -> int:
 
 
 def probes() -> dict[str, tuple[float, str]]:
-    """The four TPU-compiler probes in scripts/ at the shapes their scripts
+    """The three TPU-compiler probes in scripts/ at the shapes their scripts
     run, each its script's whole function (``probe_variants`` has one bound
     for each of the port's microbenchmark variants). The transpose's
     expansion needs only its 729 gather indices, not the (729, 378) 0/1
@@ -136,8 +136,6 @@ def probes() -> dict[str, tuple[float, str]]:
         # (60, 64, 64) 13-wide banded masks times (60, 64, 768) slabs
         "probe_banded_dot": bound_ms(60 * 64 * 13 * 768 * 2,
                                      4 * 60 * 64 * (64 + 2 * 768)),
-        # a staged solve_filter: 128 pixels, 169 candidates, d = 27, 1 sweep
-        "bisect_kernel": solve_filter(128, 169, D, 1),
     }
 
 
@@ -174,6 +172,30 @@ def probe_variants() -> dict[str, tuple[float, str]]:
     }
 
 
+def bisect_stages(p: int = 128,
+                  o: int = 169) -> dict[str, tuple[float, str]]:
+    """``scripts/bisect_kernel.py``'s staged solve (``ops/bisect.py``) on
+    ``p`` pixels of ``o`` candidates at d = 27, for each stage the work of
+    every stage up to it: the bytes (C and the mask read at every stage,
+    the noise, n and m from ``bd`` on, the (27, p) row written) and the
+    operations (the masked moments' symmetric half, one multiply-add an
+    entry a candidate; Cemp and BD; one sweep of the one-sided Jacobi,
+    ``_jacobi``, the cheapest form; the clamp's rank-28 sum; the Cholesky
+    and its shift). Every stage is bound by its bytes."""
+    d, dp = D, D + 1
+    flops = {"m2": o * (d + d * (d + 1)), "bd": 3 * d * d,
+             "jacobi": _jacobi(d, 1), "recon": dp * d * (d + 1),
+             "chol": d ** 3 / 3 + d * d}
+    out, total = {}, 0.0
+    for k, (stage, f) in enumerate(flops.items()):
+        total += f
+        nbytes = 4 * p * (o * d + o + d + (6 * NPX + 1 + d if k else 0))
+        out[stage] = bound_ms(p * total, nbytes)
+    return out
+
+
 if __name__ == "__main__":
-    for name, (ms, by) in {**probes(), **probe_variants()}.items():
+    for name, (ms, by) in {
+            **probes(), **probe_variants(),
+            **{f"bisect_{k}": v for k, v in bisect_stages().items()}}.items():
         print(f"{name}: bound {ms:.6f} ms ({by})")

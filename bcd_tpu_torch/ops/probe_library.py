@@ -20,14 +20,16 @@ Each probe's inputs are its script's, drawn from its own
   weighted windows, one ``einsum`` of a (13, 9) weight matrix, zero at the
   column offsets it skips, with a (13, 9, 2208, 729) strided view;
 - ``probe_banded_dot``: ``torch.bmm`` of (60, 64, 64) 13-wide 0/1 band
-  matrices and (60, 64, 768) slabs;
-- ``bisect_kernel`` (a staged copy of ``solve_filter``) has none: no
-  PyTorch call computes the clamped two-step solve.
+  matrices and (60, 64, 768) slabs.
+
+(``scripts/bisect_kernel.py``, a staged copy of ``solve_filter``, has none:
+no PyTorch call computes a staged solve; ``ops/bisect.py``.)
 
 Each is held to a float64 reference on the host (within fp32 rounding,
-``FP32_REL`` of the reference's largest magnitude), timed with CUDA events
-as the mean of REPS calls after a warm-up, TF32 off. Prints the card's name
-and power limit last.
+``FP32_REL`` of the reference's largest magnitude) and timed with CUDA
+events as the mean of REPS calls after a warm-up, two ways: launched from
+Python (``cuda_ms``) and replayed from one CUDA graph (``graph_ms``), TF32
+off. Prints the card's name and power limit last.
 """
 
 from __future__ import annotations
@@ -57,15 +59,43 @@ WEIGHTS = tuple(float(np.float32(1.0 + dx * 0.1)) for dx in DX)
 FP32_REL = 4e-6
 
 
-def cuda_ms(fn) -> float:
+def cuda_ms(fn, reps: int = REPS) -> float:
+    """Mean ms a call of ``fn`` over ``reps`` calls launched from Python
+    after a warm-up, timed with CUDA events: where a call takes less than
+    the host's launches, this reads them."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Mean ms a call of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed, after a warm-up on a side stream and one replay,
+    timed with CUDA events: the card's time without the host's launches.
+    ``fn`` must do nothing that a capture refuses (a synchronize, a copy
+    from the host, a read of a result on the host); wrappers count their
+    launches once a capture, not a replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def transpose_inputs(dev):
@@ -148,8 +178,9 @@ def cases(dev):
     ]
 
 
-def measure(dev) -> dict[str, tuple[float, float, float]]:
-    """{name: (ms, the largest gap from float64, the gap fp32 rounding
+def measure(dev) -> dict[str, tuple[float, float, float, float]]:
+    """{name: (ms launched from Python (``cuda_ms``), ms in a CUDA graph
+    (``graph_ms``), the largest gap from float64, the gap fp32 rounding
     explains)} for each case on ``dev``, TF32 off. Raises if a call leaves
     its reference by more than fp32 rounding explains."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -165,7 +196,7 @@ def measure(dev) -> dict[str, tuple[float, float, float]]:
             if err > limit:
                 raise RuntimeError(f"the library call {name} leaves float64 "
                                    f"by {err:.3e} (limit {limit:.3e})")
-            out[name] = (cuda_ms(fn), err, limit)
+            out[name] = (cuda_ms(fn), graph_ms(fn), err, limit)
         return out
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -181,14 +212,12 @@ def main() -> int:
     bound = {**bounds.probes(),
              "probe_transpose_fwd": variants["probe_transpose_d"],
              "probe_mosaic_aligned": variants["probe_mosaic_aligned"]}
-    for name, (ms, err, limit) in measure(dev).items():
-        print(f"{name}: library call {ms:.4f} ms, max abs err {err:.3e} "
-              f"vs float64 (limit {limit:.3e}); bound {bound[name][0]:.4f} "
-              f"ms ({bound[name][1]}), {ms / bound[name][0]:.1f}x",
+    for name, (ms, graph, err, limit) in measure(dev).items():
+        print(f"{name}: library call {graph:.4f} ms in a CUDA graph, "
+              f"{ms:.4f} ms launched from Python, max abs err {err:.3e} vs "
+              f"float64 (limit {limit:.3e}); bound {bound[name][0]:.4f} ms "
+              f"({bound[name][1]}), {graph / bound[name][0]:.1f}x",
               flush=True)
-    print(f"bisect_kernel: library call none (no PyTorch call computes the "
-          f"clamped two-step solve); bound {bound['bisect_kernel'][0]:.4f} ms",
-          flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)

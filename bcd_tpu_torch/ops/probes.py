@@ -9,9 +9,10 @@ at its script's shapes, on its script's inputs (``ops/probe_library``'s
 For each variant it prints whether it is exact against the float64
 reference, or its largest absolute error there; the same against its plain
 version; its time (CUDA events, the mean of ``probe_library.REPS`` calls
-after a warm-up); its bound (``ops/bounds.probe_variants``) and multiple of
-it; and the time of the one PyTorch call that computes its function
-(``probe_library.cases``), where there is one. Then which mosaic windows
+after a warm-up, replayed from one CUDA graph and launched from Python);
+its bound (``ops/bounds.probe_variants``) and multiple of it; and the same
+two times of its plain version and of the one PyTorch call that computes
+its function (``probe_library.cases``), where there is one. Then which mosaic windows
 start on 16 bytes, and last the card's name and power limit.
 
 - transpose (``scripts/probe_transpose.py``): K1's packed moments m2 (P,
@@ -57,23 +58,6 @@ UNALIGNED_SHIFTS = tuple(48 * s + 3 for s in ALIGNED_SHIFTS)
 BAND = probe_library.BAND
 
 
-def _check(names, tensors, dtypes) -> torch.device:
-    dev = tensors[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    for name, t, dtype in zip(names, tensors, dtypes):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype or (dev.type == "cuda" and not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous {dtype}")
-    return dev
-
-
-def _launched(name: str, rc: int) -> None:
-    _build.LAUNCHES[name] += 1
-    _build.check(rc, name)
-
-
 # ---------------------------------------------------------------------------
 # transpose
 # ---------------------------------------------------------------------------
@@ -102,7 +86,8 @@ def transpose_mma(m2, expand, back: bool = True):
     m2 (P, K) pixel-major, P a multiple of 32 on the card; expand (M, K) a
     0/1 expansion matrix with one 1 a row (``ops/fused.tri_geometry``'s).
     Returns (lanes, back) or (lanes,)."""
-    dev = _check(("m2", "expand"), (m2, expand), (torch.float32,) * 2)
+    dev = _build.check_inputs(("m2", "expand"), (m2, expand),
+                              (torch.float32,) * 2)
     if m2.dim() != 2 or expand.dim() != 2 or expand.shape[1] != m2.shape[1]:
         raise ValueError(f"m2 (P, K) and expand (M, K) expected, got "
                          f"{tuple(m2.shape)} and {tuple(expand.shape)}")
@@ -118,14 +103,15 @@ def transpose_mma(m2, expand, back: bool = True):
     rc = _build.library().bcd_probe_transpose_mma(
         _build.ptr(m2), _build.ptr(expand), p_total, k, m, _build.ptr(lanes),
         None if bk is None else _build.ptr(bk), _build.stream_of(m2))
-    _launched("probe_transpose_a" if back else "probe_transpose_d", rc)
+    _build.launched("probe_transpose_a" if back else "probe_transpose_d", rc)
     return (lanes, bk) if back else (lanes,)
 
 
 def transpose_gather(m2, index):
     """Transpose variant B: back (P, M) = m2[:, index] gathered, lanes (M,
     P) its transpose through a shared-memory tile. index (M,) int32."""
-    dev = _check(("m2", "index"), (m2, index), (torch.float32, torch.int32))
+    dev = _build.check_inputs(("m2", "index"), (m2, index),
+                              (torch.float32, torch.int32))
     if m2.dim() != 2 or index.dim() != 1:
         raise ValueError("m2 (P, K) and index (M,) expected")
     if dev.type == "cpu":
@@ -137,7 +123,7 @@ def transpose_gather(m2, index):
     rc = _build.library().bcd_probe_transpose_gather(
         _build.ptr(m2), _build.ptr(index), p_total, k, m, _build.ptr(lanes),
         _build.ptr(bk), _build.stream_of(m2))
-    _launched("probe_transpose_b", rc)
+    _build.launched("probe_transpose_b", rc)
     return lanes, bk
 
 
@@ -145,7 +131,7 @@ def transpose_copy(m2, m: int):
     """Transpose variant C, the I/O baseline: m2 read, lanes (m, P) and
     back (P, m) written with m2's floats in order, repeated (``copy_plain``),
     no work. On the card m2's and the outputs' floats are multiples of 4."""
-    dev = _check(("m2",), (m2,), (torch.float32,))
+    dev = _build.check_inputs(("m2",), (m2,), (torch.float32,))
     if dev.type == "cpu":
         return copy_plain(m2, m)
     p_total = m2.shape[0]
@@ -157,7 +143,7 @@ def transpose_copy(m2, m: int):
     rc = _build.library().bcd_probe_transpose_copy(
         _build.ptr(m2), n_in, n_out, _build.ptr(lanes), _build.ptr(bk),
         _build.stream_of(m2))
-    _launched("probe_transpose_c", rc)
+    _build.launched("probe_transpose_c", rc)
     return lanes, bk
 
 
@@ -183,12 +169,14 @@ def mosaic_windows(shifts, aligned: bool, r0: int = R0):
 
 def mosaic_plain(g, shifts, aligned: bool, npix: int = NPIX):
     """out (npix, cols) = the windows' weighted sum, each term rounded as a
-    product and then a sum, window by window in the script's order."""
+    product and then a sum, window by window in the script's order (each
+    weight a float32 value, so its Python float multiplies exactly as the
+    script's float32 weight; nothing is copied from the host, so a CUDA
+    graph can capture it)."""
     rows, weights = mosaic_windows(shifts, aligned)
-    w = torch.tensor(weights, dtype=torch.float32, device=g.device)
     acc = torch.zeros((npix, g.shape[1]), dtype=torch.float32, device=g.device)
-    for k, row in enumerate(rows):
-        acc = acc + g[row:row + npix] * w[k]
+    for row, w in zip(rows, weights):
+        acc = acc + g[row:row + npix] * w
     return acc
 
 
@@ -198,7 +186,7 @@ def mosaic(g, shifts, aligned: bool, npix: int = NPIX):
     registers, with 16-byte loads from the windows whose rows start on 16
     bytes and 4-byte loads from the others. g (rows, cols), the shifts as
     the script passes them (``ALIGNED_SHIFTS`` or ``UNALIGNED_SHIFTS``)."""
-    dev = _check(("g",), (g,), (torch.float32,))
+    dev = _build.check_inputs(("g",), (g,), (torch.float32,))
     rows, weights = mosaic_windows(shifts, aligned)
     n_rows, cols = g.shape
     if min(rows) < 0 or max(rows) + npix > n_rows:
@@ -214,8 +202,8 @@ def mosaic(g, shifts, aligned: bool, npix: int = NPIX):
         _build.ptr(g), n_rows, cols, npix, ctypes.cast(rows_c, ctypes.c_void_p),
         ctypes.cast(w_c, ctypes.c_void_p), n, _build.ptr(out),
         _build.stream_of(g))
-    _launched("probe_mosaic_aligned" if aligned else "probe_mosaic_unaligned",
-              rc)
+    _build.launched(
+        "probe_mosaic_aligned" if aligned else "probe_mosaic_unaligned", rc)
     return out
 
 
@@ -240,7 +228,7 @@ def banded_dot(b, s, batched: bool, band: int = BAND):
     over the whole T x T matrix (mma.sync TF32, s split into three TF32
     parts; T a multiple of 16 and C of 32 on the card), else a loop of FMAs
     over the band."""
-    dev = _check(("b", "s"), (b, s), (torch.float32,) * 2)
+    dev = _build.check_inputs(("b", "s"), (b, s), (torch.float32,) * 2)
     if b.dim() != 3 or s.dim() != 3 or b.shape[0] != s.shape[0] \
             or b.shape[1] != b.shape[2] or s.shape[1] != b.shape[1]:
         raise ValueError(f"b (Y, T, T) and s (Y, T, C) expected, got "
@@ -258,7 +246,8 @@ def banded_dot(b, s, batched: bool, band: int = BAND):
     else:
         rc = lib.bcd_probe_banded_loop(p(b), p(s), n_y, t, c, band, p(out),
                                        _build.stream_of(b))
-    _launched("probe_banded_batched" if batched else "probe_banded_loop", rc)
+    _build.launched(
+        "probe_banded_batched" if batched else "probe_banded_loop", rc)
     return out
 
 
@@ -374,8 +363,12 @@ def window_alignment(aligned: bool) -> tuple[int, int, list[int]]:
 class Reading:
     """One variant measured on the card: ``ok``, whether it held to its
     plain version as it must (``held``); ``err``, the largest gap from it;
-    ``ms`` and ``plain_ms``, a call of each; ``bound`` (ms, what sets it);
-    ``library_ms``, its library call's, or None; ``line``, the report."""
+    ``ms``, ``plain_ms`` and ``library_ms`` (None where no call computes
+    its function), a call of the kernel, the plain version and the library
+    call, each launched from Python (``probe_library.cuda_ms``) and, in
+    ``graph``, replayed from a CUDA graph (``graph_ms``: the kernel, the
+    plain version, the library call); ``bound`` (ms, what sets it);
+    ``line``, the report."""
 
     name: str
     ok: bool
@@ -384,16 +377,21 @@ class Reading:
     plain_ms: float
     bound: tuple[float, str]
     library_ms: float | None
+    graph: tuple[float, float, float | None]
     line: str
+
+
+def _ms(launched: float, graph: float) -> str:
+    return f"{graph:.4f} ms in a graph ({launched:.4f} launched)"
 
 
 def measure(dev) -> tuple[list[Reading], list[str]]:
     """Every variant on ``dev`` run, held to its plain version and to
-    float64, and timed with ``probe_library.cuda_ms`` beside its plain
-    version, its bound and its library call (``probe_library.measure``,
-    which raises if a call leaves float64 by more than fp32 rounding).
-    Returns the readings, and a line for each library call and each
-    mosaic's window alignment."""
+    float64, and timed with both of ``probe_library``'s timers beside its
+    plain version, its bound and its library call
+    (``probe_library.measure``, which raises if a call leaves float64 by
+    more than fp32 rounding). Returns the readings, and a line for each
+    library call and each mosaic's window alignment."""
     library = probe_library.measure(dev)
     bound = bounds.probe_variants()
     readings = []
@@ -401,23 +399,26 @@ def measure(dev) -> tuple[list[Reading], list[str]]:
         got = v.run()
         ok, err, limit = held(v, got, v.plain())
         ms = probe_library.cuda_ms(v.run)
+        graph = probe_library.graph_ms(v.run)
         plain_ms = probe_library.cuda_ms(v.plain)
-        lib = library[v.library][0] if v.library else None
+        plain_graph = probe_library.graph_ms(v.plain)
+        lib, lib_graph = library[v.library][:2] if v.library else (None, None)
         lim, by = bound[v.name]
         line = (f"{v.name}: {exactness(got, v.ref64())} vs float64; vs its "
                 f"plain version "
                 + ("bit for bit" if v.exact
                    else f"max abs {err:.3e} (limit {limit:.3e})")
-                + f": {'held' if ok else 'NOT HELD'}; {ms:.4f} ms, bound "
-                f"{lim:.4f} ms ({by}), {ms / lim:.1f}x; plain "
-                f"{plain_ms:.4f} ms; library call "
-                + (f"{lib:.4f} ms" if lib is not None
+                + f": {'held' if ok else 'NOT HELD'}; {_ms(ms, graph)}, "
+                f"bound {lim:.4f} ms ({by}), {graph / lim:.1f}x "
+                f"({ms / lim:.1f}x launched); plain "
+                f"{_ms(plain_ms, plain_graph)}; library call "
+                + (_ms(lib, lib_graph) if lib is not None
                    else "none (no one PyTorch call computes it)"))
         readings.append(Reading(v.name, ok, err, ms, plain_ms, (lim, by), lib,
-                                line))
-    lines = [f"library call {name}: {ms:.4f} ms, max abs err {err:.3e} vs "
-             f"float64 (limit {limit:.3e})"
-             for name, (ms, err, limit) in library.items()]
+                                (graph, plain_graph, lib_graph), line))
+    lines = [f"library call {name}: {_ms(ms, graph)}, max abs err "
+             f"{err:.3e} vs float64 (limit {limit:.3e})"
+             for name, (ms, graph, err, limit) in library.items()]
     for aligned in (True, False):
         n16, n, mods = window_alignment(aligned)
         lines.append(

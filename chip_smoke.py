@@ -191,6 +191,17 @@ non-zero before the final line:
    within fp32 rounding) and the float64 reference (transpose A's
    exactness both ways), timed beside its bound, its plain version and the
    one PyTorch call that computes its function, where there is one.
+19. scripts/bisect_kernel.py's staged d = 27 solve (csrc/bisect.cu,
+   ops/bisect.py; launch counters bisect_m2 to bisect_chol): each of its
+   five stages driven once on the script's inputs (128 pixels of 169
+   candidates), then against its plain version on the card and in float64
+   (1e-6 of the largest magnitude at m2 and bd, 2e-4 from the Jacobi on),
+   timed beside its bound and its plain version.
+
+Phases 18 and 19 time each kernel, plain version and library call two
+ways, launched from Python and replayed from one CUDA graph
+(``ops/probe_library``'s ``cuda_ms`` and ``graph_ms``); the kernels line
+takes the graph's.
 
 The crops' CPU references (phases 5, 7 and 8 to 15's (e)), the port's
 CPU pipeline on each crop, are computed one after another from phase 5's
@@ -1839,7 +1850,10 @@ def wide_phases():
     ``scales``, where given, is the ``-s`` of the crop's CLI runs (else the
     default); ``reference`` "twin" holds the crop to the same pipeline on
     the card with the float64 twin in the kernel's place, not to the port's
-    CPU pipeline."""
+    CPU pipeline; ``jacobi_share`` False skips the timed 0-sweep call of
+    (b), the Jacobi's share (0.780, 0.781 and 0.778 of the 32 rows at
+    r = 10, 11 and 12 on an NVIDIA H100 80GB HBM3 at 700 W, 3.9, 6.7 and
+    11.2 s of the run, given up when phase 19 came)."""
     # phases 10 to 16: the first and last PART_ROWS main rows, timed in
     # place, held to one compact call on all of them and to the twin
     part = dict(bitwise_centers=PART_ROWS, tail_centers=PART_ROWS,
@@ -1908,7 +1922,7 @@ def wide_phases():
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R10_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 10 at b = 17 (1,225 offsets)
-                 no_solve_b=17),
+                 no_solve_b=17, jacobi_share=False),
         11: dict(tag="[15]", kernels=R11_KERNELS, O=1681, search=R11_SEARCH,
                  floor=R11_MAIN_FLOOR, batch_floor=R11_BATCH_FLOOR,
                  crop=R11_CROP, cpu_crop=R11_CPU_CROP, scales=R11_SCALES,
@@ -1918,7 +1932,7 @@ def wide_phases():
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R11_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 11 at b = 19 (1,521 offsets)
-                 no_solve_b=19),
+                 no_solve_b=19, jacobi_share=False),
         12: dict(tag="[16]", kernels=R12_KERNELS, O=2025, search=R12_SEARCH,
                  floor=R12_MAIN_FLOOR, batch_floor=R12_BATCH_FLOOR,
                  crop=R12_CROP, cpu_crop=R12_CPU_CROP, scales=R12_SCALES,
@@ -1928,7 +1942,7 @@ def wide_phases():
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R12_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 12 at b = 21 (1,849 offsets)
-                 no_solve_b=21, reference="twin"),
+                 no_solve_b=21, reference="twin", jacobi_share=False),
     }
 
 
@@ -2013,13 +2027,14 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
         main, sweeps=sweeps, tag=tag, name=name, time_once=True,
         beside=later, **c["batch"])
     # the Jacobi's share: the same rows at 0 sweeps, timed once
-    ms0 = timed_once(lambda: ts.solve_filter_pm(
-        *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
-        rows=timed_rows))[1]
-    print(f"{tag} the same {timed_rows.numel()} rows at 0 sweeps "
-          f"{ms0:.3f} ms: "
-          f"the Jacobi's {sweeps} sweeps {batch_ms - ms0:.3f} ms (share "
-          f"{1 - ms0 / batch_ms:.3f})", flush=True)
+    if c.get("jacobi_share", True):
+        ms0 = timed_once(lambda: ts.solve_filter_pm(
+            *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
+            rows=timed_rows))[1]
+        print(f"{tag} the same {timed_rows.numel()} rows at 0 sweeps "
+              f"{ms0:.3f} ms: the Jacobi's {sweeps} sweeps "
+              f"{batch_ms - ms0:.3f} ms (share {1 - ms0 / batch_ms:.3f})",
+              flush=True)
     del x, main
     step_done("b")
 
@@ -2510,7 +2525,8 @@ def probe_phase(dev):
     plain version (bit for bit, or within fp32 rounding) and to the float64
     reference, and timed beside its bound, its plain version and the one
     PyTorch call that computes its function. Returns ({name: (max abs err,
-    ms, plain ms, bound, library ms)}, launches)."""
+    ms, plain ms, bound, library ms)}, launches), the times those of a
+    CUDA graph's replay."""
     import torch
     from bcd_tpu_torch.ops import _build, probes
 
@@ -2527,11 +2543,44 @@ def probe_phase(dev):
     res = {}
     for r in readings:
         need(launches[r.name] == 1, f"{r.name} did not launch once")
-        res[r.name] = (r.err, r.ms, r.plain_ms, r.bound, r.library_ms)
+        res[r.name] = (r.err, *r.graph[:2], r.bound, r.graph[2])
         print(f"[18] (b) {r.line}", flush=True)
         need(r.ok, f"{r.name} against its plain version")
     for line in lines:
         print(f"[18] (b) {line}", flush=True)
+    return res, launches
+
+
+def bisect_phase(dev):
+    """Phase 19: scripts/bisect_kernel.py's staged solve
+    (``ops/bisect.py``, ``csrc/bisect.cu``) on the script's inputs: each
+    stage driven once (one ``bisect_<stage>`` launch each, nothing else),
+    then measured by ``bisect.measure``: held to its plain version on the
+    card and to its float64 run within ``bisect.TOLERANCE``, timed in a
+    CUDA graph and launched from Python beside its bound and plain version.
+    Returns ({"bisect_<stage>": (max abs err, ms, plain ms, bound, None)},
+    launches)."""
+    import torch
+    from bcd_tpu_torch.ops import _build, bisect
+
+    inputs = bisect.bisect_inputs(dev)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    for stage in bisect.STAGES:
+        bisect.bisect(*inputs, stage)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[19] the staged solve, each stage once: launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    need(all(launches[f"bisect_{s}"] == 1 for s in bisect.STAGES)
+         and sum(launches.values()) == len(bisect.STAGES),
+         "the staged solve did not launch each stage's kernel once, alone")
+    res = {}
+    for r in bisect.measure(dev):
+        print(f"[19] {r.line}", flush=True)
+        need(r.ok, f"bisect_{r.stage} against its plain version and float64")
+        res[f"bisect_{r.stage}"] = (r.max_abs_err, r.graph_ms,
+                                    r.plain_graph_ms, r.bound, None)
     return res, launches
 
 
@@ -3344,6 +3393,12 @@ def main() -> int:
     kernels.update(probe_res)
     print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- 19. scripts/bisect_kernel.py's staged solve ------------------------
+    t0 = time.perf_counter()
+    bisect_res, launches19 = bisect_phase(dev)
+    kernels.update(bisect_res)
+    print(f"[19] phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- results ------------------------------------------------------------
     meta = {
         "K1": ("masks_moments", "bcd_tpu_torch/csrc/masks_moments.cu",
@@ -3400,6 +3455,9 @@ def main() -> int:
         # the probes' microbenchmarks (phase 18 (b))
         **{name: (name, "bcd_tpu_torch/csrc/probes.cu", PROBE_SCRIPTS[
             name.split("_")[1]]) for name in probe_res},
+        # the staged solve, one row a stage (phase 19)
+        **{name: (name, "bcd_tpu_torch/csrc/bisect.cu",
+                  "scripts/bisect_kernel.py:142") for name in bisect_res},
     }
     runs = {**launches, "solve_filter": launches2["solve_filter"],
             "solve_matrices": launches2["solve_matrices"],
@@ -3407,7 +3465,8 @@ def main() -> int:
             **{name: counts[name] for name, counts in wide_launches.items()},
             "solve_filter_big": launches13["solve_filter_big"],
             "solve_matrices_big": launches18["solve_matrices_big"],
-            **{name: launches18b[name] for name in probe_res}}
+            **{name: launches18b[name] for name in probe_res},
+            **{name: launches19[name] for name in bisect_res}}
     print(json.dumps({"kernels": [
         {"name": k if k == meta[k][0] else f"{k} {meta[k][0]}",
          "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
@@ -3415,7 +3474,7 @@ def main() -> int:
          "ms": kernels[k][1], "plain_ms": kernels[k][2],
          "bound_ms": kernels[k][3][0], "bound_by": kernels[k][3][1],
          # one PyTorch call computes only some probes' functions; none
-         # computes the other kernels' (PERF.md)
+         # computes the other kernels' (PERF.md), nor a staged solve
          "library_ms": kernels[k][4] if len(kernels[k]) > 4 else None}
         for k in meta]}),
         flush=True)

@@ -2,7 +2,8 @@
 shared-memory form at d = 147, 243, 363, 507, 675, 867, 1083, 1323, 1587
 and 1875, its runtime-d form from d = 2187, the lane-form solve_matrices
 at d = 27 and 75 and on the runtime-d kernel at every other d, and the
-TPU-compiler probes' microbenchmarks) against their plain twins, and the
+TPU-compiler probes' microbenchmarks and scripts/bisect_kernel.py's
+staged solve) against their plain twins, and the
 solve kernels against the plain fp32 model of their own schedule, on the
 card. Run on a machine with an NVIDIA Hopper card:
 
@@ -1292,6 +1293,38 @@ def test_probe_variant_matches_its_plain_version(cuda, name):
     assert ok
     if name in ("probe_transpose_a", "probe_transpose_d"):
         assert probes.max_err(got, v.ref64()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# scripts/bisect_kernel.py's staged solve (csrc/bisect.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [128, 77])
+@pytest.mark.parametrize("stage", ["m2", "bd", "jacobi", "recon", "chol",
+                                   "solve"])
+def test_bisect_stage_matches_its_plain_version(cuda, stage, p):
+    """Each stage of the staged solve on the script's inputs, its first
+    ``p`` pixels (77: no block of 8 pixels divides it), one launch counted
+    under the stage (a name outside the stages runs the last, ``chol``):
+    against the plain version on the card and in float64, within
+    ``bisect.TOLERANCE`` of the largest magnitude."""
+    from bcd_tpu_torch.ops import _build
+    from bcd_tpu_torch.ops import bisect as tb
+
+    x = [t[..., :p].contiguous() for t in tb.bisect_inputs(cuda)]
+    _build.reset_launches()
+    got = tb.bisect(*x, stage)
+    torch.cuda.synchronize()
+    last = tb.STAGES[tb.stage_index(stage)]
+    assert _build.LAUNCHES[f"bisect_{last}"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    assert got.shape == (tb.D, p) and bool(torch.isfinite(got).all())
+    err = tb.rel_err(got, tb.bisect_plain(*x, stage))
+    err64 = tb.rel_err(got, tb.bisect_plain(*(t.double() for t in x), stage))
+    print(f"bisect {stage} at P = {p}: {err:.3e} from the plain version, "
+          f"{err64:.3e} from float64 (limit {tb.TOLERANCE[last]:g})")
+    assert max(err, err64) <= tb.TOLERANCE[last]
 
 
 def test_cli_accepts_radius_4_at_b6_on_cuda(cuda, tmp_path):
