@@ -1,24 +1,31 @@
 // Hopper microbenchmarks of the three TPU-compiler probes in scripts/: each
 // kernel computes what its script's Pallas kernel computes, at the script's
 // shapes, so that the script's question can be asked of this card. Simple
-// kernels, not tuned. Wrappers, plain versions and the timing entry point:
-// bcd_tpu_torch/ops/probes.py.
+// kernels, not tuned, but for transpose A and D (below). Wrappers, plain
+// versions and the timing entry point: bcd_tpu_torch/ops/probes.py.
 //
 // - transpose (replaces scripts/probe_transpose.py::run, kernels
 //   _kernel_mxu, _kernel_swap, _kernel_noop, _kernel_fwd_only): K1's packed
 //   moments m2 (P, K) pixel-major, expanded by the 0/1 matrix E (M, K), one 1
 //   a row (ops/fused.tri_geometry(27): M = 729, K = 378), to lane-major
 //   lanes (M, P) = E m2^T, and transposed back, back (P, M) = lanes^T.
-//   A: tensor-core products, mma.sync TF32 with every fp32 input split into
-//      three TF32 parts (the counterpart of the MXU's bf16x3 passes at
-//      HIGHEST): lanes = E m2^T, then back = I lanes^T, the identity product
-//      over each 32-pixel tile's own block (the script's I_128 a block).
+//   A and D (replace _kernel_mxu and _kernel_fwd_only): one product on the
+//      tensor cores, wgmma TF32 with m2 split into three TF32 parts (the
+//      counterpart of the MXU's passes at HIGHEST), exact for a one-hot E
+//      (transpose_wgmma_kernel). A writes lanes and back from the one
+//      accumulator, D lanes alone. The script's A formed back as a second
+//      product, with the identity, because Mosaic had no transpose
+//      (probe_transpose.py:1-16); that is the same function, so A here
+//      stores the accumulator twice instead.
 //   B: an index gather (back = m2[:, index]) and a transpose through a
 //      shared-memory tile (lanes).
 //   C: the I/O baseline: m2 read, lanes and back written, no work (each
 //      output is m2's elements in order, repeated).
 //   D: A's forward product only (lanes).
-//   Bound: bytes (each input read once, each output written once).
+//   Bound: bytes (each input read once, each output written once): A 0.0051
+//   ms, D 0.0030 ms at P = 2304 (a gather needs only E's index). A product
+//   cannot reach it: A's and D's floor is their three TF32 products, 3.8
+//   GFLOP at 495 TFLOP/s, about 8 us.
 // - mosaic (replaces scripts/probe_mosaic.py::run, kernels _kernel_aligned,
 //   _kernel_unaligned): out (npix, C) = sum over windows k of w_k g[row_k :
 //   row_k + npix] of a (rows, C) slab; the windows' rows and weights are
@@ -45,7 +52,7 @@
 
 namespace {
 
-constexpr int WARPS = 4;  // warps a block of the mma kernels
+constexpr int WARPS = 4;  // warps a block of the banded dot's mma kernel
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -75,101 +82,245 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// the six products of three-part inputs down to the third part: big += the
-// leading parts' product, small += the others, smallest first
-__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
-                                     const uint32_t (&a)[3][4], const uint32_t (&b)[3][2]) {
-  mma_tf32(small, a[2], b[0]);
-  mma_tf32(small, a[1], b[1]);
-  mma_tf32(small, a[0], b[2]);
-  mma_tf32(small, a[1], b[0]);
-  mma_tf32(small, a[0], b[1]);
-  mma_tf32(big, a[0], b[0]);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// transpose A (kBack) and D: a warp computes a 16 x 32 tile of lanes (rows
-// r0.., pixels p0..) over K in steps of 8; A then multiplies the tile, from
-// shared memory, by the identity into the 32 x 16 tile of back
-template <bool kBack>
-__global__ void __launch_bounds__(32 * WARPS)
-transpose_mma_kernel(const float* __restrict__ m2, const float* __restrict__ expand, int P,
-                     int K, int M, float* __restrict__ lanes, float* __restrict__ back) {
-  __shared__ float fs[WARPS][16][36];  // a row stride of 36: no bank conflict on b's reads
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// an asynchronous copy of kBytes (4 or 8) from device to shared memory; the
+// bytes past src_bytes (0 or kBytes) are zero-filled
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+               "n"(kBytes), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// transpose A and D's tile: TX_WG warpgroups, each 64 pixels (wgmma's M),
+// by TX_NR rows of E (its N), over K in stages of TX_KS (four k-steps of 8)
+// in a ring of TX_STAGES. 128 x 128 gives 18 x 6 = 108 blocks for P = 2304,
+// one wave on 132 SMs, and reads m2 6 times and E 18 times, about 41 MB
+// from L2 (64 x 248 read E 36 times, 50 MB)
+constexpr int TX_WG = 2, TX_NR = 128, TX_KS = 32, TX_STAGES = 4;
+constexpr int TX_PX = 64 * TX_WG, TX_THREADS = 128 * TX_WG;
+// floats a staged m2 row: the A fragments' loads (8 rows, 4 columns) hit
+// 32 banks
+constexpr int TX_A_PITCH = TX_KS + 4;
+// staged E, K-major without swizzle as wgmma's descriptor reads it: a 4-float
+// K chunk of all TX_NR rows, 16 bytes a row (core matrices of 8 rows 128
+// bytes apart, the SBO), then the next chunk TX_B_CHUNK floats on (the LBO;
+// one row of padding, so that a warp's 8-byte copies of two rows write 32
+// banks)
+constexpr int TX_B_CHUNK = 4 * (TX_NR + 1);
+constexpr int TX_A_FLOATS = TX_PX * TX_A_PITCH;
+constexpr int TX_STAGE_FLOATS = TX_A_FLOATS + (TX_KS / 4) * TX_B_CHUNK;
+// the accumulator staged row of E by pixel for the stores: an odd pitch, so
+// that a column (back's row) reads 32 banks
+constexpr int TX_OUT_PITCH = TX_PX + 1;
+constexpr int TX_BYTES = 4 * (TX_STAGES * TX_STAGE_FLOATS > TX_NR * TX_OUT_PITCH
+                                  ? TX_STAGES * TX_STAGE_FLOATS
+                                  : TX_NR * TX_OUT_PITCH);
+static_assert(TX_BYTES <= 232448, "the ring exceeds a block's shared memory");
+static_assert((4 * TX_A_FLOATS) % 16 == 0 && (4 * TX_B_CHUNK) % 16 == 0 &&
+                  (4 * TX_STAGE_FLOATS) % 16 == 0,
+              "wgmma's operands start on 16 bytes");
+
+// the descriptor of staged E (K-major, no swizzle): start address, leading
+// byte offset (between K chunks), stride byte offset (between groups of 8
+// rows), each in 16-byte units
+__device__ __forceinline__ uint64_t tx_desc(uint32_t addr) {
+  constexpr uint64_t LBO = 4 * TX_B_CHUNK / 16, SBO = 128 / 16;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (LBO << 16) | (SBO << 32);
+}
+
+// keep the compiler from moving accesses of the accumulator across the
+// wgmma fence and wait
+__device__ __forceinline__ void tx_pin(float (&d)[TX_NR / 2]) {
+#pragma unroll
+  for (int i = 0; i < TX_NR / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the wgmma's accumulator operands d[i] .. d[i + 7]
+#define TX_D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128) += a (64 x 8, TF32 from registers: a[0] (g, t), a[1] (g + 8,
+// t), a[2] (g, t + 4), a[3] (g + 8, t + 4) of warp w's rows 16 w..) times the
+// 128 x 8 TF32 tile of E at desc, transposed; d[4 j + 2 h + c] is row
+// 16 w + g + 8 h, column 8 j + 2 t + c
+__device__ __forceinline__ void tx_wgmma(float (&d)[TX_NR / 2], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  static_assert(TX_NR == 128, "the instruction below is m64n128k8");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : TX_D8(0), TX_D8(8), TX_D8(16), TX_D8(24), TX_D8(32), TX_D8(40), TX_D8(48), TX_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// transpose A (kBack) and D on Hopper's tensor cores, bound by their three
+// products (about 8 us at P = 2304, above the bytes bound). A block
+// computes the pixel-major tile back[p0.., r0..] = m2 E^T, 128 pixels (a
+// warpgroup each 64) by 128 rows of E, with wgmma (m64n128k8, TF32):
+// - m2 is the A operand, from registers: a thread loads its fragment from
+//   the staged rows and splits each float into three TF32 parts once
+//   (split3), in registers; E, exact in TF32 (0/1), is the B operand, read
+//   by descriptor from shared memory, both K-major as TF32 wgmma needs.
+// - Three products a k-step, E lo, E mid, E hi, into one fp32 accumulator
+//   in that order (six for mma.sync's two three-part inputs, half of them
+//   of E's zero parts). For a one-hot E each sum is exact: every other
+//   term is an exact zero, lo + mid is exactly m2 - hi, then + hi gives m2.
+// - m2's and E's rows are staged once a block, in a ring of TX_STAGES
+//   stages filled by cp.async while the products of an earlier stage run:
+//   the stage three ahead is issued after a stage's products and before
+//   their wait. A row is 4 K bytes, 1,512 at K = 378: not a multiple of 16,
+//   so no 16-byte copy or TMA tensor map fits it, and the copies are 8
+//   bytes (kUnit = 2; 4 where K is odd or a base is not 8-byte aligned).
+//   Each thread copies the same columns of every 16th row (of every 8th
+//   for 4-byte copies) at every stage, from addresses it forms once: a
+//   warp copies 256 contiguous bytes of two rows, 16 copies a thread a
+//   stage, a few instructions each, so that the copies' issue stays small
+//   beside the products.
+// - The epilogue stages the accumulator in shared memory and writes lanes
+//   rows (contiguous in p) and, for A, back rows (contiguous in r; 2,916
+//   bytes apart at M = 729, so 4-byte aligned only) in coalesced 4-byte
+//   stores, both from the one accumulator: no second product.
+// Ragged P and M: rows past them are zero-filled and not stored.
+template <bool kBack, int kUnit>
+__global__ void __launch_bounds__(TX_THREADS, 1)
+transpose_wgmma_kernel(const float* __restrict__ m2, const float* __restrict__ e, int P,
+                       int K, int M, float* __restrict__ lanes, float* __restrict__ back) {
+  extern __shared__ __align__(128) float smem[];
+  constexpr int PER_ROW = TX_KS / kUnit, STEP = TX_THREADS / PER_ROW;
+  static_assert(TX_PX % STEP == 0 && TX_NR % STEP == 0, "a copy's rows split evenly");
+  const int p0 = blockIdx.x * TX_PX, r0 = blockIdx.y * TX_NR;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int n_tiles = P / 32;
-  const int w = blockIdx.x * WARPS + warp;
-  const int mt = w / n_tiles, nt = w - mt * n_tiles;
-  if (mt * 16 >= M) return;
-  const int r0 = mt * 16, p0 = nt * 32;
-  auto e_at = [&](int r, int k) {
-    return (r < M && k < K) ? expand[(size_t)r * K + k] : 0.f;
-  };
-  float big[4][4] = {}, small[4][4] = {};
-#pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    const int ka = k0 + t, kb = k0 + t + 4;
-    const float ev[4] = {e_at(r0 + g, ka), e_at(r0 + g + 8, ka), e_at(r0 + g, kb),
-                         e_at(r0 + g + 8, kb)};
-    uint32_t a[3][4];
+  const int n_k = (K + TX_KS - 1) / TX_KS;
+  // this thread's copies: columns kq .. kq + kUnit of rows row0 + STEP j
+  const int row0 = threadIdx.x / PER_ROW, kq = threadIdx.x % PER_ROW * kUnit;
+  const size_t step = (size_t)STEP * K;
+  const float* a_src = m2 + (size_t)(p0 + row0) * K + kq;
+  const float* b_src = e + (size_t)(r0 + row0) * K + kq;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t a_dst = base + 4 * (row0 * TX_A_PITCH + kq);
+  const uint32_t b_dst = base + 4 * (TX_A_FLOATS + kq / 4 * TX_B_CHUNK + 4 * row0 + kq % 4);
+  auto fill = [&](int s) {
+    const uint32_t slot = 4 * (s % TX_STAGES) * TX_STAGE_FLOATS;
+    const int k0 = s * TX_KS;
+    const bool k_ok = k0 + kq < K;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split3(ev[i], a[0][i], a[1][i], a[2][i]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* mp = m2 + (size_t)(p0 + 8 * j + g) * K;
-      uint32_t b[3][2];
-      split3(ka < K ? mp[ka] : 0.f, b[0][0], b[1][0], b[2][0]);
-      split3(kb < K ? mp[kb] : 0.f, b[0][1], b[1][1], b[2][1]);
-      mma3(big[j], small[j], a, b);
+    for (int j = 0; j < TX_PX / STEP; ++j) {
+      const bool ok = k_ok && p0 + row0 + STEP * j < P;
+      cp_async<4 * kUnit>(a_dst + slot + 4 * STEP * j * TX_A_PITCH,
+                          ok ? a_src + k0 + j * step : m2, ok ? 4 * kUnit : 0);
     }
-  }
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < TX_NR / STEP; ++j) {
+      const bool ok = k_ok && r0 + row0 + STEP * j < M;
+      cp_async<4 * kUnit>(b_dst + slot + 16 * STEP * j, ok ? b_src + k0 + j * step : e,
+                          ok ? 4 * kUnit : 0);
+    }
+  };
+  for (int s = 0; s < TX_STAGES - 1; ++s) {
+    if (s < n_k) fill(s);
+    cp_async_commit();
+  }
+  float acc[TX_NR / 2];
+#pragma unroll
+  for (int i = 0; i < TX_NR / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < n_k; ++s) {
+    cp_async_wait<TX_STAGES - 2>();
+    // cp.async wrote the stage through the generic proxy; wgmma reads it
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const float* slot = smem + (s % TX_STAGES) * TX_STAGE_FLOATS;
+    uint32_t a[TX_KS / 8][3][4];  // k-step, part (hi, mid, lo), fragment
+#pragma unroll
+    for (int kk = 0; kk < TX_KS / 8; ++kk) {
+      const float* row = slot + (64 * wg + 16 * warp + g) * TX_A_PITCH + 8 * kk + t;
+      const float x[4] = {row[0], row[8 * TX_A_PITCH], row[4], row[8 * TX_A_PITCH + 4]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split3(x[i], a[kk][0][i], a[kk][1][i], a[kk][2][i]);
+    }
+    const uint32_t b0 = smem_u32(slot + TX_A_FLOATS);
+    tx_pin(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < TX_KS / 8; ++kk) {
+      const uint64_t desc = tx_desc(b0 + 4 * 2 * kk * TX_B_CHUNK);
+      tx_wgmma(acc, a[kk][2], desc);
+      tx_wgmma(acc, a[kk][1], desc);
+      tx_wgmma(acc, a[kk][0], desc);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the slot of stage s - 1, whose products every thread waited for
+    if (s + TX_STAGES - 1 < n_k) fill(s + TX_STAGES - 1);
+    cp_async_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    tx_pin(acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* tile = smem;  // [TX_NR][TX_OUT_PITCH]: row of E by pixel
+#pragma unroll
+  for (int j = 0; j < TX_NR / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int rl = g + 8 * h, pl = 8 * j + 2 * t;
-      const float v0 = big[j][2 * h] + small[j][2 * h];
-      const float v1 = big[j][2 * h + 1] + small[j][2 * h + 1];
-      if (r0 + rl < M) {
-        lanes[(size_t)(r0 + rl) * P + p0 + pl] = v0;
-        lanes[(size_t)(r0 + rl) * P + p0 + pl + 1] = v1;
-      }
-      if (kBack) {
-        fs[warp][rl][pl] = v0;
-        fs[warp][rl][pl + 1] = v1;
-      }
+      const int px = 64 * wg + 16 * warp + g + 8 * h, n = 8 * j + 2 * t;
+      tile[n * TX_OUT_PITCH + px] = acc[4 * j + 2 * h];
+      tile[(n + 1) * TX_OUT_PITCH + px] = acc[4 * j + 2 * h + 1];
     }
-  if (!kBack) return;
-  __syncwarp();
-  const uint32_t one = __float_as_uint(1.f);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {  // pixels p0 + 16 mi .. p0 + 16 mi + 15
-    float bb[2][4] = {}, sb[2][4] = {};
-#pragma unroll
-    for (int kk = 16 * mi; kk < 16 * mi + 16; kk += 8) {
-      const int pr = 16 * mi + g;
-      uint32_t a[3][4] = {};
-      a[0][0] = pr == kk + t ? one : 0u;
-      a[0][1] = pr + 8 == kk + t ? one : 0u;
-      a[0][2] = pr == kk + t + 4 ? one : 0u;
-      a[0][3] = pr + 8 == kk + t + 4 ? one : 0u;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {  // rows r0 + 8 j .. r0 + 8 j + 7 of lanes
-        uint32_t b[3][2];
-        split3(fs[warp][8 * j + g][kk + t], b[0][0], b[1][0], b[2][0]);
-        split3(fs[warp][8 * j + g][kk + t + 4], b[0][1], b[1][1], b[2][1]);
-        mma3(bb[j], sb[j], a, b);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + 16 * mi + g + 8 * h, r = r0 + 8 * j + 2 * t;
-        if (r < M) back[(size_t)p * M + r] = bb[j][2 * h] + sb[j][2 * h];
-        if (r + 1 < M) back[(size_t)p * M + r + 1] = bb[j][2 * h + 1] + sb[j][2 * h + 1];
-      }
+  __syncthreads();
+  const int n_rows = min(TX_NR, M - r0), n_px = min(TX_PX, P - p0);
+  for (int i = threadIdx.x; i < TX_NR * TX_PX; i += TX_THREADS) {
+    const int n = i / TX_PX, px = i % TX_PX;
+    if (n < n_rows && px < n_px)
+      lanes[(size_t)(r0 + n) * P + p0 + px] = tile[n * TX_OUT_PITCH + px];
   }
+  if (!kBack) return;
+  for (int i = threadIdx.x; i < TX_PX * TX_NR; i += TX_THREADS) {
+    const int px = i / TX_NR, n = i % TX_NR;
+    if (n < n_rows && px < n_px)
+      back[(size_t)(p0 + px) * M + r0 + n] = tile[n * TX_OUT_PITCH + px];
+  }
+}
+
+template <bool kBack, int kUnit>
+cudaError_t tx_launch(const float* m2, const float* e, int P, int K, int M, float* lanes,
+                      float* back, cudaStream_t stream) {
+  // once an instance, before any capture into a CUDA graph
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      transpose_wgmma_kernel<kBack, kUnit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TX_BYTES);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((P + TX_PX - 1) / TX_PX, (M + TX_NR - 1) / TX_NR);
+  transpose_wgmma_kernel<kBack, kUnit><<<grid, TX_THREADS, TX_BYTES, stream>>>(m2, e, P, K, M,
+                                                                              lanes, back);
+  return cudaGetLastError();
 }
 
 // transpose B: a 32 x 32 tile, 32 x 8 threads; back[p][r] = m2[p][index[r]]
@@ -303,20 +454,20 @@ banded_loop_kernel(const float* __restrict__ bm, const float* __restrict__ s, in
 
 }  // namespace
 
-// transpose A (back != nullptr) or D (back == nullptr): P a multiple of 32
+// transpose A (back != nullptr) or D (back == nullptr): any P, K and M;
+// exact where every row of expand is one-hot
 extern "C" int bcd_probe_transpose_mma(const float* m2, const float* expand, int P, int K, int M,
                                        float* lanes, float* back, void* stream) {
-  if (P <= 0 || P % 32 != 0 || K <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  const long long warps = (long long)((M + 15) / 16) * (P / 32);
-  const int blocks = (int)((warps + WARPS - 1) / WARPS);
-  if (back) {
-    transpose_mma_kernel<true><<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-        m2, expand, P, K, M, lanes, back);
-  } else {
-    transpose_mma_kernel<false><<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-        m2, expand, P, K, M, lanes, nullptr);
-  }
-  return (int)cudaGetLastError();
+  if (P <= 0 || K <= 0 || M <= 0 || (M + TX_NR - 1) / TX_NR > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool pairs = K % 2 == 0 && reinterpret_cast<uintptr_t>(m2) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(expand) % 8 == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (back)
+    return (int)(pairs ? tx_launch<true, 2>(m2, expand, P, K, M, lanes, back, st)
+                       : tx_launch<true, 1>(m2, expand, P, K, M, lanes, back, st));
+  return (int)(pairs ? tx_launch<false, 2>(m2, expand, P, K, M, lanes, nullptr, st)
+                     : tx_launch<false, 1>(m2, expand, P, K, M, lanes, nullptr, st));
 }
 
 extern "C" int bcd_probe_transpose_gather(const float* m2, const int* index, int P, int K, int M,

@@ -223,6 +223,24 @@ def build_log() -> str:
     return _log
 
 
+def ptxas_report(log: str, name: str) -> dict[str, tuple[int, ...]]:
+    """{mangled entry: (registers, stack frame, spill stores, spill loads
+    bytes)} of every kernel whose mangled name holds ``name``, from an
+    ``-Xptxas -v`` report such as ``build_log()``."""
+    out, entry, frame = {}, "", None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry, frame = line.split("'")[1] if "'" in line else line, None
+        elif name not in entry:
+            continue
+        elif "spill stores" in line:
+            frame = [int(w) for w in line.replace(",", " ").split()
+                     if w.isdigit()]
+        elif "Used" in line and "registers" in line and frame is not None:
+            out[entry] = (int(line.split("Used")[1].split()[0]), *frame)
+    return out
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")

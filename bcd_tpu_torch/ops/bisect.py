@@ -200,6 +200,14 @@ def bisect(C, mask, noise, n, m, stage: str = "m2"):
     return out
 
 
+def m2_library(C, mask):
+    """The one PyTorch call that computes the ``m2`` stage's function, row 0
+    of the masked second moments: ``out[l, p] = sum_o C[o, 0, p] mask[o, p]
+    C[o, l, p]``, an einsum (its own order of sums). No call computes the
+    later stages (a staged solve). C (O, D, P), mask (O, P)."""
+    return torch.einsum("op,op,olp->lp", C[:, 0], mask, C)
+
+
 def rel_err(got, ref) -> float:
     """The largest gap of ``got`` from ``ref`` over ``ref``'s largest
     magnitude, in float64."""
@@ -210,12 +218,14 @@ def rel_err(got, ref) -> float:
 @dataclasses.dataclass
 class Reading:
     """One stage on the card: ``ok``, whether it held to its plain version
-    and to float64 within ``TOLERANCE`` and came out finite; ``err`` and
-    ``err64``, its relative gaps from them; ``max_abs_err``, its largest
-    absolute gap from the plain version; the kernel's and the plain
-    version's ms a call, launched from Python (``ms``, ``plain_ms``) and
-    replayed from a CUDA graph (``graph_ms``, ``plain_graph_ms``);
-    ``bound`` (ms, what sets it); ``line``, the report."""
+    and to float64 within ``TOLERANCE`` and came out finite (at ``m2`` also
+    its library call, held to float64); ``err`` and ``err64``, its relative
+    gaps from them; ``max_abs_err``, its largest absolute gap from the
+    plain version; the kernel's and the plain version's ms a call, launched
+    from Python (``ms``, ``plain_ms``) and replayed from a CUDA graph
+    (``graph_ms``, ``plain_graph_ms``); ``library`` (ms launched, ms in a
+    graph) of ``m2_library`` at ``m2``, else None; ``bound`` (ms, what sets
+    it); ``line``, the report."""
 
     stage: str
     ok: bool
@@ -226,6 +236,7 @@ class Reading:
     graph_ms: float
     plain_ms: float
     plain_graph_ms: float
+    library: tuple[float, float] | None
     bound: tuple[float, str]
     line: str
 
@@ -234,7 +245,8 @@ def measure(dev) -> list[Reading]:
     """Each stage on the script's inputs on ``dev``: the kernel held to its
     plain version there and to the plain version in float64, then timed
     with both timers of ``probe_library`` beside its bound and its plain
-    version."""
+    version; at ``m2`` also its library call (``m2_library``), held to
+    float64 within the stage's tolerance and timed the same way."""
     inputs = bisect_inputs(dev)
     inputs64 = tuple(t.double() for t in inputs)
     limits = bounds.bisect_stages()
@@ -252,6 +264,16 @@ def measure(dev) -> list[Reading]:
         plain_ms = probe_library.cuda_ms(plain_fn, PLAIN_REPS)
         plain_graph = probe_library.graph_ms(plain_fn, PLAIN_REPS)
         lim, by = limits[stage]
+        library, lib_text = None, ("none (no PyTorch call computes a staged "
+                                   "solve)")
+        if stage == "m2":
+            lib = lambda: m2_library(*inputs[:2])  # noqa: E731
+            lib_err = rel_err(lib(), ref64)
+            ok = ok and lib_err <= TOLERANCE[stage]
+            library = (probe_library.cuda_ms(lib), probe_library.graph_ms(lib))
+            lib_text = (f"the einsum {library[1]:.4f} ms in a graph, "
+                        f"{library[0]:.4f} ms launched, {lib_err:.3e} from "
+                        f"float64; the kernel {graph / library[1]:.2f}x it")
         line = (f"bisect_{stage}: vs its plain version {err:.3e} (max abs "
                 f"{max_abs:.3e}), vs float64 {err64:.3e} of the largest "
                 f"magnitude (limit {TOLERANCE[stage]:g}"
@@ -259,10 +281,10 @@ def measure(dev) -> list[Reading]:
                 f"{'held' if ok else 'NOT HELD'}; {graph:.4f} ms in a CUDA "
                 f"graph, {ms:.4f} ms launched from Python; bound {lim:.6f} ms "
                 f"({by}), {graph / lim:.1f}x; plain {plain_graph:.4f} ms in a "
-                f"graph, {plain_ms:.4f} ms launched; library call none (no "
-                f"PyTorch call computes a staged solve)")
+                f"graph, {plain_ms:.4f} ms launched; library call {lib_text}")
         readings.append(Reading(stage, ok, err, err64, max_abs, ms, graph,
-                                plain_ms, plain_graph, (lim, by), line))
+                                plain_ms, plain_graph, library, (lim, by),
+                                line))
     return readings
 
 

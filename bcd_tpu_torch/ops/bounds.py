@@ -17,6 +17,7 @@ negative)."""
 from __future__ import annotations
 
 FP32_FLOPS = 67e12  # per second, fp32 outside the tensor cores
+TF32_FLOPS = 495e12  # per second, dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12  # per second
 
 D = 27
@@ -172,6 +173,15 @@ def probe_variants() -> dict[str, tuple[float, str]]:
     }
 
 
+def transpose_mma_floor(p: int = 2304) -> float:
+    """The least ms transpose A's and D's tensor-core design
+    (``csrc/probes.cu``'s ``transpose_wgmma_kernel``) could take on ``p``
+    pixel rows: its three TF32 products of the (729, 378) expansion matrix
+    and m2's three parts, at the dense TF32 rate. The bytes bound
+    (``probe_variants``) is a gather's, which needs no product."""
+    return 1e3 * 3 * 2 * D * D * DTRI * p / TF32_FLOPS
+
+
 def bisect_stages(p: int = 128,
                   o: int = 169) -> dict[str, tuple[float, str]]:
     """``scripts/bisect_kernel.py``'s staged solve (``ops/bisect.py``) on
@@ -199,3 +209,5 @@ if __name__ == "__main__":
             **probes(), **probe_variants(),
             **{f"bisect_{k}": v for k, v in bisect_stages().items()}}.items():
         print(f"{name}: bound {ms:.6f} ms ({by})")
+    print(f"probe_transpose_a, _d: the three TF32 products' floor "
+          f"{transpose_mma_floor():.6f} ms")

@@ -22,8 +22,9 @@ Each probe's inputs are its script's, drawn from its own
 - ``probe_banded_dot``: ``torch.bmm`` of (60, 64, 64) 13-wide 0/1 band
   matrices and (60, 64, 768) slabs.
 
-(``scripts/bisect_kernel.py``, a staged copy of ``solve_filter``, has none:
-no PyTorch call computes a staged solve; ``ops/bisect.py``.)
+(``scripts/bisect_kernel.py``, a staged copy of ``solve_filter``: only its
+first stage, ``m2``, has one, an einsum, timed by ``ops/bisect.measure``;
+no PyTorch call computes the later stages of a staged solve.)
 
 Each is held to a float64 reference on the host (within fp32 rounding,
 ``FP32_REL`` of the reference's largest magnitude) and timed with CUDA

@@ -10,18 +10,22 @@ For each variant it prints whether it is exact against the float64
 reference, or its largest absolute error there; the same against its plain
 version; its time (CUDA events, the mean of ``probe_library.REPS`` calls
 after a warm-up, replayed from one CUDA graph and launched from Python);
-its bound (``ops/bounds.probe_variants``) and multiple of it; and the same
-two times of its plain version and of the one PyTorch call that computes
-its function (``probe_library.cases``), where there is one. Then which mosaic windows
-start on 16 bytes, and last the card's name and power limit.
+its bound (``ops/bounds.probe_variants``) and multiple of it (transpose A
+and D also their products' floor, ``bounds.transpose_mma_floor``); and
+the same two times of its plain version and of the one PyTorch call that
+computes its function (``probe_library.cases``), where there is one. Then
+which mosaic windows start on 16 bytes, and last the card's name and
+power limit.
 
 - transpose (``scripts/probe_transpose.py``): K1's packed moments m2 (P,
   378) expanded to lane-major 27 x 27 matrices, lanes (729, P), and back to
-  pixel rows, back (P, 729). A: tensor-core products, the expansion then the
-  identity (``transpose_mma``); B: a gather and a shared-memory transpose
-  (``transpose_gather``); C: the same reads and writes with no work, the
-  I/O baseline (``transpose_copy``); D: A's forward product only. Plain:
-  the gather and ``.T.contiguous()``.
+  pixel rows, back (P, 729). A: the expansion as a tensor-core product
+  and its transpose, both stored from one accumulator (``transpose_mma``,
+  one ``wgmma`` TF32 kernel, exact for a one-hot expansion; ``tf32_rna``
+  and ``split3`` are the plain model of its rounding); B: a gather and a
+  shared-memory transpose (``transpose_gather``); C: the same reads and
+  writes with no work, the I/O baseline (``transpose_copy``); D: A's
+  product alone. Plain: the gather and ``.T.contiguous()``.
 - mosaic (``scripts/probe_mosaic.py``): a sum of row windows of a (2896,
   729) slab at runtime offsets, aligned (39 weighted windows from bases
   that are multiples of 8 rows) or unaligned (13 windows) (``mosaic``).
@@ -79,13 +83,39 @@ def copy_plain(m2, m: int):
     return rep.view(m, p_total), rep.clone().view(p_total, m)
 
 
+def tf32_rna(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: float32 x's 13
+    low mantissa bits dropped, to nearest with ties away from zero (a carry
+    may raise the exponent); infinities and NaNs as they are."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split3(x):
+    """(hi, mid, lo), float32 x's three TF32 parts as the transpose kernel
+    forms them (``csrc/probes.cu``'s ``split3``): hi = tf32(x), mid =
+    tf32(x - hi), lo = tf32(x - hi - mid), each difference exact in
+    float32, so that (lo + mid) + hi is x."""
+    hi = tf32_rna(x)
+    rest = x - hi
+    mid = tf32_rna(rest)
+    return hi, mid, tf32_rna(rest - mid)
+
+
 def transpose_mma(m2, expand, back: bool = True):
     """Transpose variant A (``back``) or D: lanes (M, P) = expand m2^T on
-    the tensor cores (mma.sync TF32, each fp32 input split into three TF32
-    parts), and for A back (P, M) = lanes^T as a product with the identity.
-    m2 (P, K) pixel-major, P a multiple of 32 on the card; expand (M, K) a
-    0/1 expansion matrix with one 1 a row (``ops/fused.tri_geometry``'s).
-    Returns (lanes, back) or (lanes,)."""
+    the tensor cores, and for A back (P, M) = lanes^T, both from one
+    accumulator (``csrc/probes.cu``'s ``transpose_wgmma_kernel``: wgmma
+    TF32, m2 split into three TF32 parts). m2 (P, K) pixel-major, any P;
+    expand (M, K). The kernel takes expand's entries as TF32 values and
+    adds the products of m2's parts (``split3``) to one float32
+    accumulator, lo, mid, then hi: exact, as the plain version, only where
+    every entry of expand is exact in TF32 and each row has one non-zero,
+    as the expansion's 0/1 rows with one 1 a row
+    (``ops/fused.tri_geometry``'s) have; the CPU path returns the plain
+    version of that gather (``expand.argmax(1)``). Returns (lanes, back)
+    or (lanes,)."""
     dev = _build.check_inputs(("m2", "expand"), (m2, expand),
                               (torch.float32,) * 2)
     if m2.dim() != 2 or expand.dim() != 2 or expand.shape[1] != m2.shape[1]:
@@ -96,8 +126,6 @@ def transpose_mma(m2, expand, back: bool = True):
     if dev.type == "cpu":
         out = transpose_plain(m2, expand.argmax(1))
         return out if back else out[:1]
-    if p_total % 32:
-        raise ValueError(f"P = {p_total} is not a multiple of 32")
     lanes = torch.empty((m, p_total), device=dev)
     bk = torch.empty((p_total, m), device=dev) if back else None
     rc = _build.library().bcd_probe_transpose_mma(
@@ -291,7 +319,7 @@ def variants(dev) -> list[Variant]:
 
     out = [
         Variant("probe_transpose_a", lambda: transpose_mma(m2, expand),
-                lambda: transpose_plain(m2, index), lanes64, False,
+                lambda: transpose_plain(m2, index), lanes64, True,
                 "probe_transpose"),
         Variant("probe_transpose_b", lambda: transpose_gather(m2, index),
                 lambda: transpose_plain(m2, index), lanes64, True,
@@ -394,6 +422,7 @@ def measure(dev) -> tuple[list[Reading], list[str]]:
     library call and each mosaic's window alignment."""
     library = probe_library.measure(dev)
     bound = bounds.probe_variants()
+    tensor_floor = bounds.transpose_mma_floor(probe_library.P)
     readings = []
     for v in variants(dev):
         got = v.run()
@@ -404,13 +433,17 @@ def measure(dev) -> tuple[list[Reading], list[str]]:
         plain_graph = probe_library.graph_ms(v.plain)
         lib, lib_graph = library[v.library][:2] if v.library else (None, None)
         lim, by = bound[v.name]
+        floor = (f", the three TF32 products' floor {tensor_floor:.4f} ms "
+                 f"({graph / tensor_floor:.1f}x)"
+                 if v.name in ("probe_transpose_a", "probe_transpose_d")
+                 else "")
         line = (f"{v.name}: {exactness(got, v.ref64())} vs float64; vs its "
                 f"plain version "
                 + ("bit for bit" if v.exact
                    else f"max abs {err:.3e} (limit {limit:.3e})")
                 + f": {'held' if ok else 'NOT HELD'}; {_ms(ms, graph)}, "
                 f"bound {lim:.4f} ms ({by}), {graph / lim:.1f}x "
-                f"({ms / lim:.1f}x launched); plain "
+                f"({ms / lim:.1f}x launched){floor}; plain "
                 f"{_ms(plain_ms, plain_graph)}; library call "
                 + (_ms(lib, lib_graph) if lib is not None
                    else "none (no one PyTorch call computes it)"))

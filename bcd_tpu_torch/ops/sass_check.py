@@ -94,6 +94,15 @@ def big_kernels(sass: str) -> dict[str, list[str]]:
                       else "solve_filter")
 
 
+def transpose_kernels(sass: str) -> dict[str, list[str]]:
+    """``csrc/probes.cu``'s ``transpose_wgmma_kernel`` SASS by instance:
+    "A" (``kBack``, back written) or "D", then the bytes a copy, "8" or "4"
+    (``_by_kernel``)."""
+    return _by_kernel(sass, r"transpose_wgmma_kernelILb([01])ELi([12])E",
+                      lambda m: ("A" if m.group(1) == "1" else "D")
+                      + str(4 * int(m.group(2))))
+
+
 def compare_big(other: Path) -> dict[str, str]:
     """Compile ``csrc/solve_filter_big.cu`` and ``other`` (under this file's
     name) with the library's flags and print each instance of

@@ -47,11 +47,11 @@ non-zero before the final line:
    (read, accumulate and write times; the statistics against the float64
    stand-in ``accumulate_statistics``; the accumulator bitwise repeatable,
    its device time beside its bound), ``bcd --stats`` on its EXRs (the
-   counters against the managed pixel count, the output bitwise that of
-   a run without stats, with the same launches), ``MultiscaleDenoiser``
+   counters against the managed pixel count), ``MultiscaleDenoiser``
    on the in-memory statistics bitwise ``denoise_multiscale``'s, and the
-   batch CLI on two copies of the frame and a broken one (isolation, each
-   output the CLI's bit for bit, ``--resume``).
+   batch CLI, without stats, on two copies of the frame and a broken one
+   (isolation, each output bit for bit the ``--stats`` run's, twice its
+   launches, ``--resume``).
 7. The -w 3 path (d = 147, the shared-memory solve kernel
    solve_filter_smem) on the same scene: the kernel against the fp32 model
    of its schedule and its float64 twin on synthetic stacks and on one
@@ -143,22 +143,25 @@ non-zero before the final line:
    checked as phase 14 checks the -w 10 path: synthetic stacks against
    the float64 twin at the engine's sweeps and the fp32 model two sweeps
    past them; the real one-tile r = 11, b = 20 batch, its first and last
-   16 main-path rows timed once in place, the last past element 2^31 of
+   main-path rows timed once in place, the last past element 2^31 of
    the stack; ``bcd -w 11 -b 20 -s 2`` on a 62x62 crop
    (launches only solve_filter_1587; peak memory); ``bcd -w 11 -b 19 -s
-   2`` on that crop (no solve launch); that crop against the port's CPU
-   pipeline.
+   2`` on that crop (no solve launch); (c)'s output against the same
+   pipeline on the card with the float64 twin in the kernel's place (the
+   port's CPU pipeline took 173.1 s there and ended after phase 15 needed
+   it).
 16. The -w 12 path (d = 1875, the same kernel with 3,735 of the 3,752 rows
    in the global slot and fifteen pivot passes a round, lanes 0-6 of a
    group forming the angles of two passes, solve_filter_1875) at b = 22,
    checked as phase 15 checks the -w 11 path: synthetic stacks against
    the float64 twin at the engine's sweeps and the fp32 model two sweeps
    past them; the real one-tile r = 12, b = 22 batch, its first and last
-   16 main-path rows timed once in place, the last past element 2^31 of
+   main-path rows timed once in place, the last past element 2^31 of
    the stack, held bit for bit to a compact call on them; ``bcd -w 12 -b
-   22 -s 2`` on a 68x68 crop (launches only solve_filter_1875; peak
-   memory), with the kernel calls of (a) and (b) whose time is not read
-   beside it; ``bcd -w 12 -b 21 -s 2`` on that crop (no solve launch);
+   22 -s 2`` on a 68x68 crop, untraced, its solve calls timed by CUDA
+   events (launches only solve_filter_1875; peak memory), with the kernel
+   calls of (a) and (b) whose time is not read beside it; ``bcd -w 12 -b
+   21 -s 2`` on that crop (no solve launch);
    (c)'s output against the same pipeline on the card with the float64
    twin in the kernel's place (the port's CPU pipeline took 347-429 s
    there, and ended after the card's phases).
@@ -167,13 +170,13 @@ non-zero before the final line:
    4,363 of its 4,376 rows in the global slot, eighteen pivot passes a
    round; a tile's centers solved in bands of 16 rows) at b = 23: (a) the
    kernel forced to d = 147 and 363 through its test-only entry, bit for
-   bit the compiled instances and within the fp32 model; (b) 4 synthetic
+   bit the compiled instances and within the fp32 model; (b) 2 synthetic
    pixels at d = 2187 (pivots of passes 9 to 18 non-zero) at the engine's
    sweeps against the float64 twin and two past them against the fp32
-   model on 2, its kernel calls beside (c); (c) ``bcd -w 13 -b 23 -s 2`` on a
-   74x74 crop, traced on its own stream (launches only solve_filter_big;
-   the centers that reach the solve, its share of the device time, peak
-   memory, tiles and bands); (d) ``bcd -w 13 -b 22 -s 2`` on that crop (no
+   model on 1, its kernel calls beside (c); (c) ``bcd -w 13 -b 23 -s 2`` on a
+   74x74 crop, untraced, its solve calls timed by CUDA events (launches
+   only solve_filter_big; the centers that reach the solve, peak memory,
+   tiles and bands); (d) ``bcd -w 13 -b 22 -s 2`` on that crop (no
    solve launch); (e) (c)'s output against the same pipeline on the card
    with the float64 twin in the kernel's place.
 18. The lane solve_matrices on the runtime-d kernel (every d but 27 and
@@ -203,19 +206,21 @@ ways, launched from Python and replayed from one CUDA graph
 (``ops/probe_library``'s ``cuda_ms`` and ``graph_ms``); the kernels line
 takes the graph's.
 
-The crops' CPU references (phases 5, 7 and 8 to 15's (e)), the port's
+The crops' CPU references (phases 5, 7 and 8 to 14's (e)), the port's
 CPU pipeline on each crop, are computed one after another from phase 5's
 start in a process of their own (spawned; it never touches the card),
 beside the card's work, on tiles as small as the crop allows.
 From phase 8 to 16 the frame's main-path fraction is read on an eighth of
 its tiles.
-Phases 10 to 16 time the first and last 16 main rows of their batch in
-place and hold them bit for bit to one compact call on the same rows and
-to the float64 twin. From phase 10, where (c)'s
-crop is (e)'s, (e) runs the card once, on the inputs and parameters of
-(c)'s CLI run, and holds it bit for bit to that run (else twice); the
-kernel calls of (a) and (b) whose time is not read run on side streams
-beside that card run, and their fp32 models after it.
+Phases 10 to 16 time the first and last PART_ROWS (4) main rows of
+their batch in place and hold them bit for bit to one compact call on
+the same rows and to the float64 twin. From phase 10 the kernel calls of
+(a) and (b) whose time is not read run on side streams beside (c)'s CLI
+run, and their fp32 models after (e); in phases 14 and 15 (b)'s timed
+in-place call too, timed by CUDA events on its own stream. Where (c)'s
+crop is (e)'s (phases 10 to 14), (e) holds (c)'s output, on the inputs
+and parameters of the CPU pipeline's run, to that pipeline (else the
+card runs the crop twice, bitwise repeatable).
 
 Then one JSON line of kernel results, the card line, and the final line
 ``{"ok": true, "device": {...}}``.
@@ -332,6 +337,12 @@ R4_MAIN_FLOOR = 0.72
 R4_CROP = (64, 128)
 # (e): a crop on the card against the port's CPU pipeline
 R4_CPU_CROP = 32
+# the centers of (b)'s batch the fp32 model runs on: two a block of the
+# kernel's persistent grid (phase 7's 2,048 until the whole run took 1125 s
+# of its 1200 on an H100, the model on them 15.9 s). (a)'s synthetic rows
+# stay 1,024: on their first 264 the kernel read 1.096e-05 from its model
+# at 8 sweeps, past SMEM_MODEL_RMS (9.304e-06 on all 1,024; H100)
+R4_MODEL_CENTERS = 264
 # phase 9, d = 363 (csrc/solve_filter_smem.cu with 580 of the 728 rows of
 # W and Q in a global slot)
 R5_KERNELS = ("solve_filter_363",)
@@ -401,11 +412,11 @@ R6_SYNTH_PIXELS = 32
 # d = 363 it gave 5.5e-6 from 2.2e-5): d = 507 at 9 sweeps sits nearer
 # convergence than d = 363 at 8, so phase 9's limit is kept, 15x over
 R6_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 6 batch the model runs on. The whole 8-tile
-# batch took 98.4 s on an H100, most of phase 10 (PERF.md): it is timed on
-# a part (PART_ROWS), its first and last 264 rows until phase 13 needed the
-# run's time, 132 until phase 15 did. Its last rows lie past element 2^31
-# of the (8192, 529, 507) stack.
+# The whole 8-tile r = 6 batch took 98.4 s on an H100, most of phase 10
+# (PERF.md): it is timed on a part (PART_ROWS), its first and last 264 rows
+# until phase 13 needed the run's time, 132 until phase 15 did. Its last
+# rows lie past element 2^31 of the (8192, 529, 507) stack. The model runs
+# on R6_MODEL_CENTERS of them
 R6_MODEL_CENTERS = 132
 # the 8-tile batch's main-path fraction (8,192 of 8,192 centers on an H100)
 R6_BATCH_FLOOR = 0.8
@@ -447,11 +458,10 @@ R7_SYNTH_PIXELS = 32
 # (its reading 1.1e-6, 18x under it; d = 675 at 9 sweeps sits about as near
 # convergence as d = 507 at 9 on the synthetic rows)
 R7_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 7 batch the model runs on. The 4-tile batch
-# (about 4,000 main-path centers at about 31 ms a center on an H100, about
-# two minutes) is timed on a part of it in place (PART_ROWS; 528 rows, the
-# model on 132 centers, until phase 13 needed the run's time, 264 until
-# phase 15 did)
+# The 4-tile r = 7 batch (about 4,000 main-path centers at about 31 ms a
+# center on an H100, about two minutes) is timed on a part of it in place
+# (PART_ROWS; 528 rows, the model on 132 centers, until phase 13 needed the
+# run's time, 264 until phase 15 did)
 R7_MODEL_CENTERS = 32
 # the r = 7, b = 13 finest-scale main-path fraction of the frame and of the
 # 4-tile batch must exceed these (stated before the first reading: at r = 6
@@ -486,11 +496,10 @@ R8_MODEL_SWEEPS = 11
 R8_SYNTH_PIXELS = 16
 # the real r = 8 batch against the fp32 model: phase 11's limit
 R8_MODEL_BATCH_REL_RMS = 2e-5
-# centers of the real r = 8 batch the model runs on. The 2-tile batch
-# (about 2,000 main-path centers at about 65 ms a center, about two
-# minutes) is timed on a part of it in place (PART_ROWS; 528 rows, the
-# model on 132 centers, until phase 13 needed the run's time, 264 until
-# phase 15 did)
+# The 2-tile r = 8 batch (about 2,000 main-path centers at about 65 ms a
+# center, about two minutes) is timed on a part of it in place (PART_ROWS;
+# 528 rows, the model on 132 centers, until phase 13 needed the run's time,
+# 264 until phase 15 did)
 R8_MODEL_CENTERS = 32
 # the r = 8, b = 15 finest-scale main-path fraction of the frame and of the
 # 2-tile batch must exceed these (stated before the first reading: at r = 7
@@ -523,7 +532,8 @@ R9_SEARCH = 16
 # The rows' pivots reach the ninth pass's pairs (512 to 541), which only a
 # lane's second angle step rotates
 R9_MODEL_SWEEPS = 12
-R9_SYNTH_PIXELS = 8
+# (8 until the whole run took 1125 s of its 1200 on an H100)
+R9_SYNTH_PIXELS = 2
 # the real r = 9 batch against the fp32 model: phase 12's limit
 R9_MODEL_BATCH_REL_RMS = 2e-5
 # the r = 9 batch is timed on a part in place (PART_ROWS; one wave of 132
@@ -564,7 +574,8 @@ R10_SEARCH = 18
 # The rows' pivots reach the ninth to eleventh passes' pairs (512 to 660),
 # which only a lane's second angle step rotates
 R10_MODEL_SWEEPS = 12
-R10_SYNTH_PIXELS = 8
+# (8 until the whole run took 1125 s of its 1200 on an H100)
+R10_SYNTH_PIXELS = 2
 # the real r = 10 batch against the fp32 model: phase 13's limit
 R10_MODEL_BATCH_REL_RMS = 2e-5
 # the one-tile r = 10 batch is timed on a part in place (PART_ROWS; one
@@ -600,7 +611,8 @@ R11_SEARCH = 20
 # to thirteenth passes' pairs (512 to 792), which only a lane's second
 # angle step rotates
 R11_MODEL_SWEEPS = 12
-R11_SYNTH_PIXELS = 8
+# (8 until the whole run took 1125 s of its 1200 on an H100)
+R11_SYNTH_PIXELS = 2
 # the real r = 11 batch against the fp32 model: phase 14's limit
 R11_MODEL_BATCH_REL_RMS = 2e-5
 # the one-tile r = 11 batch is timed on a part in place (PART_ROWS; one
@@ -615,7 +627,11 @@ R11_BATCH_FLOOR = 0.8
 # (e): in a 62x62 crop 4 centers reach the solve (their windows keep 1,600
 # offsets of the 40-wide patch-valid region); a 61x61 crop's 39-wide one
 # keeps at most 1,521, under 1,588 (the top-left crops of the scene after
-# the prefilter; 63x63 holds 13, 64x64 24)
+# the prefilter; 63x63 holds 13, 64x64 24). Its reference is the same
+# pipeline on the card with the float64 twin in the kernel's place
+# (wide_phases' "reference"), as phase 16's: the port's CPU pipeline on it
+# took 173.1 s in the reference process and ended 44.1 s after phase 15
+# needed it, once the phases before it took less time (an H100 run)
 R11_CPU_CROP = 62
 # (c): bcd -w 11 -b 20 -s 2 on (e)'s crop: its 31x31 coarse scale still
 # holds a 23x23 patch
@@ -636,7 +652,8 @@ R12_SEARCH = 22
 # to fifteenth passes' pairs (512 to 936), which only a lane's second
 # angle step rotates
 R12_MODEL_SWEEPS = 12
-R12_SYNTH_PIXELS = 8
+# (8 until the whole run took 1125 s of its 1200 on an H100)
+R12_SYNTH_PIXELS = 2
 # the real r = 12 batch against the fp32 model: phase 15's limit
 R12_MODEL_BATCH_REL_RMS = 2e-5
 # the one-tile r = 12 batch is timed on a part in place (PART_ROWS; one
@@ -683,7 +700,8 @@ R13_SMALL_PIXELS = 8
 # d = 147 to 1083 (full masks; rank-deficient rows give NaN, their
 # negative directions not yet clamped), so no limit under that could hold
 # the kernel to its model there
-R13_SYNTH_PIXELS = 4
+# (4 until the whole run took 1125 s of its 1200 on an H100)
+R13_SYNTH_PIXELS = 2
 # (c): the smallest top-left crop of the scene (after the prefilter) in
 # which a few centers reach the solve at r = 13, b = 23: 74x74, 4 centers
 # (73x73 holds 1, 72x72 none; an H100 run), in the finest scale's
@@ -696,17 +714,23 @@ R13_SCALES = 2
 # twin in the kernel's place, within the CPU comparisons' R2_CPU_RMSE: the
 # port's CPU pipeline at r = 13 would take about 550 s in the reference
 # process (r = 12's took 347-419 s, 33.4 GiB), past the card's phases
-# phases 13 to 16 hold the kernel to the fp32 model on the first
-# LATE_MODEL_PIXELS of their synthetic pixels and of their batch's timed
-# rows (8 until phase 16 needed the run's time; the twin still on all):
-# replayed as a CUDA graph the model's rounds are bound by their HBM
-# traffic, which the pixels set
+# phases 10 to 17 hold the kernel to the fp32 model on the first
+# LATE_MODEL_PIXELS of their synthetic pixels, and phases 13 to 17 on as
+# many of their batch's timed rows (8 until phase 16 needed the run's time;
+# the twin still on all): replayed as a CUDA graph the model's rounds are
+# bound by their HBM traffic, which the pixels set. Phases 10 to 12 ran
+# their synthetic model on all 16 to 32 pixels until the whole run took
+# 1125 s of its 1200 on an H100. Not 1: on the first timed row alone the
+# real batches at r = 6 to 10 read 8.300e-06, 1.243e-05, 1.728e-05,
+# 1.749e-05 and 2.061e-05 from the model, the last past its 2e-5 (H100)
 LATE_MODEL_PIXELS = 2
 # phases 10 to 16 time the first and last PART_ROWS main rows of their
 # batch in place and hold them bit for bit to one compact call on the same
 # rows and to the float64 twin (a wave of 132, or two, until phase 15, 16
-# or 17 needed the run's time; their readings stay in PERF.md)
-PART_ROWS = 16
+# or 17 needed the run's time; 16 until the whole run took 1125 s; their
+# readings stay in PERF.md). At d = 1875 four rows took 37.6 s on an H100,
+# 32 rows 50.3 s: the rows' HBM traffic sets a call's latency
+PART_ROWS = 4
 # phases 8 to 16 read the frame's finest-scale main-path fraction on every
 # FRAME_PART-th 16-tile batch, an eighth of the frame's tiles spread over
 # it (the whole frame took 3.5 s at r = 4 to 24.5 s at r = 10 on an H100;
@@ -751,6 +775,8 @@ LANE_PIXELS = 4
 LANE_CONSISTENT_RMS = 2e-4
 # the TPU kernel each probe variant's microbenchmark stands for, by the
 # second word of its name
+# transpose A and D also at a P that their 128-pixel tile does not divide
+PROBE_RAGGED_P = 2272
 PROBE_SCRIPTS = {"transpose": "scripts/probe_transpose.py:86",
                  "mosaic": "scripts/probe_mosaic.py:65",
                  "banded": "scripts/probe_banded_dot.py:52"}
@@ -1402,7 +1428,9 @@ class Beside:
             out = model()
             torch.cuda.synchronize(self.dev)
             finish(launched, out, time.perf_counter() - t0)
-        self.checks = []
+        # what the calls returned (at r = 10 and 11 the batch's in-place
+        # field) is freed with them
+        self.checks, self.launched = [], []
         return secs
 
 
@@ -1542,7 +1570,8 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
                        model_limit=SMEM_MODEL_BATCH_REL_RMS,
                        bitwise_centers=None, tail_centers=None, part=False,
                        time_once=False, twin_centers=R3_TWIN_CENTERS,
-                       compact_centers=None, beside=None):
+                       compact_centers=None, beside=None,
+                       inplace_beside=False):
     """``name`` (solve_filter_pm at d = 147 to 1875) on one real batch: the
     engine's in-place call on the main-path rows, timed after a warm-up
     or, with ``time_once``, once (and so the twin's centers), and zero on
@@ -1555,10 +1584,13 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     them, run on a side stream beside the fp32 model, must give the same
     bits, and the in-place field must lie within ``model_limit`` of the
     model on at most ``model_centers`` centers; with ``beside`` (a
-    ``Beside``) those two are queued there. Returns (max_abs_err, ms,
-    plain_ms, bound) on the twin's centers (the in-place call's time
-    where they are all its rows), the in-place call's ms and its rows
-    (printed beside its bound), and the batch's main-path centers."""
+    ``Beside``) those two are queued there, and with ``inplace_beside``
+    the timed in-place call too, on a side stream of its own timed by
+    CUDA events (its rows must be the twin's centers). Returns a list that
+    holds, once the checks have run, (max_abs_err, ms, plain_ms, bound) on
+    the twin's centers (the in-place call's time where they are all its
+    rows) and the in-place call's ms; the in-place call's rows (printed
+    beside its bound); and the batch's main-path centers."""
     import torch
     from bcd_tpu_torch.ops import bounds
     from bcd_tpu_torch.ops import solve_filter as ts
@@ -1576,17 +1608,31 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
         n_first, n_last, rows = idx.numel(), 0, idx
     batch = lambda: ts.solve_filter_pm(  # noqa: E731
         *args, 1e-8, npx=npx, sweeps=sweeps, rows=rows)
-    whole, ms_batch = timed_once(batch) if time_once else (batch(), None)
-    need(bool(torch.isfinite(whole).all()), f"{label}: non-finite field")
-    rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
-    rest[rows] = False
-    need(not bool(whole[rest].any()),
-         f"{label} {name}: rows not solved in place are not zero")
-    field = whole[rows]
-    del whole
     # the solved rows' stacks, for the compact call, the model and the twin
     args_m = [x[k][rows].contiguous() for k in PM_KEYS]
     n_rows = rows.numel()
+    need(not inplace_beside or (beside is not None and time_once
+                                and n_rows == twin_centers),
+         f"{label}: an in-place call beside (c) is timed once on the "
+         "twin's centers")
+
+    def checked(whole):
+        """The in-place field's solved rows; every other row must be 0."""
+        need(bool(torch.isfinite(whole).all()), f"{label}: non-finite field")
+        rest = torch.ones(p_all, dtype=torch.bool, device=idx.device)
+        rest[rows] = False
+        need(not bool(whole[rest].any()),
+             f"{label} {name}: rows not solved in place are not zero")
+        return whole[rows]
+
+    got = {}
+    if not inplace_beside:
+        whole, got["ms"] = timed_once(batch) if time_once else (batch(),
+                                                               None)
+        got["field"] = checked(whole)
+        del whole
+        if got["ms"] is None:
+            got["ms"] = cuda_ms(batch, 1)
     if compact_centers is None or compact_centers >= n_rows:
         sel = torch.arange(n_rows, device=rows.device)
     else:
@@ -1594,8 +1640,6 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
         sel = torch.cat([torch.arange(half, device=rows.device),
                          torch.arange(n_rows - half, n_rows,
                                       device=rows.device)])
-    if ms_batch is None:
-        ms_batch = cuda_ms(batch, 1)
     bound_batch = bounds.solve_filter(n_rows, n_off, d, sweeps)
     last = int(rows[sel[-1]])
     on_rows = (f"the same {n_rows}" if sel.numel() == n_rows else
@@ -1605,29 +1649,46 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
     # long from d = 867)
     args_c = [v[sel].contiguous() for v in args_m]
     args_model = [v[:model_centers].contiguous() for v in args_m]
-    field_c, field_model = field[sel], field[:model_centers]
+    # only a queued in-place call keeps the batch's stack alive until it runs
+    timed_call = batch if inplace_beside else None
+    del batch
 
     def launch():
-        (side,), join = side_streams(idx.device, 1)
-        with torch.cuda.stream(side):
+        streams, join = side_streams(idx.device, 1 + inplace_beside)
+        with torch.cuda.stream(streams[0]):
             compact = ts.solve_filter_pm(*args_c, 1e-8, npx=npx,
                                          sweeps=sweeps)
-        return compact, join
+        timed = None
+        if inplace_beside:
+            with torch.cuda.stream(streams[1]):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                whole = timed_call()
+                end.record()
+            timed = whole, start, end
+        return compact, timed, join
 
     def model():
         return ts.solve_filter_pm_schedule(*args_model, 1e-8, npx, sweeps)
 
     def finish(launched, model_out, model_s, compact_s=None):
-        compact, join = launched
+        compact, timed, join = launched
         join()
-        need(torch.equal(field_c, compact),
+        if timed is not None:
+            whole, start, end = timed
+            got["ms"] = start.elapsed_time(end)
+            got["field"] = checked(whole)
+            del whole
+        field = got["field"]
+        need(torch.equal(field[sel], compact),
              f"{label} {name}: rows in place differ from the compact stack "
              f"(rows {int(rows[sel[0]])} to {last}, last element "
              f"{(last + 1) * n_off * d - 1})")
-        rel_m = rel_rms(field_model, model_out)
+        rel_m = rel_rms(field[:model_centers], model_out)
         when = (f"the call beside the model {compact_s:.1f} s"
                 if compact_s is not None else
-                f"the call beside {beside.label}")
+                f"the call{'s' if timed else ''} beside {beside.label}")
         print(f"{tag} {label} {name}: the engine's in-place rows bitwise "
               f"equal to the compact call on {on_rows}, up to element "
               f"{(last + 1) * n_off * d - 1} of the stack ({when}); field "
@@ -1636,46 +1697,59 @@ def compare_smem_batch(label, x, main, sweeps, tag="[7]",
               f"(limit {model_limit:g}; the model {model_s:.1f} s)",
               flush=True)
         need(rel_m < model_limit, f"{label} {name} vs its schedule model")
+        if timed is not None:
+            report()
+
+    out = []
+
+    def report():
+        field, ms_batch = got["field"], got["ms"]
+        subt = [v[:twin_centers].contiguous() for v in args_m]
+        sf = lambda: ts.solve_filter_pm(  # noqa: E731
+            *subt, 1e-8, npx=npx, sweeps=sweeps)
+        ref, plain_ms = timed_once(
+            lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
+        if time_once and n_rows == twin_centers:
+            res_got, ms = field, ms_batch  # the in-place call above
+        elif time_once:  # this too: a call takes seconds from d = 507
+            res_got, ms = timed_once(sf)
+        else:
+            res_got, ms = sf(), cuda_ms(sf, 3)
+        rel = rel_rms(res_got, ref)
+        res = (float((res_got - ref).abs().max()), ms, plain_ms,
+               bounds.solve_filter(twin_centers, n_off, d, sweeps))
+        part_rows = (f" (the first {n_first}"
+                     f"{f' and the last {n_last}' if n_last else ''}, a part "
+                     "of the batch)") if part else ""
+        where = (f" beside {beside.label}, by CUDA events"
+                 if inplace_beside else "")
+        print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
+              f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite, zero "
+              f"on the rows not solved; {ms_batch:.3f} ms for {n_rows} main "
+              f"rows in place{part_rows}{where}, bound {bound_batch[0]:.3f} "
+              f"ms ({bound_batch[1]})", flush=True)
+        print(f"{tag} {label}: field vs the float64 twin on the first "
+              f"{twin_centers} rel rms {rel:.3e} (limit {BATCH_REL_RMS:g}), "
+              f"max abs err {res[0]:.3e}; on those centers kernel "
+              f"{res[1]:.3f} ms, twin {res[2]:.3f} ms, bound "
+              f"{res[3][0]:.3f} ms", flush=True)
+        need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
+        out[:] = [res, ms_batch]
 
     if beside is not None:
         beside.add(launch, model, finish)
     else:
         t0 = time.perf_counter()
         launched = launch()
-        out = model()
+        model_out = model()
         torch.cuda.current_stream(idx.device).synchronize()
         model_s = time.perf_counter() - t0
-        launched[1]()
+        launched[2]()
         torch.cuda.synchronize(idx.device)
-        finish(launched, out, model_s, time.perf_counter() - t0)
-    subt = [v[:twin_centers].contiguous() for v in args_m]
-    sf = lambda: ts.solve_filter_pm(  # noqa: E731
-        *subt, 1e-8, npx=npx, sweeps=sweeps)
-    ref, plain_ms = timed_once(
-        lambda: ts.solve_filter_pm_plain(*subt, 1e-8, npx=npx))
-    if time_once and n_rows == twin_centers:
-        got, ms = field, ms_batch  # the in-place call above
-    elif time_once:  # this too: a call takes seconds from d = 507
-        got, ms = timed_once(sf)
-    else:
-        got, ms = sf(), cuda_ms(sf, 3)
-    rel = rel_rms(got, ref)
-    res = (float((got - ref).abs().max()), ms, plain_ms,
-           bounds.solve_filter(twin_centers, n_off, d, sweeps))
-    part_rows = (f" (the first {n_first}"
-                 f"{f' and the last {n_last}' if n_last else ''}, a part of "
-                 "the batch)") if part else ""
-    print(f"{tag} {label} {name}: {idx.numel()} main-path centers "
-          f"of {p_all} (O={n_off}, d={d}, sweeps {sweeps}), finite, zero "
-          f"on the rows not solved; {ms_batch:.3f} ms for {n_rows} main "
-          f"rows in place{part_rows}, bound {bound_batch[0]:.3f} ms "
-          f"({bound_batch[1]})", flush=True)
-    print(f"{tag} {label}: field vs the float64 twin on the first "
-          f"{twin_centers} rel rms {rel:.3e} (limit {BATCH_REL_RMS:g}), max "
-          f"abs err {res[0]:.3e}; on those centers kernel {res[1]:.3f} ms, "
-          f"twin {res[2]:.3f} ms, bound {res[3][0]:.3f} ms", flush=True)
-    need(rel < BATCH_REL_RMS, f"{label} {name} vs twin")
-    return res, ms_batch, rows, idx.numel()
+        finish(launched, model_out, model_s, time.perf_counter() - t0)
+    if not inplace_beside:
+        report()
+    return out, rows, idx.numel()
 
 
 def r3_phase(dev, card, stats, clean, scene_path, cpu_refs):
@@ -1705,9 +1779,9 @@ def r3_phase(dev, card, stats, clean, scene_path, cpu_refs):
           f"main-path fraction {frac3:.4f} (floor {R3_MAIN_FLOOR:g})",
           flush=True)
     need(frac3 > R3_MAIN_FLOOR, "the -w 3 run barely reaches the main path")
-    res, *_ = compare_smem_batch("full-size r=3 batch 8",
-                                   *r2_batch(pre, dev, thr, radius=3),
-                                   sweeps=sweeps)
+    (res, _), *_ = compare_smem_batch("full-size r=3 batch 8",
+                                      *r2_batch(pre, dev, thr, radius=3),
+                                      sweeps=sweeps)
     res = (max(res[0], e_syn),) + res[1:]
     del pre
 
@@ -1850,10 +1924,16 @@ def wide_phases():
     ``scales``, where given, is the ``-s`` of the crop's CLI runs (else the
     default); ``reference`` "twin" holds the crop to the same pipeline on
     the card with the float64 twin in the kernel's place, not to the port's
-    CPU pipeline; ``jacobi_share`` False skips the timed 0-sweep call of
+    CPU pipeline (``cpu_s`` says why); ``jacobi_share`` False skips the timed 0-sweep call of
     (b), the Jacobi's share (0.780, 0.781 and 0.778 of the 32 rows at
     r = 10, 11 and 12 on an NVIDIA H100 80GB HBM3 at 700 W, 3.9, 6.7 and
-    11.2 s of the run, given up when phase 19 came)."""
+    11.2 s of the run, given up when phase 19 came); ``batch_beside`` runs
+    (b)'s timed in-place call beside (c) too, timed there by CUDA events,
+    not alone before it (r = 10 and 11, 17.8 and 30.6 s alone; not at
+    r = 12, where its stack and field, 31.1 GB, and (c)'s 47.5 GB peak
+    would not fit the card together); ``trace`` False runs (c) untraced,
+    the solve kernel timed by CUDA events (r = 12: the trace of its crop's
+    280,000 launches took 17 s to collect and sum)."""
     # phases 10 to 16: the first and last PART_ROWS main rows, timed in
     # place, held to one compact call on all of them and to the twin
     part = dict(bitwise_centers=PART_ROWS, tail_centers=PART_ROWS,
@@ -1862,7 +1942,8 @@ def wide_phases():
     return {
         4: dict(tag="[8]", kernels=R4_KERNELS, O=289, search=R4_SEARCH,
                 floor=R4_MAIN_FLOOR, batch_floor=0.0, crop=R4_CROP,
-                cpu_crop=R4_CPU_CROP, synth={}, batch={},
+                cpu_crop=R4_CPU_CROP, synth={},
+                batch=dict(model_centers=R4_MODEL_CENTERS),
                 # no solve: -w 4 at the default b = 6
                 no_solve_b=6),
         5: dict(tag="[9]", kernels=R5_KERNELS, O=441, search=R5_SEARCH,
@@ -1880,7 +1961,8 @@ def wide_phases():
                 floor=R6_MAIN_FLOOR, batch_floor=R6_BATCH_FLOOR,
                 crop=R6_CROP, cpu_crop=R6_CPU_CROP, scales=R6_SCALES,
                 synth=dict(pixels=R6_SYNTH_PIXELS,
-                           model_sweeps=R6_MODEL_SWEEPS),
+                           model_sweeps=R6_MODEL_SWEEPS,
+                           model_pixels=LATE_MODEL_PIXELS),
                 batch=dict(model_centers=R6_MODEL_CENTERS,
                            model_limit=R6_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 6 at b = 10 (441 offsets)
@@ -1889,7 +1971,8 @@ def wide_phases():
                 floor=R7_MAIN_FLOOR, batch_floor=R7_BATCH_FLOOR,
                 crop=R7_CROP, cpu_crop=R7_CPU_CROP, scales=R7_SCALES,
                 synth=dict(pixels=R7_SYNTH_PIXELS,
-                           model_sweeps=R7_MODEL_SWEEPS),
+                           model_sweeps=R7_MODEL_SWEEPS,
+                           model_pixels=LATE_MODEL_PIXELS),
                 batch=dict(model_centers=R7_MODEL_CENTERS,
                            model_limit=R7_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 7 at b = 12 (625 offsets)
@@ -1898,7 +1981,8 @@ def wide_phases():
                 floor=R8_MAIN_FLOOR, batch_floor=R8_BATCH_FLOOR,
                 crop=R8_CROP, cpu_crop=R8_CPU_CROP, scales=R8_SCALES,
                 synth=dict(pixels=R8_SYNTH_PIXELS,
-                           model_sweeps=R8_MODEL_SWEEPS),
+                           model_sweeps=R8_MODEL_SWEEPS,
+                           model_pixels=LATE_MODEL_PIXELS),
                 batch=dict(model_centers=R8_MODEL_CENTERS,
                            model_limit=R8_MODEL_BATCH_REL_RMS, **part),
                 # no solve: -w 8 at b = 14 (841 offsets)
@@ -1922,7 +2006,7 @@ def wide_phases():
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R10_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 10 at b = 17 (1,225 offsets)
-                 no_solve_b=17, jacobi_share=False),
+                 no_solve_b=17, jacobi_share=False, batch_beside=True),
         11: dict(tag="[15]", kernels=R11_KERNELS, O=1681, search=R11_SEARCH,
                  floor=R11_MAIN_FLOOR, batch_floor=R11_BATCH_FLOOR,
                  crop=R11_CROP, cpu_crop=R11_CPU_CROP, scales=R11_SCALES,
@@ -1932,7 +2016,9 @@ def wide_phases():
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R11_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 11 at b = 19 (1,521 offsets)
-                 no_solve_b=19, jacobi_share=False),
+                 no_solve_b=19, jacobi_share=False, batch_beside=True,
+                 reference="twin", cpu_s="173.1 s, and ended after phase 15 "
+                 "needed it"),
         12: dict(tag="[16]", kernels=R12_KERNELS, O=2025, search=R12_SEARCH,
                  floor=R12_MAIN_FLOOR, batch_floor=R12_BATCH_FLOOR,
                  crop=R12_CROP, cpu_crop=R12_CPU_CROP, scales=R12_SCALES,
@@ -1942,7 +2028,8 @@ def wide_phases():
                  batch=dict(model_centers=LATE_MODEL_PIXELS,
                             model_limit=R12_MODEL_BATCH_REL_RMS, **part),
                  # no solve: -w 12 at b = 21 (1,849 offsets)
-                 no_solve_b=21, reference="twin", jacobi_share=False),
+                 no_solve_b=21, reference="twin", jacobi_share=False,
+                 trace=False, cpu_s="347-429 s, past the card's phases"),
     }
 
 
@@ -1989,10 +2076,10 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
     k = c["cpu_crop"]
 
     # (a) synthetic; from phase 10 its kernel calls and model are queued
-    # to run beside (e)'s card run (``Beside``), and so are (b)'s compact
-    # call and model
-    later = (Beside(dev, "(c) to (e)") if c.get("reference") == "twin"
-             else Beside(dev) if one_crop(c) else None)
+    # to run beside (c), the crop's CLI run (``Beside``), and so are (b)'s
+    # compact call and model
+    twin_ref = c.get("reference") == "twin"
+    later = Beside(dev, "(c)") if twin_ref or one_crop(c) else None
     e_syn = compare_smem_synthetic(dev, sweeps, O=c["O"], d=d, tag=tag,
                                    name=name, beside=later, **c["synth"])
     step_done("a")
@@ -2022,12 +2109,14 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
           f"{batch_frac:.4f} (floor {c['batch_floor']:g})", flush=True)
     need(batch_frac > c["batch_floor"], f"the {n_tiles}-tile batch "
          f"{k_batch} barely reaches the main path")
-    res, batch_ms, timed_rows, _ = compare_smem_batch(
+    batch_beside = c.get("batch_beside", False)
+    b_out, timed_rows, _ = compare_smem_batch(
         f"full-size r={radius} b={b} {n_tiles}-tile batch {k_batch}", x,
         main, sweeps=sweeps, tag=tag, name=name, time_once=True,
-        beside=later, **c["batch"])
+        beside=later, inplace_beside=batch_beside, **c["batch"])
     # the Jacobi's share: the same rows at 0 sweeps, timed once
     if c.get("jacobi_share", True):
+        batch_ms = b_out[1]
         ms0 = timed_once(lambda: ts.solve_filter_pm(
             *(x[k] for k in PM_KEYS), 1e-8, npx=npx, sweeps=0,
             rows=timed_rows))[1]
@@ -2035,43 +2124,72 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
               f"{ms0:.3f} ms: the Jacobi's {sweeps} sweeps "
               f"{batch_ms - ms0:.3f} ms (share {1 - ms0 / batch_ms:.3f})",
               flush=True)
+    # with ``batch_beside`` the in-place call's closure keeps the batch
+    # until it has run beside (c)
     del x, main
-    step_done("b")
+    step_done("b" if not batch_beside else "b, its inputs")
 
-    # (c) bcd -w r -b b through the CLI's entry point on a crop, traced
+    # (c) bcd -w r -b b through the CLI's entry point on a crop, traced (or
+    # its solve calls timed by CUDA events), with the calls queued in
+    # ``later`` beside it on side streams
     ch, cw = c["crop"]
     crop_path = crop_scene_path(scene_path, radius)
     write_scene(crop_path, *(x[:ch, :cw] for x in stats))
     out_path = crop_path.replace(".exr", "_out.exr")
     argv = ["-i", crop_path, "-o", out_path, *w, *scales]
-    rcs = []
-    twin_ref = c.get("reference") == "twin"
+    rcs, held = [], []
 
     def run():
-        # with the card-twin reference, (a)'s and (b)'s queued calls run
-        # beside this run, started inside the trace (its start waits for
-        # the card to be idle) and before the counts are reset
-        if twin_ref:
+        # (a)'s and (b)'s queued calls start inside the trace (its start
+        # waits for the card to be idle), before the counts are reset;
+        # what they hold on the card, their inputs too, counts in the
+        # run's peak
+        if later is not None:
             later.open()
+            held.append(torch.cuda.memory_allocated())
         _build.reset_launches()
         rcs.append(cli.main(argv))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    label = f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop"
     with recorded_pipeline() as record:
-        cli_s, busy, rows = device_time_table(
-            f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop", run,
-            own_stream=twin_ref)
+        if c.get("trace", True):
+            cli_s, busy, rows = device_time_table(
+                label, run, own_stream=later is not None)
+            k_us = sum(us for us, _, key in rows
+                       if f"solve_filter_smem_kernel<{d}>" in key)
+            share = (f"{name} {k_us / 1e6:.4f} s of {busy:.4f} s device "
+                     f"time (share {k_us / 1e6 / max(busy, 1e-9):.3f})")
+        else:
+            with solve_events() as calls:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.current_stream(dev).synchronize()
+                cli_s = time.perf_counter() - t0
+            solved = solved_ms(calls)
+            k_us = sum(ms for _, ms in solved) * 1e3
+            share = (f"{name} {k_us / 1e6:.4f} s by CUDA events around the "
+                     f"engine's {len(solved)} solve calls that took a "
+                     f"center ({sum(n for n, _ in solved)} centers; device "
+                     "time not traced)")
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.LAUNCHES)
     need(rcs == [0], f"{' '.join(w)} CLI run")
-    k_us = sum(us for us, _, key in rows
-               if f"solve_filter_smem_kernel<{d}>" in key)
+    # the traced run's wall ends when the card is idle, the untraced one's
+    # when its own stream is
+    beside_wall = (", to the end of the calls of (a) and (b) beside it"
+                   if c.get("trace", True) else
+                   ", the calls of (a) and (b) beside it")
+    beside_mem = (f", {held[0] / 2**20:.1f} MiB of it held from its start "
+                  "by the calls beside it, their inputs included"
+                  if held else "")
     print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv)}: rc 0, "
-          f"{cli_s:.3f} s wall with EXR I/O and the profiler on {card}; "
-          f"peak memory {peak / 2**20:.1f} MiB; launches {launches}; "
-          f"{name} {k_us / 1e6:.4f} s of {busy:.4f} s device "
-          f"time (share {k_us / 1e6 / max(busy, 1e-9):.3f})", flush=True)
+          f"{cli_s:.3f} s wall with EXR I/O "
+          f"{'and the profiler ' if c.get('trace', True) else ''}on {card}"
+          f"{beside_wall if held else ''}; "
+          f"peak memory {peak / 2**20:.1f} MiB{beside_mem}; launches "
+          f"{launches}; {share}", flush=True)
     need(launches[name] > 0,
          f"kernel {name} was not launched by the {' '.join(w)} path")
     for other in R1_KERNELS + SOLVE_KERNELS:
@@ -2087,13 +2205,21 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
           f"{e_out:.5f}, noisy input {e_in_c:.5f}", flush=True)
     need(e_out < e_in_c, f"the {' '.join(w)} output is not closer to the "
          "clean image")
-    full = 1088 * 1920 / (ch * cw)
-    print(f"{tag} estimate, not a run: a 1088x1920 {' '.join(w)} frame "
-          f"at this crop's rate per pixel {cli_s * full:.1f} s, its kernel "
-          f"{k_us / 1e6 * full:.1f} s; at (b)'s rate per main-path "
-          f"center and the finest scale's fraction "
-          f"{batch_ms / timed_rows.numel() * 1088 * 1920 * frac / 1e3:.1f}"
-          " s in the kernel at the finest scale", flush=True)
+
+    def close_later(until):
+        t0 = time.perf_counter()
+        window_s = later.close()
+        print(f"{tag} (a)'s and (b)'s kernel calls beside (c): "
+              f"{window_s:.1f} s from their start to the end of {until}, "
+              f"then their models {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # the traced run ends when the card is idle, so the queued calls have
+    # run: they are checked now, and what they hold (at r = 10 and 11 the
+    # batch's stack and field) is freed before (d)
+    traced_later = later is not None and c.get("trace", True)
+    if traced_later:
+        close_later("(c), whose trace waited for them")
     step_done("c")
 
     # (d) the gate: -w r on the crop at a b whose window cannot reach the
@@ -2102,13 +2228,13 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
                  e_in_c)
     step_done("d")
 
-    # (e) the crop on the card against the port's CPU pipeline, and bitwise
-    # repeatable: run twice, or from phase 10, where (c)'s crop is (e)'s,
-    # once on the inputs and parameters of (c)'s CLI run, whose output it
-    # must repeat, with (a)'s and (b)'s queued kernel calls beside it; or,
-    # where the CPU pipeline would end after the card's phases (r = 12),
-    # (c)'s output against the same pipeline on the card with the float64
-    # twin in the kernel's place, as phase 17
+    # (e) the crop on the card against the port's CPU pipeline: from phase
+    # 10, where (c)'s crop is (e)'s, (c)'s output on the inputs and
+    # parameters of the CPU pipeline's run (else the pipeline on the card,
+    # twice, bitwise repeatable); or, where the CPU pipeline would end
+    # after the card's phases (r = 12), (c)'s output against the same
+    # pipeline on the card with the float64 twin in the kernel's place, as
+    # phase 17. Then the checks queued in ``later``, if not yet done
     if twin_ref:
         ref, twin_calls = twin_reference(tag, record, crop_path, radius, b,
                                          c["scales"])
@@ -2117,67 +2243,98 @@ def wide_phase(radius, dev, card, stats, clean, scene_path, cpu_refs):
         print(f"{tag} {' '.join(w)} pipeline on the {k}x{k} crop: (c)'s "
               f"card output vs the same pipeline on the card with the "
               f"float64 twin in the kernel's place (the reference; the "
-              f"port's CPU pipeline took 347-429 s, past the card's phases) "
+              f"port's CPU pipeline took {c['cpu_s']}) "
               f"rmse {gap:.3e} (limit {R2_CPU_RMSE:g}), max abs "
               f"{float((got - ref).abs().max()):.3e}; the twin "
               f"{sum(ms for _, ms in twin_calls):.3f} ms on "
               f"{sum(n for n, _ in twin_calls)} centers", flush=True)
         need(gap < R2_CPU_RMSE, f"-w {radius} on the card against its "
              "reference")
-        t0 = time.perf_counter()
-        window_s = later.close()
-        print(f"{tag} (a)'s and (b)'s kernel calls beside (c) to (e): "
-              f"{window_s:.1f} s from their start, then their models "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        step_done("e")
-        return (max(res[0], e_syn[0]),) + res[1:], launches
-    if one_crop(c):
-        inputs, kwargs = record["args"], record["kwargs"]
-        need(all(np.array_equal(x, y) for x, y in zip(
-            inputs[:4], load_scene(crop_path)))
-             and inputs[5] == cpu_pipeline_params(radius, b, c["scales"])
-             and kwargs["tile"] is None and kwargs["skip_stride"] == 1,
-             f"{tag} the CLI's pipeline call is not the CPU reference's")
-        later.open()
-        _build.reset_launches()
-        got = record["run"](*inputs, **{
-            k: v for k, v in kwargs.items()
-            if k not in ("progress_callback", "stats")})
-        need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
-        need(torch.equal(got, record["out"]),
-             f"{' '.join(w)} crop: the card's run differs from the CLI's")
-        t0 = time.perf_counter()
-        window_s = later.close()
-        print(f"{tag} (a)'s and (b)'s kernel calls beside (e)'s card run: "
-              f"{window_s:.1f} s from their start, then their models "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        e_syn = e_syn[0]
-        repeat = "bitwise the CLI run's (c) on the card"
     else:
-        crop = [torch.as_tensor(x[:k, :k]).to(dev) for x in stats]
-        _build.reset_launches()
-        got = denoise_pipeline(*crop, dev, pw)
-        need(_build.LAUNCHES[name] > 0, f"the {k}x{k} crop reaches no solve")
-        need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
-             f"{' '.join(w)} crop not bitwise repeatable")
-        repeat = "bitwise repeatable on the card"
-    res = (max(res[0], e_syn),) + res[1:]
-    t0 = time.perf_counter()
-    ref, cpu_s, cpu_peak = cpu_refs.result(radius)
-    print(f"{tag} waited {time.perf_counter() - t0:.1f} s for the CPU "
-          "pipeline", flush=True)
-    gap = rmse(got.cpu(), ref)
-    print(f"{tag} {' '.join(w)} pipeline on a {k}x{k} crop: card vs the "
-          f"port's CPU pipeline (float64 twins, {cpu_tile(k)}x{cpu_tile(k)} "
-          f"tiles, {cpu_s:.1f} s, its "
-          f"process's peak resident memory so far {cpu_peak:.1f} GiB) rmse "
-          f"{gap:.3e} (limit {R2_CPU_RMSE:g}), max abs "
-          f"{float((got.cpu() - ref).abs().max()):.3e}; {repeat}",
-          flush=True)
-    need(gap < R2_CPU_RMSE, f"-w {radius} on the card against the CPU "
-         "pipeline")
+        if one_crop(c):
+            inputs, kwargs = record["args"], record["kwargs"]
+            need(all(np.array_equal(x, y) for x, y in zip(
+                inputs[:4], load_scene(crop_path)))
+                 and inputs[5] == cpu_pipeline_params(radius, b,
+                                                      c["scales"])
+                 and kwargs["tile"] is None and kwargs["skip_stride"] == 1,
+                 f"{tag} the CLI's pipeline call is not the CPU reference's")
+            got = record["out"]
+            repeat = "(c)'s output"
+        else:
+            crop = [torch.as_tensor(x[:k, :k]).to(dev) for x in stats]
+            _build.reset_launches()
+            got = denoise_pipeline(*crop, dev, pw)
+            need(_build.LAUNCHES[name] > 0,
+                 f"the {k}x{k} crop reaches no solve")
+            need(torch.equal(got, denoise_pipeline(*crop, dev, pw)),
+                 f"{' '.join(w)} crop not bitwise repeatable")
+            repeat = "bitwise repeatable on the card"
+        t0 = time.perf_counter()
+        ref, cpu_s, cpu_peak = cpu_refs.result(radius)
+        print(f"{tag} waited {time.perf_counter() - t0:.1f} s for the CPU "
+              "pipeline", flush=True)
+        gap = rmse(got.cpu(), ref)
+        print(f"{tag} {' '.join(w)} pipeline on a {k}x{k} crop: card vs the "
+              f"port's CPU pipeline (float64 twins, {cpu_tile(k)}x"
+              f"{cpu_tile(k)} tiles, {cpu_s:.1f} s, its process's peak "
+              f"resident memory so far {cpu_peak:.1f} GiB) rmse {gap:.3e} "
+              f"(limit {R2_CPU_RMSE:g}), max abs "
+              f"{float((got.cpu() - ref).abs().max()):.3e}; {repeat}",
+              flush=True)
+        need(gap < R2_CPU_RMSE, f"-w {radius} on the card against the CPU "
+             "pipeline")
+    if later is not None and not traced_later:
+        close_later("(e)")
+    if later is not None:
+        e_syn = e_syn[0]
     step_done("e")
-    return res, launches
+    res, batch_ms = b_out
+    full = 1088 * 1920 / (ch * cw)
+    print(f"{tag} estimate, not a run: a 1088x1920 {' '.join(w)} frame "
+          f"at this crop's rate per pixel {cli_s * full:.1f} s, its kernel "
+          f"{k_us / 1e6 * full:.1f} s; at (b)'s rate per main-path "
+          f"center and the finest scale's fraction "
+          f"{batch_ms / timed_rows.numel() * 1088 * 1920 * frac / 1e3:.1f}"
+          " s in the kernel at the finest scale", flush=True)
+    return (max(res[0], e_syn),) + res[1:], launches
+
+
+@contextlib.contextmanager
+def solve_events():
+    """The engine's solve entry (``core.monoscale.solve_filter_pm``)
+    wrapped while the block runs; yields a list that receives, for each
+    call, its rows' count and CUDA events recorded on the current stream
+    just before and after it (the kernel's time, with the zero fill of
+    its field). For the untraced CLI runs of phases 16 and 17: the traces
+    of their crops' 280,000 and 530,000 launches took 17 and 31 s to
+    collect and sum on an H100's machine."""
+    import torch
+    from bcd_tpu_torch.core import monoscale
+
+    engine = monoscale.solve_filter_pm
+    calls = []
+
+    def timed(cand, *args, rows=None, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        field = engine(cand, *args, rows=rows, **kwargs)
+        end.record()
+        calls.append((cand.shape[0] if rows is None else int(rows.numel()),
+                      start, end))
+        return field
+
+    monoscale.solve_filter_pm = timed
+    try:
+        yield calls
+    finally:
+        monoscale.solve_filter_pm = engine
+
+
+def solved_ms(calls):
+    """(centers, ms) of each call of ``solve_events`` that took a center,
+    once the card has run them."""
+    return [(n, start.elapsed_time(end)) for n, start, end in calls if n]
 
 
 def no_solve_run(tag, crop_path, radius, b, scales, clean_c, e_in_c) -> None:
@@ -2266,7 +2423,6 @@ def big_phase(dev, card, stats, clean, scene_path, radius=13, b=R13_SEARCH,
     (max_abs_err, ms, plain_ms, bound) and the crop's launch counts."""
     import torch
     from bcd_tpu_torch import cli
-    from bcd_tpu_torch.core import monoscale
     from bcd_tpu_torch.core.monoscale import (MonoscaleConfig,
                                               solve_filter_sweeps)
     from bcd_tpu_torch.io import image_io
@@ -2323,58 +2479,48 @@ def big_phase(dev, card, stats, clean, scene_path, radius=13, b=R13_SEARCH,
     step_done("b, its inputs")
 
     # (c) bcd -w 13 -b 23 -s 2 through the CLI's entry point on the crop,
-    # traced on its own stream, with (b)'s kernel calls beside it; the
-    # centers each solve call takes, read by a wrapper that calls the
-    # engine's own
+    # with (b)'s kernel calls beside it; the centers each solve call takes
+    # and its time by CUDA events, read by a wrapper that calls the
+    # engine's own (``solve_events``; traced until the whole run took
+    # 1125 s of its 1200 on an H100: the trace took 31 s to collect and
+    # sum)
     ch, cw = crop
     crop_path = crop_scene_path(scene_path, radius)
     write_scene(crop_path, *(x[:ch, :cw] for x in stats))
     out_path = crop_path.replace(".exr", "_out.exr")
     argv = ["-i", crop_path, "-o", out_path, *w, *scales]
-    rcs, solved = [], []
-    engine_solve = monoscale.solve_filter_pm
-
-    def counted(*args, rows=None, **kwargs):
-        solved.append(0 if rows is None else int(rows.numel()))
-        return engine_solve(*args, rows=rows, **kwargs)
-
+    rcs, held = [], []
     cfg = MonoscaleConfig(patch_radius=radius, search_radius=b)
-
-    def run():
-        # (b)'s calls start inside the trace: its start waits for the
-        # card to be idle (launched before it, they ran alone first), and
-        # the counts are reset after them, just before the path
-        later.open()
-        _build.reset_launches()
-        rcs.append(cli.main(argv))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    monoscale.solve_filter_pm = counted
-    try:
-        with recorded_pipeline() as record:
-            cli_s, busy, rows = device_time_table(
-                f"{tag} bcd {' '.join(w)} on the {ch}x{cw} crop", run,
-                own_stream=True)
-    finally:
-        monoscale.solve_filter_pm = engine_solve
+    with recorded_pipeline() as record, solve_events() as calls:
+        t0 = time.perf_counter()
+        # (b)'s calls start first, on side streams, and the counts are
+        # reset after them, just before the path
+        later.open()
+        held.append(torch.cuda.memory_allocated())
+        _build.reset_launches()
+        rcs.append(cli.main(argv))
+        torch.cuda.current_stream(dev).synchronize()
+        cli_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.LAUNCHES)
     need(rcs == [0], f"{' '.join(w)} CLI run")
-    k_us = sum(us for us, _, key in rows if "solve_filter_big_kernel" in key)
-    n_c = sum(solved)
+    solved = solved_ms(calls)
+    k_us = sum(ms for _, ms in solved) * 1e3
+    n_c = sum(n for n, _ in solved)
     print(f"{tag} python -m bcd_tpu_torch.cli {' '.join(argv)}: rc 0, "
-          f"{cli_s:.3f} s wall with EXR I/O and the profiler on {card}, to the "
-          f"end of (b)'s calls beside it (which hold about 1 GB of the "
-          f"peak); peak "
-          f"memory {peak / 2**20:.1f} MiB; {cfg.batch} tile a batch, bands "
+          f"{cli_s:.3f} s wall with EXR I/O on {card}, (b)'s calls beside "
+          f"it; peak memory {peak / 2**20:.1f} MiB, {held[0] / 2**20:.1f} "
+          f"MiB of it held from its start by the calls beside it, their "
+          f"inputs included; {cfg.batch} tile a batch, bands "
           f"of {cfg.band} rows ({-(-cfg.tile // cfg.band)} a tile); {n_c} "
-          f"centers "
-          f"reach the solve, in {sum(1 for n in solved if n)} of "
-          f"{len(solved)} solve calls; launches of the run "
+          f"centers reach the solve, in {len(solved)} of {len(calls)} solve "
+          f"calls; launches of the run "
           f"{ {k: v for k, v in launches.items() if v} }; {name} "
-          f"{k_us / 1e6:.4f} s of {busy:.4f} s device time on the run's "
-          f"stream (share {k_us / 1e6 / max(busy, 1e-9):.3f})", flush=True)
+          f"{k_us / 1e6:.4f} s by CUDA events around the engine's solve "
+          f"calls that took a center (device time not traced)", flush=True)
     need(launches[name] > 0,
          f"kernel {name} was not launched by the {' '.join(w)} path")
     for other in R1_KERNELS + SOLVE_KERNELS:
@@ -2524,11 +2670,13 @@ def probe_phase(dev):
     launches counted), then measured by ``probes.measure``: held to its
     plain version (bit for bit, or within fp32 rounding) and to the float64
     reference, and timed beside its bound, its plain version and the one
-    PyTorch call that computes its function. Returns ({name: (max abs err,
-    ms, plain ms, bound, library ms)}, launches), the times those of a
-    CUDA graph's replay."""
+    PyTorch call that computes its function. Then transpose A and D at a
+    P that their 128-pixel tile does not divide (``PROBE_RAGGED_P``), one
+    launch each, bit for bit their plain version and exact against
+    float64. Returns ({name: (max abs err, ms, plain ms, bound, library
+    ms)}, launches), the times those of a CUDA graph's replay."""
     import torch
-    from bcd_tpu_torch.ops import _build, probes
+    from bcd_tpu_torch.ops import _build, probe_library, probes
 
     vs = probes.variants(dev)
     _build.reset_launches()
@@ -2548,6 +2696,23 @@ def probe_phase(dev):
         need(r.ok, f"{r.name} against its plain version")
     for line in lines:
         print(f"[18] (b) {line}", flush=True)
+    m2, expand, index = probe_library.transpose_inputs(dev)
+    m2 = m2[:PROBE_RAGGED_P].contiguous()
+    lanes64 = m2.double().cpu()[:, index.long().cpu()].T
+    for name, back in (("probe_transpose_a", True), ("probe_transpose_d", False)):
+        _build.reset_launches()
+        got = probes.transpose_mma(m2, expand, back)
+        torch.cuda.synchronize()
+        need(_build.LAUNCHES[name] == 1 and sum(_build.LAUNCHES.values()) == 1,
+             f"{name} at P = {PROBE_RAGGED_P} did not launch once, alone")
+        plain = probes.transpose_plain(m2, index)[:len(got)]
+        bitwise = all(torch.equal(g, q) for g, q in zip(got, plain))
+        err64 = probes.max_err(got, (lanes64, lanes64.T)[:len(got)])
+        print(f"[18] (b) {name} at P = {PROBE_RAGGED_P} (the 128-pixel tile "
+              f"does not divide it): {'bit for bit' if bitwise else 'NOT'} "
+              f"its plain version, max abs {err64:.3e} from float64",
+              flush=True)
+        need(bitwise and err64 == 0.0, f"{name} at P = {PROBE_RAGGED_P}")
     return res, launches
 
 
@@ -2557,9 +2722,10 @@ def bisect_phase(dev):
     stage driven once (one ``bisect_<stage>`` launch each, nothing else),
     then measured by ``bisect.measure``: held to its plain version on the
     card and to its float64 run within ``bisect.TOLERANCE``, timed in a
-    CUDA graph and launched from Python beside its bound and plain version.
-    Returns ({"bisect_<stage>": (max abs err, ms, plain ms, bound, None)},
-    launches)."""
+    CUDA graph and launched from Python beside its bound and plain version,
+    and ``m2`` beside its library call (``bisect.m2_library``, an einsum).
+    Returns ({"bisect_<stage>": (max abs err, ms, plain ms, bound, library
+    ms or None)}, launches)."""
     import torch
     from bcd_tpu_torch.ops import _build, bisect
 
@@ -2580,7 +2746,8 @@ def bisect_phase(dev):
         print(f"[19] {r.line}", flush=True)
         need(r.ok, f"bisect_{r.stage} against its plain version and float64")
         res[f"bisect_{r.stage}"] = (r.max_abs_err, r.graph_ms,
-                                    r.plain_graph_ms, r.bound, None)
+                                    r.plain_graph_ms, r.bound,
+                                    r.library[1] if r.library else None)
     return res, launches
 
 
@@ -2908,40 +3075,37 @@ def ingest_phase(dev, card, clean) -> None:
           f"file within half precision (max rel err {half:.3e})", flush=True)
     del samples, rgb
 
-    # bcd --stats on the EXRs, against a plain run
-    out_plain, out_stats = prefix + "_out.exr", prefix + "_out_stats.exr"
-    argv = ["-i", prefix + ".exr", "-p", "1", "-s", "3"]
-    launches, walls, logs = [], [], []
-    for out, extra in ((out_plain, []), (out_stats, ["--stats"])):
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc, log = run_quiet(cli.main, argv + ["-o", out] + extra)
-        walls.append(time.perf_counter() - t0)
-        launches.append(dict(_build.LAUNCHES))
-        logs.append(log)
-        need(rc == 0, f"bcd {' '.join(extra)}: rc {rc}\n{log}")
+    # bcd --stats on the EXRs; the batch CLI below runs the same frame
+    # without it (a plain bcd run here too until the whole run took 1125 s
+    # of its 1200 on an H100: 10.121 s)
+    out_stats = prefix + "_out_stats.exr"
+    argv = ["-i", prefix + ".exr", "-p", "1", "-s", "3", "-o", out_stats,
+            "--stats"]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, log_stats = run_quiet(cli.main, argv)
+    wall_stats = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    need(rc == 0, f"bcd --stats: rc {rc}\n{log_stats}")
     for name in R1_KERNELS:
-        need(launches[1][name] > 0, f"bcd --stats did not launch {name}")
-    need(launches[0] == launches[1], "--stats changed the launches")
-    plain, with_stats = (image_io.load_exr(p) for p in (out_plain, out_stats))
-    need(np.array_equal(plain, with_stats), "--stats changed the output")
-    counters = dict(line.rsplit(": ", 1) for line in logs[1].splitlines()
+        need(launches[name] > 0, f"bcd --stats did not launch {name}")
+    with_stats = image_io.load_exr(out_stats)
+    counters = dict(line.rsplit(": ", 1) for line in log_stats.splitlines()
                     if line.startswith("pixels: "))
     main_n, fb_n, managed = (int(counters[f"pixels: {k}"]) for k in (
         "main-path solves", "fallback (mean patch)", "managed"))
     interior = sum((height // 2 ** s - 2) * (width // 2 ** s - 2)
                    for s in range(3))
-    print(f"[6] bcd --stats (-p 1 -s 3): {walls[1]:.3f} s wall (plain "
-          f"{walls[0]:.3f} s), launches {launches[1]} as the plain run's, "
-          f"output bitwise the plain run's; pixels: main-path {main_n}, "
-          f"fallback {fb_n}, managed {managed} (interior of the 3 scales "
-          f"{interior}); main-path share {main_n / managed:.4f}", flush=True)
-    print("\n".join("    " + line for line in logs[1].splitlines()
+    print(f"[6] bcd --stats (-p 1 -s 3): {wall_stats:.3f} s wall, launches "
+          f"{launches}; pixels: main-path {main_n}, fallback {fb_n}, "
+          f"managed {managed} (interior of the 3 scales {interior}); "
+          f"main-path share {main_n / managed:.4f}", flush=True)
+    print("\n".join("    " + line for line in log_stats.splitlines()
                     if line.startswith(("pixels", "Chronometers", "  "))),
           flush=True)
     need(main_n + fb_n == managed == interior, "--stats counters")
-    e_out, e_in = rmse(plain, clean), rmse(color_f, clean)
+    e_out, e_in = rmse(with_stats, clean), rmse(color_f, clean)
     print(f"[6] rmse vs clean: output {e_out:.5f}, noisy input {e_in:.5f}",
           flush=True)
     need(e_out < e_in, "the 16 spp output is not closer to the clean image")
@@ -3002,22 +3166,28 @@ def ingest_phase(dev, card, clean) -> None:
                    "searchWindowRadius": 6, "patchRadius": 1}, f)
     outdir = os.path.join(work, "batch")
     argv = frames + ["-a", preset, "-o", outdir]
+    _build.reset_launches()
     t0 = time.perf_counter()
     rc, log = run_quiet(batch_cli.main, argv)
     batch_s = time.perf_counter() - t0
     need(rc == 1 and "2/3 frames" in log,
          f"batch CLI: rc {rc}, expected 1 with 2/3 frames\n{log}")
+    need(dict(_build.LAUNCHES) == {k: 2 * v for k, v in launches.items()},
+         f"the batch CLI's launches {_build.LAUNCHES} are not twice bcd "
+         f"--stats' {launches}")
+    # a frame without --stats: bit for bit the --stats run's output
     for name in ("a", "b"):
         out = image_io.load_exr(os.path.join(outdir,
                                              name + "_BCDfiltered.exr"))
-        need(np.array_equal(out, plain),
+        need(np.array_equal(out, with_stats),
              f"batch frame {name} differs from the CLI run")
     rc, log2 = run_quiet(batch_cli.main, argv + ["--resume"])
     need(rc == 1 and "resume: skipping 2 already-denoised frames" in log2
          and "0/1 frames" in log2, f"batch --resume\n{log2}")
     print(f"[6] batch CLI, 2 frames + 1 broken: rc 1, "
           f"{log.strip().splitlines()[-1]!r} ({batch_s / 2:.3f} s a frame "
-          f"with EXR I/O), outputs bitwise the CLI's; --resume skipped both",
+          f"with EXR I/O), twice bcd --stats' launches, outputs bitwise "
+          f"its output (--stats changes neither); --resume skipped both",
           flush=True)
     shutil.rmtree(work)
 
@@ -3132,20 +3302,20 @@ def main() -> int:
         log = build.result()
     print(f"[1] kernels built for sm_90a in {time.perf_counter() - t0:.1f} s "
           "(nvcc -Xptxas -v):", flush=True)
-    entry, k2_spill = "", None
     for line in log.splitlines():
         if ("Compiling entry" in line or "Used" in line or "spill" in line
                 or line.startswith("nvcc ")):
             print("    " + line.strip(), flush=True)
-        if "Compiling entry" in line:
-            entry = line
-        elif "spill stores" in line and "solve_matrices_pm_kernel" in entry:
-            k2_spill = [int(w) for w in line.replace(",", " ").split()
-                        if w.isdigit()]
-    need(k2_spill is not None, "no -Xptxas -v report for K2's kernel")
-    print(f"[1] K2 solve_matrices_pm_kernel: stack frame, spill stores, "
-          f"spill loads = {k2_spill} bytes", flush=True)
-    need(k2_spill[1:] == [0, 0], "K2's kernel spills registers")
+    # K2's Jacobi and the transpose's wgmma accumulator live in registers
+    for name, instances in (("solve_matrices_pm_kernel", 1),
+                            ("transpose_wgmma_kernel", 4)):
+        report = _build.ptxas_report(log, name)
+        need(len(report) == instances, f"no -Xptxas -v report for {name}")
+        for entry, (regs, stack, stores, loads) in report.items():
+            print(f"[1] {entry}: {regs} registers; stack frame, spill "
+                  f"stores, spill loads = {[stack, stores, loads]} bytes",
+                  flush=True)
+            need(stores == loads == 0, f"{entry} spills registers")
 
     kernels = {}
 
@@ -3223,7 +3393,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     s_color = stats[0]
     argv = ["-i", paths[""], "-o", paths["_out"]]
-    need(cli.main(argv) == 0, "warm-up CLI run")
+    # no warm-up CLI run: phases 2 and 3 have loaded the kernels and
+    # PyTorch's libraries (a warm-up run took 8.279 s, the run after it
+    # 8.530 s, on an H100's machine)
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3289,7 +3461,7 @@ def main() -> int:
     print(f"[4] phase 4 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # --- 5. the -w 2 path ---------------------------------------------------
-    # from here the crops' CPU references (phases 5, 7 and 8 to 16) are
+    # from here the crops' CPU references (phases 5, 7 and 8 to 14) are
     # computed in a process of its own, beside the card's work; this
     # process keeps two cores for the host side of its phases
     t_phase = time.perf_counter()
@@ -3326,18 +3498,22 @@ def main() -> int:
     denoise_pipeline(*crop, dev, p2)  # warm-up on a small crop
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, outs = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        outs.append(denoise_pipeline(*dev_stats, dev, p2))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    # one timed call (two until the whole run took 1125 s of its 1200 on
+    # an H100: 10.7729 and 10.7429 s), repeated bit for bit by the traced
+    # run
+    outs = []
+    t0 = time.perf_counter()
+    outs.append(denoise_pipeline(*dev_stats, dev, p2))
+    torch.cuda.synchronize()
+    time2 = time.perf_counter() - t0
     peak2 = torch.cuda.max_memory_allocated()
+    device_time_table("[5]", lambda: outs.append(
+        denoise_pipeline(*dev_stats, dev, p2)))
     need(torch.equal(outs[0], outs[1]), "-w 2 pipeline not bitwise repeatable")
     print(f"[5] denoise_pipeline 1088x1920 -p 1 -s 3 b=6 r=2 on {card}: "
-          f"times {['%.4f' % x for x in times]} s, "
-          f"{mpix / min(times):.4f} MPix/s at the faster; peak memory "
-          f"{peak2 / 2**20:.1f} MiB; bitwise repeatable", flush=True)
+          f"{time2:.4f} s, {mpix / time2:.4f} MPix/s; peak memory "
+          f"{peak2 / 2**20:.1f} MiB; the traced run's output bit for bit "
+          "the timed one's", flush=True)
 
     got = denoise_pipeline(*crop, dev, p2)
     need(torch.equal(got, denoise_pipeline(*crop, dev, p2)),
@@ -3351,7 +3527,6 @@ def main() -> int:
           f"{float((got.cpu() - ref).abs().max()):.3e}; bitwise repeatable "
           "on the card", flush=True)
     need(gap < R2_CPU_RMSE, "-w 2 on the card against the CPU pipeline")
-    device_time_table("[5]", lambda: denoise_pipeline(*dev_stats, dev, p2))
     del dev_stats, crop, outs, got
     print(f"[5] phase 5 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -3473,8 +3648,9 @@ def main() -> int:
          "launches": runs[meta[k][0]], "max_abs_err": kernels[k][0],
          "ms": kernels[k][1], "plain_ms": kernels[k][2],
          "bound_ms": kernels[k][3][0], "bound_by": kernels[k][3][1],
-         # one PyTorch call computes only some probes' functions; none
-         # computes the other kernels' (PERF.md), nor a staged solve
+         # one PyTorch call computes only some probes' functions and the
+         # staged solve's m2 stage; none computes the other kernels'
+         # (PERF.md), nor a later stage of the staged solve
          "library_ms": kernels[k][4] if len(kernels[k]) > 4 else None}
         for k in meta]}),
         flush=True)

@@ -189,3 +189,17 @@ def test_bisect_bounds_are_bytes():
         assert by == "bytes", stage
         assert ms == pytest.approx(1e3 * nbytes / bounds.HBM_BYTES)
     assert 0.00072 < b["m2"][0] < b["chol"][0] < 0.00075
+
+
+@pytest.mark.parametrize("p", [128, 77])
+def test_m2_library_call_is_the_m2_stage(p):
+    """The one PyTorch call that computes the ``m2`` stage (the kernels
+    line's library time for ``bisect_m2``), an einsum over the candidates,
+    on the script's inputs: row 0 of the masked second moments, within the
+    stage's tolerance of the float64 plain version (sums of 169 products
+    in its own order)."""
+    x = [t[..., :p].contiguous() for t in tb.bisect_inputs(CPU)]
+    got = tb.m2_library(*x[:2])
+    assert got.shape == (tb.D, p) and got.dtype == torch.float32
+    ref64 = tb.bisect_plain(*(t.double() for t in x), "m2")
+    assert tb.rel_err(got, ref64) <= tb.TOLERANCE["m2"]

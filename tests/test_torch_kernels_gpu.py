@@ -1275,10 +1275,10 @@ def test_solve_matrices_big_matches_twin_model_and_solve_filter(
     "probe_banded_batched", "probe_banded_loop"])
 def test_probe_variant_matches_its_plain_version(cuda, name):
     """Each probe variant at its script's shapes, one launch counted under
-    its name, against its plain version: transpose B, C and D bit for bit,
-    the others within fp32 rounding (``probes.FP32_REL`` of the largest
+    its name, against its plain version: transpose A to D bit for bit, the
+    others within fp32 rounding (``probes.FP32_REL`` of the largest
     magnitude); transpose A and D exact against float64 (the expansion and
-    its transpose move values; A's products of exactly split TF32 parts
+    its transpose move values; the products of exactly split TF32 parts
     each hold one non-zero term)."""
     from bcd_tpu_torch.ops import _build, probes
 
@@ -1293,6 +1293,84 @@ def test_probe_variant_matches_its_plain_version(cuda, name):
     assert ok
     if name in ("probe_transpose_a", "probe_transpose_d"):
         assert probes.max_err(got, v.ref64()) == 0.0
+
+
+@pytest.mark.parametrize("back", [True, False])
+@pytest.mark.parametrize("p", [2272, 96])
+def test_transpose_mma_at_a_ragged_p(cuda, p, back):
+    """Transpose A (``back``) and D on the script's first ``p`` pixel rows,
+    a P that the kernel's 128-pixel tile does not divide (17.75 and 0.75
+    tiles): one launch, bit for bit the plain version and exact against
+    float64, the rows past P neither read nor written."""
+    from bcd_tpu_torch.ops import _build, probe_library, probes
+
+    m2, expand, index = probe_library.transpose_inputs(cuda)
+    m2 = m2[:p].contiguous()
+    _build.reset_launches()
+    got = probes.transpose_mma(m2, expand, back)
+    torch.cuda.synchronize()
+    name = "probe_transpose_a" if back else "probe_transpose_d"
+    assert _build.LAUNCHES[name] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    plain = probes.transpose_plain(m2, index)
+    assert len(got) == (2 if back else 1)
+    assert got[0].shape == (729, p)
+    assert all(torch.equal(g, q) for g, q in zip(got, plain))
+    lanes64 = m2.double().cpu()[:, index.long().cpu()].T
+    assert probes.max_err(got, (lanes64, lanes64.T)) == 0.0
+
+
+@pytest.mark.parametrize("back", [True, False])
+@pytest.mark.parametrize("case", ["odd_k", "offset"])
+def test_transpose_mma_four_byte_copies(cuda, case, back):
+    """Where m2's rows cannot be copied 8 bytes at a time (an odd K = 377,
+    or m2 starting 4 bytes past an 8-byte boundary), the kernel's 4-byte
+    copies: one launch, bit for bit the plain version of a one-hot
+    expansion (random columns) on 300 random pixel rows, exact against
+    float64."""
+    from bcd_tpu_torch.ops import _build, probes
+
+    rng = np.random.default_rng(7)
+    p, k = 300, 377 if case == "odd_k" else 378
+    index = torch.tensor(rng.integers(0, k, 729), device=cuda)
+    expand = torch.zeros((729, k), device=cuda)
+    expand[torch.arange(729, device=cuda), index] = 1.0
+    flat = torch.tensor(rng.standard_normal(p * k + 1), dtype=torch.float32,
+                        device=cuda)
+    m2 = flat[:p * k].view(p, k) if case == "odd_k" else flat[1:].view(p, k)
+    assert (m2.data_ptr() % 8 != 0) == (case == "offset")
+    _build.reset_launches()
+    got = probes.transpose_mma(m2, expand, back)
+    torch.cuda.synchronize()
+    name = "probe_transpose_a" if back else "probe_transpose_d"
+    assert _build.LAUNCHES[name] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    plain = probes.transpose_plain(m2, index)
+    assert all(torch.equal(g, q) for g, q in zip(got, plain))
+    lanes64 = m2.double().cpu()[:, index.cpu()].T
+    assert probes.max_err(got, (lanes64, lanes64.T)) == 0.0
+
+
+def test_transpose_kernel_is_wgmma_and_does_not_spill(cuda):
+    """Every instance of ``transpose_wgmma_kernel`` (A and D, each with 8-
+    and 4-byte copies) in the built library: its SASS holds ``HGMMA``
+    (wgmma) and no ``HMMA`` (mma.sync), and ``-Xptxas -v`` reports no
+    spill."""
+    from bcd_tpu_torch.ops import _build, sass_check
+
+    report = _build.ptxas_report(_build.build_log(),
+                                 "transpose_wgmma_kernel")
+    assert len(report) == 4, report
+    for entry, (regs, _, stores, loads) in report.items():
+        print(f"{entry}: {regs} registers, spill stores {stores}, loads "
+              f"{loads}")
+        assert stores == loads == 0, entry
+    sass = sass_check.transpose_kernels(sass_check.run(
+        [sass_check.tool("cuobjdump"), "-sass", _build._library_path()[1]]))
+    assert set(sass) == {"A8", "A4", "D8", "D4"}
+    for name, lines in sass.items():
+        assert any(" HGMMA." in line for line in lines), name
+        assert not any(" HMMA." in line for line in lines), name
 
 
 # ---------------------------------------------------------------------------
