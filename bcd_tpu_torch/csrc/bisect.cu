@@ -25,20 +25,55 @@
 // table (the logical row i of A and V^T is the physical row ord[i]), not by
 // moving data: after 27 rounds it is the identity again.
 //
-// Layout: the TPU kernel runs all 128 pixels in one grid step; here a block
-// takes PIX = 8 pixels (one 32-byte sector of each pixel-minor row of C),
-// 32 threads a pixel, with A and V^T (28 x 28 each, pixel-minor) in shared
-// memory, 16 blocks at P = 128. M2's 729 entries are summed in registers
-// (23 a thread) over candidates staged 16 at a time.
+// Layout: the TPU kernel runs all 128 pixels in one grid step; here the
+// entry launches two kernels on its stream, with M2 between them in a
+// scratch (729, P) in device memory (373 KB at P = 128, resident in L2):
+//
+// - bisect_m2_kernel sums M2 over the card: a block takes PIX = 8 pixels
+//   (one 32-byte sector of each pixel-minor row of C) and an eighth of M2,
+//   128 blocks at P = 128. M2's rows and columns are cut into four groups
+//   (0-6, 7-13, 14-20, 21-26); block k of a pixel group sums two 7 x 7
+//   blocks of M2, (ga, gb) and (gb, ga), or (ga, ga) and (gb, gb) for k = 6
+//   and 7 (PAIRS), so it stages only the 14 rows of C of groups ga and gb.
+//   128 of its 256 threads sum, a thread one pixel, two rows i and four
+//   columns j (8 sums, each staged c_i w feeding four and each c_j two).
+//   C's 14 rows and the mask are staged OC = 16 candidates at a time in a
+//   ring of STAGES = 11 in shared memory, by 16-byte cp.async (4-byte ones
+//   where P is not a multiple of 4 or a base is not on 16 bytes;
+//   zero-filled past O and P) at addresses each thread forms once:
+//   the script's 169 candidates are all in flight at once, and past 176
+//   the stage STAGES - 1 ahead is issued before a stage's sums. All 729
+//   entries are formed and written at every stage; at m2 row 0 also goes
+//   to out.
+// - bisect_kernel (from bd on) runs the later stages, 8 pixels a block, 32
+//   threads a pixel, with A and V^T (28 x 28 each, pixel-minor) in shared
+//   memory, 16 blocks at P = 128.
+//
+// A thread-block cluster (8 blocks a pixel group, M2 through distributed
+// shared memory into the first block, which ran the later stages) was
+// tried first: the card holds 15 such clusters at once, so at P = 128 the
+// 16th doubled up 8 SMs, and two of the blocks that ran the later stages
+// shared an SM (PERF.md).
 //
 // Bound: bytes (C, about 2.3 MB, read once); the operations take about
-// 0.5 us at the fp32 rate (ops/bounds.bisect_stages). A simple kernel: each
-// round is three barriers of latency-bound work on 16 SMs.
+// 0.5 us at the fp32 rate (ops/bounds.bisect_stages). Each Jacobi round is
+// three barriers of latency-bound work on 16 SMs.
+//
+// BCD_BISECT_CUT, for `python -m bcd_tpu_torch.ops.bisect --split` only
+// (wrong numbers on purpose): 1 leaves out M2's products (the staging
+// alone), 2 the staging (the products of whatever shared memory holds).
 //
 // The entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments it does not take).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+
+#ifndef BCD_BISECT_CUT
+#define BCD_BISECT_CUT 0
+#endif
 
 namespace {
 
@@ -47,14 +82,28 @@ constexpr int DP = 28;                // padded to even for the pairs
 constexpr int HALF = DP / 2;
 constexpr int ROUNDS = DP - 1;        // one sweep
 constexpr int PIX = 8;                // pixels a block
-constexpr int LANES = 32;             // threads a pixel
+constexpr int LANES = 32;             // threads a pixel in the later stages
 constexpr int THREADS = PIX * LANES;
-constexpr int OC = 16;                // candidates staged at a time
+constexpr int PARTS = 8;              // blocks of M2 a pixel group
 constexpr int MAT = DP * DP * PIX;    // floats of one matrix for a block
 constexpr int PER = (D * D + LANES - 1) / LANES;  // 27 x 27 entries a thread
+// M2: a group of rows, the rows a block stages, the threads that sum
+constexpr int GROUP = 7;
+constexpr int ROWS = 2 * GROUP;
+constexpr int SUMMERS = PIX * 2 * 8;  // pixel, block of M2, 4 row pairs x 2 column halves
+constexpr int OC = 16;                // candidates a stage
+constexpr int STAGES = 11;            // the script's 169 candidates in flight at once
+constexpr int SLOT_C = OC * ROWS * PIX;           // a stage's C, [OC][ROWS][PIX]
+constexpr int SLOT = SLOT_C + OC * PIX;           // and its mask, [OC][PIX]
+constexpr int M2_BYTES = 4 * STAGES * SLOT;
 constexpr int BYTES = 4 * (2 * MAT + 2 * HALF * PIX + DP * PIX) + 4 * 2 * DP;
 
-static_assert(OC * (D + 1) * PIX <= MAT, "a chunk of C and its mask fits V^T");
+static_assert(SUMMERS <= THREADS, "the summing threads are a block's");
+
+// block k of a pixel group sums M2's blocks of the groups PAIRS[k]: (a, b)
+// and (b, a), or for the last two (a, a) and (b, b)
+__constant__ int PAIRS[PARTS][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2},
+                                    {1, 3}, {2, 3}, {0, 1}, {2, 3}};
 
 // the 3x3 block's entry (a, b) is the noise channel CH[a][b]
 __constant__ int CH[3][3] = {{0, 5, 4}, {5, 1, 3}, {4, 3, 2}};
@@ -64,14 +113,141 @@ __device__ __forceinline__ int perm(int i) {
   return i == 0 ? 0 : i == 1 ? HALF : i < HALF ? i - 1 : i < DP - 1 ? i + 1 : HALF - 1;
 }
 
+// the rows of M2 (and of C) in group g: 7, and 6 in the last
+__device__ __forceinline__ int group_rows(int g) { return g < 3 ? GROUP : D - 3 * GROUP; }
+
+// kV: floats a copy, 4 (16 bytes: P a multiple of 4, C and mask on 16
+// bytes) or 1
+template <int kV>
 __global__ void __launch_bounds__(THREADS)
-    bisect_kernel(const float* __restrict__ C, const float* __restrict__ mask,
-                  const float* __restrict__ noise, const float* __restrict__ nvec,
-                  const float* __restrict__ mvec, int O, int P, int last,
+    bisect_m2_kernel(const float* __restrict__ C, const float* __restrict__ mask, int O, int P,
+                     int last, float* __restrict__ m2, float* __restrict__ out) {
+  constexpr int COPIES = (SLOT / kV + THREADS - 1) / THREADS;  // copies a thread a stage
+  extern __shared__ float ring[];  // M2's stages of C and the mask, [STAGES][SLOT]
+  const int tid = threadIdx.x;
+  const int px = tid % PIX;
+  const int part = blockIdx.y;
+  const int p0 = blockIdx.x * PIX;
+  const int p = p0 + px;
+  const bool live = p < P;
+
+  const int ga = PAIRS[part][0], gb = PAIRS[part][1];
+  const bool diag = part >= 6;
+  // this thread's copies: the kV floats from e = kV (tid + THREADS k) of a
+  // stage, at a fixed offset from the stage's first candidate (or none: -1)
+  long long src[COPIES];
+  int olk[COPIES];
+#pragma unroll
+  for (int k = 0; k < COPIES; ++k) {
+    const int e = kV * (tid + THREADS * k);
+    const int pe = p0 + e % PIX;  // the first pixel; with kV = 4 all four are live or none
+    src[k] = -1;
+    olk[k] = 0;
+    if (e < SLOT_C) {
+      const int ol = e / (ROWS * PIX), lr = e / PIX % ROWS;
+      const int g = lr < GROUP ? ga : gb, r = lr % GROUP;
+      olk[k] = ol;
+      if (r < group_rows(g) && pe < P) src[k] = ((long long)ol * D + GROUP * g + r) * P + pe;
+    } else if (e < SLOT) {
+      const int ol = (e - SLOT_C) / PIX;
+      olk[k] = ol;
+      if (pe < P) src[k] = (long long)ol * P + pe;
+    }
+  }
+  const uint32_t ring_u32 = smem_u32(ring);
+  auto fill = [&](int s) {
+    const uint32_t slot = ring_u32 + 4 * (s % STAGES) * SLOT;
+    const int o0 = s * OC;
+#pragma unroll
+    for (int k = 0; k < COPIES; ++k) {
+      const int e = kV * (tid + THREADS * k);
+      if (e < SLOT) {
+        const bool ok = src[k] >= 0 && o0 + olk[k] < O;
+        const float* from = e < SLOT_C ? C + (size_t)o0 * D * P : mask + (size_t)o0 * P;
+        cp_async<4 * kV>(slot + 4 * e, ok ? from + src[k] : C, ok ? 4 * kV : 0);
+      }
+    }
+  };
+  const int n_stages = (O + OC - 1) / OC;
+#if BCD_BISECT_CUT != 2
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages) fill(s);
+    cp_async_commit();
+  }
+#endif
+  // a summing thread: pixel px, block bsel of M2, rows rp and rp + 4 of it,
+  // columns 4 ch .. 4 ch + 3 (where the group has them)
+  const int sq = tid / PIX;
+  const int bsel = sq / 8 % 2, rp = sq % 4, ch = sq / 4 % 2;
+  const int rb = GROUP * bsel, cb = diag ? GROUP * bsel : GROUP * (1 - bsel);
+  const int li0 = rb + rp, li1 = rb + (rp < 3 ? rp + 4 : rp);
+  int lj[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) lj[jj] = cb + min(4 * ch + jj, GROUP - 1);
+  float acc2[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc2[h][jj] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < n_stages; ++s) {
+#if BCD_BISECT_CUT != 2
+    cp_async_wait<STAGES - 2>();
+#endif
+    __syncthreads();
+#if BCD_BISECT_CUT != 2
+    // the slot of stage s - 1, whose sums every thread has finished
+    if (s + STAGES - 1 < n_stages) fill(s + STAGES - 1);
+    cp_async_commit();
+#endif
+#if BCD_BISECT_CUT != 1
+    if (tid < SUMMERS) {
+      // past O the candidates are zeros: each adds +0, which leaves a sum
+      // as it is (a sum of products is never -0)
+      const float* st = ring + (s % STAGES) * SLOT;
+#pragma unroll
+      for (int ol = 0; ol < OC; ++ol) {
+        const float* c = st + ol * ROWS * PIX;
+        const float w = st[SLOT_C + ol * PIX + px];
+        const float cw0 = __fmul_rn(c[li0 * PIX + px], w);
+        const float cw1 = __fmul_rn(c[li1 * PIX + px], w);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float cj = c[lj[jj] * PIX + px];
+          acc2[0][jj] = __fadd_rn(acc2[0][jj], __fmul_rn(cw0, cj));
+          acc2[1][jj] = __fadd_rn(acc2[1][jj], __fmul_rn(cw1, cj));
+        }
+      }
+    }
+#endif
+  }
+#if BCD_BISECT_CUT != 2
+  cp_async_wait<0>();
+#endif
+  if (tid >= SUMMERS || !live) return;
+  const int gi = bsel == 0 ? ga : gb, gj = diag ? gi : (bsel == 0 ? gb : ga);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (h ? li1 : li0) - rb;
+    if ((h && rp == 3) || r >= group_rows(gi)) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int cc = 4 * ch + jj;
+      if (cc >= group_rows(gj)) continue;
+      const int i = GROUP * gi + r, j = GROUP * gj + cc;
+      m2[(size_t)(i * D + j) * P + p] = acc2[h][jj];
+      if (last == 0 && i == 0) out[(size_t)j * P + p] = acc2[h][jj];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    bisect_kernel(const float* __restrict__ m2, const float* __restrict__ noise,
+                  const float* __restrict__ nvec, const float* __restrict__ mvec, int P, int last,
                   float* __restrict__ out) {
   extern __shared__ float smem[];
   float* A = smem;                  // [DP][DP][PIX]
-  float* V = A + MAT;               // V^T, [DP][DP][PIX]; C's chunks during M2
+  float* V = A + MAT;               // V^T, [DP][DP][PIX]
   float* cs = V + MAT;              // [HALF][PIX]
   float* sn = cs + HALF * PIX;      // [HALF][PIX]
   float* vec = sn + HALF * PIX;     // m, lambda or a Cholesky column, [DP][PIX]
@@ -80,43 +256,15 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int px = tid % PIX;
   const int lane = tid / PIX;
-  const int p0 = blockIdx.x * PIX;
-  const int p = p0 + px;
+  const int p = blockIdx.x * PIX + px;
   const bool live = p < P;
 #define AT(M, i, j) M[((i) * DP + (j)) * PIX + px]
 
-  // --- m2 ------------------------------------------------------------------
   float acc[PER];
 #pragma unroll
-  for (int r = 0; r < PER; ++r) acc[r] = 0.f;
-  float* cw = V + OC * D * PIX;     // the chunk's mask, [OC][PIX]
-  for (int o0 = 0; o0 < O; o0 += OC) {
-    const int oc = min(OC, O - o0);
-    __syncthreads();
-    for (int e = tid; e < oc * D * PIX; e += THREADS) {
-      const int pp = p0 + e % PIX;
-      V[e] = pp < P ? C[(size_t)(o0 * D + e / PIX) * P + pp] : 0.f;
-    }
-    for (int e = tid; e < oc * PIX; e += THREADS) {
-      const int pp = p0 + e % PIX;
-      cw[e] = pp < P ? mask[(size_t)(o0 + e / PIX) * P + pp] : 0.f;
-    }
-    __syncthreads();
-    for (int ol = 0; ol < oc; ++ol) {
-      const float* c = V + ol * D * PIX;
-      const float w = cw[ol * PIX + px];
-#pragma unroll
-      for (int r = 0; r < PER; ++r) {
-        const int e = lane + LANES * r;
-        if (e < D * D)
-          acc[r] = __fadd_rn(acc[r], __fmul_rn(__fmul_rn(c[(e / D) * PIX + px], w),
-                                               c[(e % D) * PIX + px]));
-      }
-    }
-  }
-  if (last == 0) {
-    if (live && lane < D) out[(size_t)lane * P + p] = acc[0];
-    return;
+  for (int r = 0; r < PER; ++r) {
+    const int e = lane + LANES * r;
+    acc[r] = e < D * D && live ? m2[(size_t)e * P + p] : 0.f;
   }
 
   // --- bd: S = Cemp - BD -----------------------------------------------------
@@ -262,16 +410,35 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// C (O, 27, P), mask (O, P), noise (54, P), n (1, P), m (27, P) and out
-// (27, P), float32, contiguous; last 0 to 4 (m2, bd, jacobi, recon, chol)
+// C (O, 27, P), mask (O, P), noise (54, P), n (1, P), m (27, P), the
+// scratch m2 (729, P) and out (27, P), float32, contiguous; last 0 to 4 (m2,
+// bd, jacobi, recon, chol)
 extern "C" int bcd_bisect(const float* C, const float* mask, const float* noise, const float* n,
-                          const float* m, int O, int P, int last, float* out, void* stream) {
+                          const float* m, int O, int P, int last, float* m2, float* out,
+                          void* stream) {
   if (O < 0 || P <= 0 || last < 0 || last > 4) return (int)cudaErrorInvalidValue;
   // once, before any capture into a CUDA graph
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      bisect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  static const cudaError_t attr = [] {
+    cudaError_t rc = cudaFuncSetAttribute(bisect_m2_kernel<4>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, M2_BYTES);
+    if (rc == cudaSuccess)
+      rc = cudaFuncSetAttribute(bisect_m2_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                M2_BYTES);
+    if (rc == cudaSuccess)
+      rc = cudaFuncSetAttribute(bisect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    return rc;
+  }();
   if (attr != cudaSuccess) return (int)attr;
-  bisect_kernel<<<(P + PIX - 1) / PIX, THREADS, BYTES, (cudaStream_t)stream>>>(
-      C, mask, noise, n, m, O, P, last, out);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int groups = (P + PIX - 1) / PIX;
+  const bool vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  if (vec)
+    bisect_m2_kernel<4><<<dim3(groups, PARTS), THREADS, M2_BYTES, st>>>(C, mask, O, P, last, m2,
+                                                                         out);
+  else
+    bisect_m2_kernel<1><<<dim3(groups, PARTS), THREADS, M2_BYTES, st>>>(C, mask, O, P, last, m2,
+                                                                         out);
+  if (last > 0) bisect_kernel<<<groups, THREADS, BYTES, st>>>(m2, noise, n, m, P, last, out);
   return (int)cudaGetLastError();
 }

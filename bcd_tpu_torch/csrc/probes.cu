@@ -1,7 +1,8 @@
 // Hopper microbenchmarks of the three TPU-compiler probes in scripts/: each
 // kernel computes what its script's Pallas kernel computes, at the script's
 // shapes, so that the script's question can be asked of this card. Simple
-// kernels, not tuned, but for transpose A and D (below). Wrappers, plain
+// kernels, not tuned, but for transpose A and D and the batched banded dot
+// (below). Wrappers, plain
 // versions and the timing entry point: bcd_tpu_torch/ops/probes.py.
 //
 // - transpose (replaces scripts/probe_transpose.py::run, kernels
@@ -39,8 +40,9 @@
 // - banded dot (replaces scripts/probe_banded_dot.py::run_case, kernels
 //   _kernel_batched, _kernel_loop): O[y] = B[y] S[y] for 0/1 band matrices
 //   B (Y, T, T), nonzero only within |i - k| <= 6, and S (Y, T, C).
-//   batched: mma.sync TF32 over the whole T x T matrix; B is exact in TF32,
-//      S is split into three TF32 parts.
+//   batched: mma.sync TF32 over the whole T x T matrix from B and S staged
+//      in shared memory by cp.async; B is exact in TF32, S is split into
+//      three TF32 parts once (banded_mma_kernel).
 //   loop: CUDA-core FMAs over the band only.
 //   Bound: bytes.
 //
@@ -50,9 +52,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "cp_async.cuh"
 
-constexpr int WARPS = 4;  // warps a block of the banded dot's mma kernel
+namespace {
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -80,28 +82,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// an asynchronous copy of kBytes (4 or 8) from device to shared memory; the
-// bytes past src_bytes (0 or kBytes) are zero-filled
-template <int kBytes>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-               "n"(kBytes), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // transpose A and D's tile: TX_WG warpgroups, each 64 pixels (wgmma's M),
@@ -392,48 +372,117 @@ mosaic_kernel(const float* __restrict__ g, long long n4, const Windows win,
   out[i] = acc;
 }
 
-// banded dot, batched: a warp computes a 16 x 32 tile of O[y] over all of
-// K = T; B's 0/1 values are exact TF32, S's are split into three parts
-__global__ void __launch_bounds__(32 * WARPS)
-banded_mma_kernel(const float* __restrict__ bm, const float* __restrict__ s, int Y, int T, int C,
-                  float* __restrict__ o) {
+// banded dot, batched: a block of BD_THREADS computes the BD_M x BD_N tile
+// of O[y] at rows r0.., columns c0.. over all of K = T, in chunks of BD_K:
+// - B[y]'s tile rows (BD_M x BD_K) and S[y]'s (BD_K x BD_N) are staged in
+//   shared memory once a chunk, by 16-byte cp.async (kV = 4: T and C
+//   multiples of 4 floats, so every row of B and of S starts on 16 bytes,
+//   and 16-byte bases) or 4-byte ones (kV = 1), zero-filled past T and C. 360 blocks at the script's shapes, three to an SM: one wave, all
+//   of its loads in flight at once.
+// - Warp w owns columns 16 w .. 16 w + 15 of the tile and all its BD_M rows
+//   (4 row tiles x 2 column tiles of mma.sync m16n8k8 TF32): each S value is
+//   loaded and split into its three TF32 parts once, by one lane, and
+//   multiplies four row tiles of B (exact in TF32: 0/1); the products lo,
+//   mid, hi go into one fp32 accumulator in that order, a k-step of 8 at a
+//   time (probes.banded_mma_model is its plain model).
+// - The tile is staged in shared memory and written in coalesced 16-byte
+//   stores (4-byte ones for kV = 1).
+constexpr int BD_M = 64, BD_N = 128, BD_K = 64, BD_THREADS = 256;
+// staged B and S rows: pitches at which the fragments' loads hit 32 banks
+constexpr int BD_B_PITCH = BD_K + 4, BD_S_PITCH = BD_N + 8;
+constexpr int BD_B_FLOATS = BD_M * BD_B_PITCH;
+constexpr int BD_BYTES = 4 * (BD_B_FLOATS + BD_K * BD_S_PITCH);
+static_assert(BD_M <= BD_K, "the output tile fits S's staging");
+static_assert(BD_N == 16 * (BD_THREADS / 32) && BD_M % 16 == 0, "a warp's 16 columns");
+
+template <int kV>
+__global__ void __launch_bounds__(BD_THREADS, 3)
+banded_mma_kernel(const float* __restrict__ bm, const float* __restrict__ s, int T, int C,
+                  int n_ct, float* __restrict__ o) {
+  extern __shared__ __align__(128) float smem[];
+  float* bs = smem;                // [BD_M][BD_B_PITCH]: B rows r0.., columns k0..
+  float* ss = smem + BD_B_FLOATS;  // [BD_K][BD_S_PITCH]: S rows k0.., columns c0..
+  const int y = blockIdx.x / n_ct, c0 = blockIdx.x % n_ct * BD_N, r0 = blockIdx.y * BD_M;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int mts = T / 16, nts = C / 32;
-  const int w = blockIdx.x * WARPS + warp;
-  const int y = w / (mts * nts);
-  if (y >= Y) return;
-  const int rem = w - y * mts * nts;
-  const int r0 = (rem / nts) * 16, c0 = (rem % nts) * 32;
   const float* by = bm + (size_t)y * T * T;
   const float* sy = s + (size_t)y * T * C;
-  float big[4][4] = {}, small[4][4] = {};
+  const uint32_t bs_u32 = smem_u32(bs), ss_u32 = smem_u32(ss);
+  float acc[BD_M / 16][2][4] = {};
 #pragma unroll 1
-  for (int k0 = 0; k0 < T; k0 += 8) {
-    const uint32_t a[4] = {to_tf32(by[(r0 + g) * T + k0 + t]),
-                           to_tf32(by[(r0 + g + 8) * T + k0 + t]),
-                           to_tf32(by[(r0 + g) * T + k0 + t + 4]),
-                           to_tf32(by[(r0 + g + 8) * T + k0 + t + 4])};
+  for (int k0 = 0; k0 < T; k0 += BD_K) {
+    if (k0) __syncthreads();  // every warp is done with the last chunk
+    for (int e = threadIdx.x; e < BD_M * BD_K / kV; e += BD_THREADS) {
+      const int i = e / (BD_K / kV), k = e % (BD_K / kV) * kV;
+      const bool ok = r0 + i < T && k0 + k < T;
+      cp_async<4 * kV>(bs_u32 + 4 * (i * BD_B_PITCH + k),
+                       ok ? by + (size_t)(r0 + i) * T + k0 + k : bm, ok ? 4 * kV : 0);
+    }
+    for (int e = threadIdx.x; e < BD_K * BD_N / kV; e += BD_THREADS) {
+      const int k = e / (BD_N / kV), c = e % (BD_N / kV) * kV;
+      const bool ok = k0 + k < T && c0 + c < C;
+      cp_async<4 * kV>(ss_u32 + 4 * (k * BD_S_PITCH + c),
+                       ok ? sy + (size_t)(k0 + k) * C + c0 + c : s, ok ? 4 * kV : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 1
+    for (int kk = 0; kk < BD_K; kk += 8) {
+      uint32_t part[3][2][2];  // (lo, mid, hi), column tile, b fragment
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 8 * j + g;
-      uint32_t hi[2], mid[2], lo[2];
-      split3(sy[(size_t)(k0 + t) * C + c], hi[0], mid[0], lo[0]);
-      split3(sy[(size_t)(k0 + t + 4) * C + c], hi[1], mid[1], lo[1]);
-      mma_tf32(small[j], a, lo);
-      mma_tf32(small[j], a, mid);
-      mma_tf32(big[j], a, hi);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split3(ss[(kk + t + 4 * h) * BD_S_PITCH + 16 * warp + 8 * j + g], part[2][j][h],
+                 part[1][j][h], part[0][j][h]);
+#pragma unroll
+      for (int mt = 0; mt < BD_M / 16; ++mt) {
+        const float* row = bs + (16 * mt + g) * BD_B_PITCH + kk + t;
+        const uint32_t a[4] = {to_tf32(row[0]), to_tf32(row[8 * BD_B_PITCH]), to_tf32(row[4]),
+                               to_tf32(row[8 * BD_B_PITCH + 4])};
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) mma_tf32(acc[mt][j], a, part[q][j]);
+      }
     }
   }
+  __syncthreads();
+  float* tile = ss;  // [BD_M][BD_S_PITCH]
+#pragma unroll
+  for (int mt = 0; mt < BD_M / 16; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(tile + (16 * mt + g + 8 * h) * BD_S_PITCH + 16 * warp +
+                                   8 * j + 2 * t) =
+            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+  __syncthreads();
   float* oy = o + (size_t)y * T * C;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + g + 8 * h, c = c0 + 8 * j + 2 * t;
-      oy[(size_t)r * C + c] = big[j][2 * h] + small[j][2 * h];
-      oy[(size_t)r * C + c + 1] = big[j][2 * h + 1] + small[j][2 * h + 1];
-    }
+  for (int e = threadIdx.x; e < BD_M * BD_N / kV; e += BD_THREADS) {
+    const int i = e / (BD_N / kV), c = e % (BD_N / kV) * kV;
+    if (r0 + i >= T || c0 + c >= C) continue;
+    float* dst = oy + (size_t)(r0 + i) * C + c0 + c;
+    if (kV == 4)
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(tile + i * BD_S_PITCH + c);
+    else
+      *dst = tile[i * BD_S_PITCH + c];
+  }
+}
+
+template <int kV>
+cudaError_t bd_launch(const float* b, const float* s, int Y, int T, int C, float* out,
+                      cudaStream_t stream) {
+  // once an instance, before any capture into a CUDA graph
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      banded_mma_kernel<kV>, cudaFuncAttributeMaxDynamicSharedMemorySize, BD_BYTES);
+  if (attr != cudaSuccess) return attr;
+  const int n_ct = (C + BD_N - 1) / BD_N;
+  banded_mma_kernel<kV><<<dim3(Y * n_ct, (T + BD_M - 1) / BD_M), BD_THREADS, BD_BYTES, stream>>>(
+      b, s, T, C, n_ct, out);
+  return cudaGetLastError();
 }
 
 // banded dot, loop: a thread an output O[y][i][c], the FMAs of the band
@@ -511,14 +560,18 @@ extern "C" int bcd_probe_mosaic(const float* g, int n_rows, int cols, int npix, 
   return (int)cudaGetLastError();
 }
 
-// T a multiple of 16, C of 32
+// any Y, T and C; 16-byte copies and stores where T and C are multiples of
+// 4 and b, s and out start on 16 bytes
 extern "C" int bcd_probe_banded_mma(const float* b, const float* s, int Y, int T, int C,
                                     float* out, void* stream) {
-  if (Y <= 0 || T <= 0 || T % 16 != 0 || C <= 0 || C % 32 != 0) return (int)cudaErrorInvalidValue;
-  const long long warps = (long long)Y * (T / 16) * (C / 32);
-  banded_mma_kernel<<<(unsigned)((warps + WARPS - 1) / WARPS), 32 * WARPS, 0,
-                      (cudaStream_t)stream>>>(b, s, Y, T, C, out);
-  return (int)cudaGetLastError();
+  if (Y <= 0 || T <= 0 || C <= 0 || (T + BD_M - 1) / BD_M > 65535 ||
+      (long long)Y * ((C + BD_N - 1) / BD_N) > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = T % 4 == 0 && C % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(vec ? bd_launch<4>(b, s, Y, T, C, out, st) : bd_launch<1>(b, s, Y, T, C, out, st));
 }
 
 extern "C" int bcd_probe_banded_loop(const float* b, const float* s, int Y, int T, int C,

@@ -4,19 +4,21 @@ Every ``.cu`` file is compiled by its own ``nvcc``, all started together
 (``csrc/solve_filter_smem.cu`` by one for each patch dimension it is built
 for and one for its C entries, ``SPLIT``; ``csrc/solve_filter_big.cu``,
 whose d is a runtime argument, is one unit), and the objects are linked into
-ONE shared library with a plain C interface
-(no PyTorch headers, so the build takes seconds) under ``build/kernels/``
-in the checkout, on first use, and loaded with ``ctypes``. The library's file name carries a hash of the sources and flags,
-so an edited kernel is rebuilt. Each C entry launches on the stream it is
-given, allocates nothing and returns ``cudaGetLastError()``; ``check``
+ONE shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds) under ``build/kernels/`` in the checkout, on first use,
+and loaded with ``ctypes``. The library's file name carries a hash of the
+sources, the headers they share (``csrc/*.cuh``) and the flags, so an edited
+kernel is rebuilt. Each C entry launches on the stream it is given,
+allocates nothing and returns ``cudaGetLastError()``; ``check``
 raises when that is not 0.
 
 Nothing here runs at import time: this module is imported on hosts with no
 ``nvcc`` and no card (the CPU tests), where the wrappers never reach it.
 
 ``LAUNCHES`` counts kernel launches per wrapper. A wrapper adds
-one where it calls its C entry, and nowhere else, so a run can show that
-the main path went through the hand-written kernels.
+one for each kernel its C entry launches, where it calls it, and nowhere
+else, so a run can show that the main path went through the hand-written
+kernels.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # engine's from d = 2187), and solve_matrices_big the same kernel as the lane
 # solve_matrices (every d but 27 and 75); probe_* are csrc/probes.cu's
 # microbenchmarks of the TPU-compiler probes, one counter a variant;
-# bisect_* csrc/bisect.cu's staged solve, one counter a stage
+# bisect_* csrc/bisect.cu's staged solve, one counter a stage (its
+# entry launches one kernel at m2, two from bd on)
 LAUNCHES = {"masks_moments": 0, "solve_matrices_pm": 0, "apply_scatter": 0,
             "solve_filter": 0, "solve_matrices": 0, "solve_filter_smem": 0,
             "solve_filter_243": 0, "solve_filter_363": 0,
@@ -115,8 +118,9 @@ _SIGNATURES = {
     # b, s, Y, T, C, out, stream (the loop: band before out)
     "bcd_probe_banded_mma": [_P, _P, _I, _I, _I, _P, _P],
     "bcd_probe_banded_loop": [_P, _P, _I, _I, _I, _I, _P, _P],
-    # csrc/bisect.cu: C, mask, noise, n, m, O, P, last stage, out, stream
-    "bcd_bisect": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # csrc/bisect.cu: C, mask, noise, n, m, O, P, last stage, the M2
+    # scratch, out, stream
+    "bcd_bisect": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # d, out (6 int64: shared bytes, shared rows, global rows, shared
     # vectors, global vector floats, slot floats a block) -> 0 or -1
     "bcd_solve_filter_big_layout": [_I, _P],
@@ -167,7 +171,7 @@ def _library_path():
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     digest.update(repr(sorted(SPLIT.items())).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return sources, BUILD_DIR / f"libbcd_kernels_{digest.hexdigest()[:16]}.so"
@@ -246,9 +250,10 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
 
 
-def launched(name: str, rc: int) -> None:
-    """Count a launch under ``name``, then raise if it failed."""
-    LAUNCHES[name] += 1
+def launched(name: str, rc: int, kernels: int = 1) -> None:
+    """Count the ``kernels`` launches of one call of a C entry under
+    ``name``, then raise if the call failed."""
+    LAUNCHES[name] += kernels
     check(rc, name)
 
 

@@ -4,6 +4,10 @@ script's inputs and an entry point that prints the script's line:
 
     python -m bcd_tpu_torch.ops.bisect [STAGE] [--device cpu]
 
+or, on a card, where the ``m2`` stage's time goes (``split``):
+
+    python -m bcd_tpu_torch.ops.bisect --split
+
 The script is a staged copy of the d = 27 ``solve_filter`` on one block of
 P = 128 pixels of O = 169 candidates, written to find which stage crashed
 the TPU compiler. For each pixel it writes row 0 of the matrix left after
@@ -16,8 +20,9 @@ one sweep does not converge, so the outputs depend on its schedule, which
 both versions here follow.
 
 ``bisect`` given CPU tensors returns the plain version; given CUDA tensors
-it launches the kernel, adds one to ``_build.LAUNCHES["bisect_<stage>"]``
-(``bisect_chol`` for a name outside ``STAGES``) and raises if the launch
+it launches the kernels, adds their number to
+``_build.LAUNCHES["bisect_<stage>"]`` (one at ``m2``, two from ``bd`` on;
+``bisect_chol`` for a name outside ``STAGES``) and raises if the launch
 fails. The entry point runs on the card unless asked for the CPU
 (``--device cpu``), and refuses without one; on the card it builds the
 kernels before its clock starts. Nothing here builds or launches at
@@ -27,9 +32,12 @@ import.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import math
+import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,6 +72,12 @@ def stage_index(stage: str) -> int:
     """The last stage that ``stage`` runs: its place in ``STAGES``, or the
     last for a name outside them."""
     return STAGES.index(stage) if stage in STAGES else len(STAGES) - 1
+
+
+def kernel_count(last: int) -> int:
+    """The kernels ``csrc/bisect.cu``'s entry launches to run the stages up
+    to ``STAGES[last]``: M2's, and from ``bd`` on the later stages'."""
+    return 1 if last == 0 else 2
 
 
 def bisect_inputs(dev):
@@ -105,6 +119,18 @@ def _rotate(x, c, s, dim: int):
     return torch.cat([c * top - s * bot, s * top + c * bot], dim)
 
 
+def m2_plain(C, mask):
+    """The masked second moments M2 (D, D, P) as the script sums them: over
+    o in order, each term (c_o w_o) c_o^T rounded as a product, then a
+    sum."""
+    o_count, d, p = C.shape
+    m2 = torch.zeros((d, d, p), dtype=C.dtype, device=C.device)
+    for o in range(o_count):
+        c_o = C[o]
+        m2 = m2 + (c_o * mask[o])[:, None, :] * c_o[None, :, :]
+    return m2
+
+
 def bisect_plain(C, mask, noise, n, m, stage: str = "m2"):
     """Row 0 (D, P) of the matrix after ``stage``, operation for operation
     the script's schedule (``scripts/bisect_kernel.py:28-138``) at the
@@ -112,12 +138,9 @@ def bisect_plain(C, mask, noise, n, m, stage: str = "m2"):
     sum of the matrix times a 0/1 mask, this indexes it (the same value).
     Nothing in it copies from the host, so a CUDA graph can capture it."""
     last = stage_index(stage)
-    o_count, d, p = C.shape
+    _, d, p = C.shape
     dt, dev = C.dtype, C.device
-    m2 = torch.zeros((d, d, p), dtype=dt, device=dev)
-    for o in range(o_count):
-        c_o = C[o]
-        m2 = m2 + (c_o * mask[o])[:, None, :] * c_o[None, :, :]
+    m2 = m2_plain(C, mask)
     if last == 0:
         return m2[0]
 
@@ -172,10 +195,13 @@ def bisect_plain(C, mask, noise, n, m, stage: str = "m2"):
 
 def bisect(C, mask, noise, n, m, stage: str = "m2"):
     """Row 0 (D, P) of the matrix after ``stage`` (``bisect_plain``'s
-    function): on CUDA tensors ``csrc/bisect.cu``'s kernel, one launch, 8
-    pixels a block; on CPU tensors the plain version. C (O, D, P), mask
-    (O, P), noise (6 NPX, P), n (1, P), m (D, P), float32, for any O and
-    P."""
+    function): on CUDA tensors ``csrc/bisect.cu``'s entry, counted as the
+    kernels it launches: M2 summed over the card (eight blocks for 8
+    pixels) into a scratch (D * D, P), then, from ``bd`` on, the later
+    stages in a second kernel (a block for 8 pixels); on CPU tensors the
+    plain version. C (O,
+    D, P), mask (O, P), noise (6 NPX, P), n (1, P), m (D, P), float32, for
+    any O and P."""
     dev = _build.check_inputs(("C", "mask", "noise", "n", "m"),
                               (C, mask, noise, n, m), (torch.float32,) * 5)
     if C.dim() != 3 or C.shape[1] != D:
@@ -192,11 +218,12 @@ def bisect(C, mask, noise, n, m, stage: str = "m2"):
     if p == 0:
         return out
     last = stage_index(stage)
+    m2 = torch.empty((D * D, p), device=dev)
     p_ = _build.ptr
     rc = _build.library().bcd_bisect(
-        p_(C), p_(mask), p_(noise), p_(n), p_(m), o_count, p, last, p_(out),
-        _build.stream_of(C))
-    _build.launched(f"bisect_{STAGES[last]}", rc)
+        p_(C), p_(mask), p_(noise), p_(n), p_(m), o_count, p, last, p_(m2),
+        p_(out), _build.stream_of(C))
+    _build.launched(f"bisect_{STAGES[last]}", rc, kernel_count(last))
     return out
 
 
@@ -206,6 +233,15 @@ def m2_library(C, mask):
     C[o, l, p]``, an einsum (its own order of sums). No call computes the
     later stages (a staged solve). C (O, D, P), mask (O, P)."""
     return torch.einsum("op,op,olp->lp", C[:, 0], mask, C)
+
+
+def m2_full_library(C, mask):
+    """The whole of the masked second moments in one PyTorch call, M2 (D,
+    D, P) = ``sum_o C[o, i, p] mask[o, p] C[o, j, p]``, an einsum: what
+    forming all 729 entries, as every stage of the kernel does, costs in
+    PyTorch (the ``m2`` stage itself is judged against ``m2_library``,
+    which computes its function). C (O, D, P), mask (O, P)."""
+    return torch.einsum("oip,op,ojp->ijp", C, mask, C)
 
 
 def rel_err(got, ref) -> float:
@@ -224,8 +260,9 @@ class Reading:
     plain version; the kernel's and the plain version's ms a call, launched
     from Python (``ms``, ``plain_ms``) and replayed from a CUDA graph
     (``graph_ms``, ``plain_graph_ms``); ``library`` (ms launched, ms in a
-    graph) of ``m2_library`` at ``m2``, else None; ``bound`` (ms, what sets
-    it); ``line``, the report."""
+    graph) of ``m2_library`` at ``m2``, else None; ``full_library`` the same
+    of ``m2_full_library`` (the whole M2) at ``m2``; ``bound`` (ms, what
+    sets it); ``line``, the report."""
 
     stage: str
     ok: bool
@@ -237,6 +274,7 @@ class Reading:
     plain_ms: float
     plain_graph_ms: float
     library: tuple[float, float] | None
+    full_library: tuple[float, float] | None
     bound: tuple[float, str]
     line: str
 
@@ -245,8 +283,9 @@ def measure(dev) -> list[Reading]:
     """Each stage on the script's inputs on ``dev``: the kernel held to its
     plain version there and to the plain version in float64, then timed
     with both timers of ``probe_library`` beside its bound and its plain
-    version; at ``m2`` also its library call (``m2_library``), held to
-    float64 within the stage's tolerance and timed the same way."""
+    version; at ``m2`` also its library call (``m2_library``) and the whole
+    M2's (``m2_full_library``), each held to float64 within the stage's
+    tolerance and timed the same way."""
     inputs = bisect_inputs(dev)
     inputs64 = tuple(t.double() for t in inputs)
     limits = bounds.bisect_stages()
@@ -264,16 +303,23 @@ def measure(dev) -> list[Reading]:
         plain_ms = probe_library.cuda_ms(plain_fn, PLAIN_REPS)
         plain_graph = probe_library.graph_ms(plain_fn, PLAIN_REPS)
         lim, by = limits[stage]
-        library, lib_text = None, ("none (no PyTorch call computes a staged "
-                                   "solve)")
+        library, full, lib_text = None, None, (
+            "none (no PyTorch call computes a staged solve)")
         if stage == "m2":
             lib = lambda: m2_library(*inputs[:2])  # noqa: E731
+            lib_full = lambda: m2_full_library(*inputs[:2])  # noqa: E731
             lib_err = rel_err(lib(), ref64)
-            ok = ok and lib_err <= TOLERANCE[stage]
+            full_err = rel_err(lib_full(), m2_plain(*inputs64[:2]))
+            ok = ok and max(lib_err, full_err) <= TOLERANCE[stage]
             library = (probe_library.cuda_ms(lib), probe_library.graph_ms(lib))
+            full = (probe_library.cuda_ms(lib_full),
+                    probe_library.graph_ms(lib_full))
             lib_text = (f"the einsum {library[1]:.4f} ms in a graph, "
                         f"{library[0]:.4f} ms launched, {lib_err:.3e} from "
-                        f"float64; the kernel {graph / library[1]:.2f}x it")
+                        f"float64; the kernel {graph / library[1]:.2f}x it; "
+                        f"the whole M2's einsum {full[1]:.4f} ms in a graph, "
+                        f"{full[0]:.4f} ms launched, {full_err:.3e} from "
+                        f"float64")
         line = (f"bisect_{stage}: vs its plain version {err:.3e} (max abs "
                 f"{max_abs:.3e}), vs float64 {err64:.3e} of the largest "
                 f"magnitude (limit {TOLERANCE[stage]:g}"
@@ -283,9 +329,62 @@ def measure(dev) -> list[Reading]:
                 f"({by}), {graph / lim:.1f}x; plain {plain_graph:.4f} ms in a "
                 f"graph, {plain_ms:.4f} ms launched; library call {lib_text}")
         readings.append(Reading(stage, ok, err, err64, max_abs, ms, graph,
-                                plain_ms, plain_graph, library, (lim, by),
-                                line))
+                                plain_ms, plain_graph, library, full,
+                                (lim, by), line))
     return readings
+
+
+# ``split``'s builds of the kernel, by the value of BCD_BISECT_CUT: as it
+# is, its M2 staging alone (no products), its M2 products alone (no staging)
+CUTS = {"kernel": 0, "no products": 1, "no staging": 2}
+SPLIT_DIR = _build.BUILD_DIR.parent / "bisect_split"
+
+
+def _build_cut(cut: int):
+    """``csrc/bisect.cu`` built with BCD_BISECT_CUT = ``cut``, loaded."""
+    lib = SPLIT_DIR / f"bisect_cut{cut}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DBCD_BISECT_CUT={cut}",
+           "-shared", "-o", str(lib), str(_build.CSRC / "bisect.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)}: rc {proc.returncode}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    loaded = ctypes.CDLL(str(lib))
+    loaded.bcd_bisect.argtypes = _build._SIGNATURES["bcd_bisect"]
+    return loaded
+
+
+def split() -> list[str]:
+    """Where the ``m2`` stage's time goes, on one card: ``csrc/bisect.cu``
+    built as it is and with its M2 products or its M2 staging left out
+    (``CUTS``; the cut builds compute wrong numbers on purpose), each into
+    a library of its own under ``build/bisect_split/`` (all at once), and
+    stages ``m2`` and ``chol`` of each timed on the script's inputs with
+    both of ``probe_library``'s timers, in the order of ``CUTS`` and then
+    back. Returns the report's lines."""
+    SPLIT_DIR.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(CUTS)) as pool:
+        built = dict(zip(CUTS, pool.map(_build_cut, CUTS.values())))
+    dev = torch.device("cuda")
+    inputs = bisect_inputs(dev)
+    o_count, _, p = inputs[0].shape
+    out = torch.empty((D, p), device=dev)
+    m2 = torch.empty((D * D, p), device=dev)
+    ptrs = [_build.ptr(t) for t in inputs]
+    lines = []
+    for name in [*CUTS, *reversed(CUTS)]:
+        for stage in ("m2", "chol"):
+
+            def run(lib=built[name], last=STAGES.index(stage)):
+                _build.check(lib.bcd_bisect(*ptrs, o_count, p, last,
+                                            _build.ptr(m2), _build.ptr(out),
+                                            _build.stream_of(out)),
+                             "bisect_kernel")
+
+            lines.append(f"{name}, {stage}: {probe_library.graph_ms(run):.4f}"
+                         f" ms in a graph, {probe_library.cuda_ms(run):.4f} "
+                         f"ms launched")
+    return lines
 
 
 def main(argv=None) -> int:
@@ -299,12 +398,23 @@ def main(argv=None) -> int:
                          "other name runs every stage")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain version)")
+    ap.add_argument("--split", action="store_true",
+                    help="on the card: time stages m2 and chol of the "
+                         "kernel as it is, without its M2 products and "
+                         "without its M2 staging (``split``)")
     args = ap.parse_args(argv)
     try:
         dev = resolve_device(args.device)
     except ValueError as e:
         print(f"ERROR: {e}")
         return 1
+    if args.split:
+        if dev.type != "cuda":
+            print("ERROR: --split times the kernel: it needs the card")
+            return 1
+        for line in split():
+            print(line, flush=True)
+        return 0
     inputs = bisect_inputs(dev)
     if dev.type == "cuda":
         _build.library()

@@ -31,9 +31,10 @@ power limit.
   that are multiples of 8 rows) or unaligned (13 windows) (``mosaic``).
   Plain: the window sums in the script's order.
 - banded dot (``scripts/probe_banded_dot.py``): (60, 64, 64) 0/1 band
-  matrices times (60, 64, 768) slabs, batched on the tensor cores or as a
-  loop of FMAs over the band (``banded_dot``). Plain: ``torch.bmm`` in
-  float32 with TF32 off.
+  matrices times (60, 64, 768) slabs, batched on the tensor cores (B and
+  S staged in shared memory; ``banded_mma_model`` is the plain model of
+  its sums) or as a loop of FMAs over the band (``banded_dot``). Plain:
+  ``torch.bmm`` in float32 with TF32 off.
 
 A wrapper given CPU tensors returns its plain version; given CUDA tensors
 it launches its kernel, adds one to its counter in ``_build.LAUNCHES`` (the
@@ -250,12 +251,35 @@ def banded_plain(b, s):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def banded_mma_model(b, s):
+    """O (Y, T, C) as the batched kernel sums it (``csrc/probes.cu``'s
+    ``banded_mma_kernel``): s split into its three TF32 parts
+    (``split3``), b rounded to TF32 (``tf32_rna``; its 0/1 values are
+    exact), and one float32 accumulator for each output, to which, for each
+    k-step of 8 columns of b in order, the step's products with the lo, the
+    mid and then the hi part are added, each the exact sum of its 8
+    products (float64 here; each product of two TF32 values is exact) and
+    each addition rounded to float32. The tensor cores round a step's sum
+    as they do, so the kernel holds to this within fp32 rounding, not bit
+    for bit."""
+    n_y, t, c = s.shape
+    b64 = tf32_rna(b).double()
+    parts = [x.double() for x in reversed(split3(s))]  # lo, mid, hi
+    acc = torch.zeros((n_y, t, c), dtype=torch.float32, device=s.device)
+    for k0 in range(0, t, 8):
+        bk = b64[:, :, k0:k0 + 8]
+        for part in parts:
+            acc = (acc.double() + torch.bmm(bk, part[:, k0:k0 + 8])).float()
+    return acc
+
+
 def banded_dot(b, s, batched: bool, band: int = BAND):
     """O[y] = B[y] S[y] for 0/1 band matrices b (Y, T, T), zero outside
-    |i - k| <= ``band``, and s (Y, T, C): ``batched`` on the tensor cores
-    over the whole T x T matrix (mma.sync TF32, s split into three TF32
-    parts; T a multiple of 16 and C of 32 on the card), else a loop of FMAs
-    over the band."""
+    |i - k| <= ``band``, and s (Y, T, C), any shapes: ``batched`` on the
+    tensor cores over the whole T x T matrix (mma.sync TF32 from B and S
+    staged in shared memory, s split into three TF32 parts once, one
+    accumulator: ``banded_mma_model``), else a loop of FMAs over the
+    band."""
     dev = _build.check_inputs(("b", "s"), (b, s), (torch.float32,) * 2)
     if b.dim() != 3 or s.dim() != 3 or b.shape[0] != s.shape[0] \
             or b.shape[1] != b.shape[2] or s.shape[1] != b.shape[1]:
@@ -264,8 +288,6 @@ def banded_dot(b, s, batched: bool, band: int = BAND):
     if dev.type == "cpu":
         return banded_plain(b, s)
     n_y, t, c = s.shape
-    if batched and (t % 16 or c % 32):
-        raise ValueError(f"T = {t} must be a multiple of 16, C = {c} of 32")
     out = torch.empty((n_y, t, c), device=dev)
     lib, p = _build.library(), _build.ptr
     if batched:

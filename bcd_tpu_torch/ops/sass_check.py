@@ -103,6 +103,13 @@ def transpose_kernels(sass: str) -> dict[str, list[str]]:
                       + str(4 * int(m.group(2))))
 
 
+def banded_kernels(sass: str) -> dict[str, list[str]]:
+    """``csrc/probes.cu``'s ``banded_mma_kernel`` SASS by instance: the
+    bytes a copy, "16" or "4" (``_by_kernel``)."""
+    return _by_kernel(sass, r"banded_mma_kernelILi([14])E",
+                      lambda m: str(4 * int(m.group(1))))
+
+
 def compare_big(other: Path) -> dict[str, str]:
     """Compile ``csrc/solve_filter_big.cu`` and ``other`` (under this file's
     name) with the library's flags and print each instance of

@@ -193,13 +193,17 @@ non-zero before the final line:
    shapes against its plain version (B, C and D bit for bit, the others
    within fp32 rounding) and the float64 reference (transpose A's
    exactness both ways), timed beside its bound, its plain version and the
-   one PyTorch call that computes its function, where there is one.
+   one PyTorch call that computes its function, where there is one;
+   transpose A and D at a ragged P, the batched banded dot at two ragged
+   shapes.
 19. scripts/bisect_kernel.py's staged d = 27 solve (csrc/bisect.cu,
    ops/bisect.py; launch counters bisect_m2 to bisect_chol): each of its
    five stages driven once on the script's inputs (128 pixels of 169
-   candidates), then against its plain version on the card and in float64
-   (1e-6 of the largest magnitude at m2 and bd, 2e-4 from the Jacobi on),
-   timed beside its bound and its plain version.
+   candidates), then bit for bit its plain version on the card and within
+   1e-6 of the largest magnitude of float64 at m2 and bd, 2e-4 from the
+   Jacobi on, timed beside its bound and its plain version, m2 also beside
+   the einsum of row 0 and the einsum of the whole M2; then every stage at
+   P = 77, 8 and 1, bit for bit.
 
 Phases 18 and 19 time each kernel, plain version and library call two
 ways, launched from Python and replayed from one CUDA graph
@@ -777,6 +781,13 @@ LANE_CONSISTENT_RMS = 2e-4
 # second word of its name
 # transpose A and D also at a P that their 128-pixel tile does not divide
 PROBE_RAGGED_P = 2272
+# the batched banded dot also at (Y, T, C) that its 64 x 128 tile does not
+# divide: on 16-byte copies, and on 4-byte ones (C, or T, not a multiple of
+# 4: B's rows, or S's, do not all start on 16 bytes)
+BANDED_RAGGED = ((3, 32, 96), (2, 40, 90), (2, 30, 96))
+# the staged solve also at P that no group of 8 pixels divides (77, 1) and
+# at one group (8), each stage bit for bit its plain version
+BISECT_RAGGED_P = (77, 8, 1)
 PROBE_SCRIPTS = {"transpose": "scripts/probe_transpose.py:86",
                  "mosaic": "scripts/probe_mosaic.py:65",
                  "banded": "scripts/probe_banded_dot.py:52"}
@@ -2673,8 +2684,11 @@ def probe_phase(dev):
     PyTorch call that computes its function. Then transpose A and D at a
     P that their 128-pixel tile does not divide (``PROBE_RAGGED_P``), one
     launch each, bit for bit their plain version and exact against
-    float64. Returns ({name: (max abs err, ms, plain ms, bound, library
-    ms)}, launches), the times those of a CUDA graph's replay."""
+    float64, and the batched banded dot at shapes its tile does not divide
+    (``BANDED_RAGGED``), one launch each, within fp32 rounding of its plain
+    version and of float64. Returns ({name: (max abs err, ms, plain ms,
+    bound, library ms)}, launches), the times those of a CUDA graph's
+    replay."""
     import torch
     from bcd_tpu_torch.ops import _build, probe_library, probes
 
@@ -2713,19 +2727,47 @@ def probe_phase(dev):
               f"its plain version, max abs {err64:.3e} from float64",
               flush=True)
         need(bitwise and err64 == 0.0, f"{name} at P = {PROBE_RAGGED_P}")
+    rng = np.random.default_rng(11)
+    for n_y, t, c in BANDED_RAGGED:
+        b = torch.tensor(rng.random((n_y, t, t)) < 0.5, dtype=torch.float32,
+                         device=dev)
+        s = torch.tensor(rng.random((n_y, t, c)), dtype=torch.float32,
+                         device=dev)
+        _build.reset_launches()
+        got = probes.banded_dot(b, s, True)
+        torch.cuda.synchronize()
+        need(_build.LAUNCHES["probe_banded_batched"] == 1
+             and sum(_build.LAUNCHES.values()) == 1,
+             f"probe_banded_batched at {(n_y, t, c)} did not launch once, "
+             "alone")
+        plain = probes.banded_plain(b, s)
+        limit = probe_library.FP32_REL * float(plain.abs().max())
+        err = probes.max_err((got,), (plain,))
+        err64 = probes.max_err((got,), (torch.bmm(b.double().cpu(),
+                                                  s.double().cpu()),))
+        print(f"[18] (b) probe_banded_batched at (Y, T, C) = {(n_y, t, c)} "
+              f"(the 64 x 128 tile does not divide it): max abs {err:.3e} "
+              f"from its plain version, {err64:.3e} from float64 (limit "
+              f"{limit:.3e})", flush=True)
+        need(max(err, err64) <= limit,
+             f"probe_banded_batched at {(n_y, t, c)}")
     return res, launches
 
 
 def bisect_phase(dev):
     """Phase 19: scripts/bisect_kernel.py's staged solve
     (``ops/bisect.py``, ``csrc/bisect.cu``) on the script's inputs: each
-    stage driven once (one ``bisect_<stage>`` launch each, nothing else),
-    then measured by ``bisect.measure``: held to its plain version on the
-    card and to its float64 run within ``bisect.TOLERANCE``, timed in a
+    stage driven once (``bisect.kernel_count`` launches under each
+    ``bisect_<stage>``: M2's kernel, and from ``bd`` on the later stages';
+    nothing else),
+    then measured by ``bisect.measure``: bit for bit its plain version on
+    the card and within ``bisect.TOLERANCE`` of its float64 run, timed in a
     CUDA graph and launched from Python beside its bound and plain version,
-    and ``m2`` beside its library call (``bisect.m2_library``, an einsum).
-    Returns ({"bisect_<stage>": (max abs err, ms, plain ms, bound, library
-    ms or None)}, launches)."""
+    and ``m2`` beside its library call (``bisect.m2_library``, an einsum of
+    row 0) and the whole M2's (``bisect.m2_full_library``). Then every
+    stage at the P of ``BISECT_RAGGED_P``, bit for bit. Returns
+    ({"bisect_<stage>": (max abs err, ms, plain ms, bound, library ms or
+    None)}, launches)."""
     import torch
     from bcd_tpu_torch.ops import _build, bisect
 
@@ -2738,16 +2780,30 @@ def bisect_phase(dev):
     launches = dict(_build.LAUNCHES)
     print(f"[19] the staged solve, each stage once: launches "
           f"{ {k: n for k, n in launches.items() if n} }", flush=True)
-    need(all(launches[f"bisect_{s}"] == 1 for s in bisect.STAGES)
-         and sum(launches.values()) == len(bisect.STAGES),
-         "the staged solve did not launch each stage's kernel once, alone")
+    counts = {f"bisect_{s}": bisect.kernel_count(i)
+              for i, s in enumerate(bisect.STAGES)}
+    need(all(launches[k] == n for k, n in counts.items())
+         and sum(launches.values()) == sum(counts.values()),
+         "the staged solve did not launch each stage's kernels once, alone")
     res = {}
     for r in bisect.measure(dev):
         print(f"[19] {r.line}", flush=True)
-        need(r.ok, f"bisect_{r.stage} against its plain version and float64")
+        need(r.ok and r.max_abs_err == 0.0,
+             f"bisect_{r.stage} bit for bit its plain version, and against "
+             "float64")
         res[f"bisect_{r.stage}"] = (r.max_abs_err, r.graph_ms,
                                     r.plain_graph_ms, r.bound,
                                     r.library[1] if r.library else None)
+    for p in BISECT_RAGGED_P:
+        x = [t[..., :p].contiguous() for t in inputs]
+        bitwise = [torch.equal(bisect.bisect(*x, stage),
+                               bisect.bisect_plain(*x, stage))
+                   for stage in bisect.STAGES]
+        print(f"[19] at P = {p}: "
+              + ", ".join(f"{stage} {'bit for bit' if ok else 'NOT'}"
+                          for stage, ok in zip(bisect.STAGES, bitwise))
+              + " its plain version", flush=True)
+        need(all(bitwise), f"the staged solve at P = {p}")
     return res, launches
 
 
@@ -3306,9 +3362,11 @@ def main() -> int:
         if ("Compiling entry" in line or "Used" in line or "spill" in line
                 or line.startswith("nvcc ")):
             print("    " + line.strip(), flush=True)
-    # K2's Jacobi and the transpose's wgmma accumulator live in registers
+    # K2's Jacobi, the transpose's wgmma accumulator, the banded dot's mma
+    # accumulators and the staged solve's sums live in registers
     for name, instances in (("solve_matrices_pm_kernel", 1),
-                            ("transpose_wgmma_kernel", 4)):
+                            ("transpose_wgmma_kernel", 4),
+                            ("banded_mma_kernel", 2), ("bisect", 3)):
         report = _build.ptxas_report(log, name)
         need(len(report) == instances, f"no -Xptxas -v report for {name}")
         for entry, (regs, stack, stores, loads) in report.items():

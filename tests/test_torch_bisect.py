@@ -203,3 +203,38 @@ def test_m2_library_call_is_the_m2_stage(p):
     assert got.shape == (tb.D, p) and got.dtype == torch.float32
     ref64 = tb.bisect_plain(*(t.double() for t in x), "m2")
     assert tb.rel_err(got, ref64) <= tb.TOLERANCE["m2"]
+
+
+@pytest.mark.parametrize("p", [128, 77])
+def test_m2_full_library_call_is_the_whole_m2(p):
+    """The one PyTorch call that forms all 729 entries of M2, as every stage
+    of the kernel does (``m2_full_library``, an einsum; phase 19 times it
+    beside the row-0 call), on the script's inputs: within the ``m2``
+    stage's tolerance of the plain version's whole M2 (``m2_plain``, which
+    ``bisect_plain`` sums) in float32 and in float64; that M2's row 0 is the
+    ``m2`` stage's output."""
+    x = [t[..., :p].contiguous() for t in tb.bisect_inputs(CPU)]
+    got = tb.m2_full_library(*x[:2])
+    assert got.shape == (tb.D, tb.D, p) and got.dtype == torch.float32
+    plain = tb.m2_plain(*x[:2])
+    assert torch.equal(plain[0], tb.bisect_plain(*x, "m2"))
+    assert tb.rel_err(got, plain) <= tb.TOLERANCE["m2"]
+    ref64 = tb.m2_plain(*(t.double() for t in x[:2]))
+    assert tb.rel_err(got, ref64) <= tb.TOLERANCE["m2"]
+
+
+def test_kernel_count_follows_the_stages():
+    """The entry launches M2's kernel alone at ``m2`` and the later stages'
+    after it from ``bd`` on; the wrapper counts both, and a name outside
+    the stages counts as ``chol``."""
+    assert [tb.kernel_count(i) for i in range(len(tb.STAGES))] == \
+        [1, 2, 2, 2, 2]
+    assert tb.kernel_count(tb.stage_index("solve")) == 2
+
+
+def test_split_needs_the_card(capsys):
+    """``--split`` times the kernel's copies on the card: asked for the CPU
+    it refuses, building nothing."""
+    assert tb.main(["--split", "--device", "cpu"]) == 1
+    assert "needs the card" in capsys.readouterr().out
+    assert tb.CUTS == {"kernel": 0, "no products": 1, "no staging": 2}

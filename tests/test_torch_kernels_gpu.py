@@ -1373,20 +1373,77 @@ def test_transpose_kernel_is_wgmma_and_does_not_spill(cuda):
         assert not any(" HMMA." in line for line in lines), name
 
 
+@pytest.mark.parametrize("shape", [(3, 32, 96), (2, 40, 90), (2, 30, 96),
+                                   (2, 80, 200)])
+def test_banded_mma_at_a_ragged_shape(cuda, shape):
+    """The batched banded dot at shapes its 64 x 128 tile does not divide:
+    (3, 32, 96) on its 16-byte copies, (2, 40, 90) and (2, 30, 96) on its
+    4-byte ones (C not a multiple of 4; T not one, so that B's rows do not
+    all start on 16 bytes), (2, 80, 200) with two row tiles and two chunks
+    of K. One launch; within ``FP32_REL`` of the plain version's largest
+    magnitude from the plain version, from the plain model of its sums
+    (``banded_mma_model``) and from float64."""
+    from bcd_tpu_torch.ops import _build, probes
+    from bcd_tpu_torch.ops.probe_library import FP32_REL
+
+    n_y, t, c = shape
+    rng = np.random.default_rng(11)
+    b = torch.tensor(rng.random((n_y, t, t)) < 0.5, dtype=torch.float32,
+                     device=cuda)
+    s = torch.tensor(rng.random((n_y, t, c)), dtype=torch.float32,
+                     device=cuda)
+    _build.reset_launches()
+    got = probes.banded_dot(b, s, True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["probe_banded_batched"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    plain = probes.banded_plain(b, s)
+    limit = FP32_REL * float(plain.abs().max())
+    ref64 = torch.bmm(b.double().cpu(), s.double().cpu())
+    model = probes.banded_mma_model(b, s)
+    for name, want in (("plain", plain), ("model", model), ("float64", ref64)):
+        err = probes.max_err((got,), (want,))
+        print(f"banded {shape}: {err:.3e} from the {name} (limit {limit:.3e})")
+        assert err <= limit, name
+
+
+def test_banded_mma_kernel_is_hmma_and_does_not_spill(cuda):
+    """Both instances of ``banded_mma_kernel`` (16- and 4-byte copies) in
+    the built library: its SASS holds ``HMMA`` (mma.sync) and ``LDGSTS``
+    (cp.async), and ``-Xptxas -v`` reports no spill."""
+    from bcd_tpu_torch.ops import _build, sass_check
+
+    report = _build.ptxas_report(_build.build_log(), "banded_mma_kernel")
+    assert len(report) == 2, report
+    for entry, (regs, _, stores, loads) in report.items():
+        print(f"{entry}: {regs} registers, spill stores {stores}, loads "
+              f"{loads}")
+        assert stores == loads == 0, entry
+    sass = sass_check.banded_kernels(sass_check.run(
+        [sass_check.tool("cuobjdump"), "-sass", _build._library_path()[1]]))
+    assert set(sass) == {"16", "4"}
+    for name, lines in sass.items():
+        assert any(" HMMA." in line for line in lines), name
+        assert any(" LDGSTS" in line for line in lines), name
+
+
 # ---------------------------------------------------------------------------
 # scripts/bisect_kernel.py's staged solve (csrc/bisect.cu)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("p", [128, 77])
+@pytest.mark.parametrize("p", [128, 77, 8, 1])
 @pytest.mark.parametrize("stage", ["m2", "bd", "jacobi", "recon", "chol",
                                    "solve"])
 def test_bisect_stage_matches_its_plain_version(cuda, stage, p):
     """Each stage of the staged solve on the script's inputs, its first
-    ``p`` pixels (77: no block of 8 pixels divides it), one launch counted
-    under the stage (a name outside the stages runs the last, ``chol``):
-    against the plain version on the card and in float64, within
-    ``bisect.TOLERANCE`` of the largest magnitude."""
+    ``p`` pixels (77 and 1: no group of 8 pixels divides them, nor 4, so
+    M2's copies are 4 bytes; 128 and 8 on 16-byte ones), counted under the
+    stage as the kernels the entry launches (a name outside the stages runs
+    the last, ``chol``): M2's at ``m2``, and from ``bd`` on the later
+    stages' after it, two: bit for bit the plain version on the card, and
+    within ``bisect.TOLERANCE`` of the largest magnitude from it in
+    float64."""
     from bcd_tpu_torch.ops import _build
     from bcd_tpu_torch.ops import bisect as tb
 
@@ -1395,14 +1452,71 @@ def test_bisect_stage_matches_its_plain_version(cuda, stage, p):
     got = tb.bisect(*x, stage)
     torch.cuda.synchronize()
     last = tb.STAGES[tb.stage_index(stage)]
-    assert _build.LAUNCHES[f"bisect_{last}"] == 1
-    assert sum(_build.LAUNCHES.values()) == 1, _build.LAUNCHES
+    kernels = 1 if last == "m2" else 2
+    assert tb.kernel_count(tb.stage_index(stage)) == kernels
+    assert _build.LAUNCHES[f"bisect_{last}"] == kernels
+    assert sum(_build.LAUNCHES.values()) == kernels, _build.LAUNCHES
     assert got.shape == (tb.D, p) and bool(torch.isfinite(got).all())
-    err = tb.rel_err(got, tb.bisect_plain(*x, stage))
+    plain = tb.bisect_plain(*x, stage)
+    err = tb.rel_err(got, plain)
     err64 = tb.rel_err(got, tb.bisect_plain(*(t.double() for t in x), stage))
     print(f"bisect {stage} at P = {p}: {err:.3e} from the plain version, "
           f"{err64:.3e} from float64 (limit {tb.TOLERANCE[last]:g})")
+    assert torch.equal(got, plain)
     assert max(err, err64) <= tb.TOLERANCE[last]
+
+
+@pytest.mark.parametrize("o_count", [0, 400])
+def test_bisect_past_the_ring(cuda, o_count):
+    """M2's kernel stages 176 candidates at once (11 stages of 16): with
+    none, and with 400 (its ring refilled past 176, each stage issued 10
+    ahead), on random inputs at P = 77, every stage bit for bit the plain
+    version."""
+    from bcd_tpu_torch.ops import bisect as tb
+
+    rng = np.random.default_rng(5)
+    c = rng.standard_normal((o_count, tb.D, 77))
+    mask = rng.random((o_count, 77)) < 0.7
+    n = mask.sum(0, keepdims=True).astype(np.float64)
+    m = (c * mask[:, None]).sum(0) / np.maximum(n, 1.0)
+    x = [torch.tensor(a, dtype=torch.float32, device=cuda)
+         for a in (c, mask, rng.random((6 * tb.NPX, 77)) * 0.1, n, m)]
+    for stage in tb.STAGES:
+        assert torch.equal(tb.bisect(*x, stage), tb.bisect_plain(*x, stage)), \
+            stage
+
+
+@pytest.mark.parametrize("stage", ["m2", "bd"])
+def test_bisect_past_65535_pixel_groups(cuda, stage):
+    """M2's kernel puts the groups of 8 pixels on its grid's x, so P is not
+    held to 65,535 groups (grid y's limit): at P = 8 x 65,536 + 5 on two
+    candidates, stages ``m2`` and ``bd`` (both kernels) bit for bit the
+    plain version."""
+    from bcd_tpu_torch.ops import bisect as tb
+
+    p = 8 * 65536 + 5
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    c = torch.randn((2, tb.D, p), device=cuda, generator=gen)
+    mask = (torch.rand((2, p), device=cuda, generator=gen) < 0.7).float()
+    noise = torch.rand((6 * tb.NPX, p), device=cuda, generator=gen) * 0.1
+    n = mask.sum(0, keepdim=True)
+    m = (c * mask[:, None]).sum(0) / n.clamp(min=1.0)
+    x = (c, mask, noise, n, m)
+    assert torch.equal(tb.bisect(*x, stage), tb.bisect_plain(*x, stage))
+
+
+def test_bisect_kernels_do_not_spill(cuda):
+    """The staged solve's two kernels (M2's, with 16- and 4-byte copies, and
+    the later stages') in the built library: ``-Xptxas -v`` reports no
+    spill."""
+    from bcd_tpu_torch.ops import _build
+
+    report = _build.ptxas_report(_build.build_log(), "bisect")
+    assert len(report) == 3, report
+    for entry, (regs, _, stores, loads) in report.items():
+        print(f"{entry}: {regs} registers, spill stores {stores}, loads "
+              f"{loads}")
+        assert stores == loads == 0, entry
 
 
 def test_cli_accepts_radius_4_at_b6_on_cuda(cuda, tmp_path):

@@ -5,8 +5,11 @@ against an exact rounding in fractions, the three-part split of m2
 (``probes.split3``) summed back in the kernel's order, the expansion
 matrix exact in TF32, and the three products summed as the kernel sums
 them (``transpose_mma_model``) giving the plain version's lanes bit for
-bit. The kernel itself is held to the plain version on the card
-(tests/test_torch_kernels_gpu.py, chip_smoke.py phase 18)."""
+bit. Then the batched banded dot's (csrc/probes.cu's banded_mma_kernel)
+order of sums, ``probes.banded_mma_model``: S's three parts, each k-step's
+products with a 0/1 B, one accumulator, held to the plain version and to
+float64. The kernels themselves are held to their plain versions on the
+card (tests/test_torch_kernels_gpu.py, chip_smoke.py phase 18)."""
 
 import math
 from fractions import Fraction
@@ -133,3 +136,49 @@ def test_transpose_mma_floor_is_three_tf32_products():
     assert floor > variants["probe_transpose_a"][0]
     assert floor > variants["probe_transpose_d"][0]
     assert bounds.transpose_mma_floor(96) == pytest.approx(floor / 24)
+
+
+def _banded(shape, seed: int = 4):
+    """0/1 B (Y, T, T), a 13-wide band as the script's, and S (Y, T, C)."""
+    n_y, t, c = shape
+    rng = np.random.default_rng(seed)
+    ri, ci = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+    band = (rng.random((n_y, t, t)) < 0.5) & (np.abs(ri - ci) <= 6)
+    return (torch.tensor(band, dtype=torch.float32),
+            torch.tensor(rng.random((n_y, t, c)), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("shape", ["script", (3, 32, 96), (2, 40, 90),
+                                   (2, 30, 96)])
+def test_banded_mma_model_holds_to_plain_and_float64(shape):
+    """(d) The batched banded kernel's order of sums
+    (``probes.banded_mma_model``: S split into three TF32 parts, each
+    k-step of 8 adding its lo, mid and hi products to one float32
+    accumulator) on the script's inputs and at ragged shapes: within
+    ``FP32_REL`` of the plain version's largest magnitude from the plain
+    version and from float64, and its B exact in TF32 (0/1), so that every
+    product is exact."""
+    if shape == "script":
+        b, s = probe_library.banded_inputs(torch.device("cpu"))
+    else:
+        b, s = _banded(shape)
+    assert torch.equal(b, tp.tf32_rna(b))
+    got = tp.banded_mma_model(b, s)
+    plain = tp.banded_plain(b, s)
+    assert got.dtype == torch.float32 and got.shape == plain.shape
+    limit = probe_library.FP32_REL * float(plain.abs().max())
+    ref64 = torch.bmm(b.double(), s.double())
+    assert float((got.double() - plain.double()).abs().max()) <= limit
+    assert float((got.double() - ref64).abs().max()) <= limit
+
+
+def test_banded_mma_model_one_step_is_exact():
+    """(e) Where T is one k-step (8), the model's lo, mid and hi products
+    summed in that order into one accumulator give float64's sum to within
+    one float32 rounding of each addition: the three parts are S exactly
+    (``split3``), so only the accumulator's roundings part the two."""
+    b, s = _banded((2, 8, 64), seed=9)
+    got = tp.banded_mma_model(b, s).double()
+    ref64 = torch.bmm(b.double(), s.double())
+    ulp = torch.finfo(torch.float32).eps * ref64.abs().clamp(min=1e-30)
+    assert bool(((got - ref64).abs() <= 2 * ulp).all())
